@@ -9,9 +9,12 @@ non-zero (and prints no result) otherwise, or on any failure.
      seconds;
   2. kernel parity: each of B1-B3 (slice, projection, per-level
      histogram) against its plain torch twin on the card, bitwise, and
-     against the port's host numpy reducers — on small Sedov trees
-     (R=16 and 64; R=16 forces sub-pixel collisions), on an owner-masked
-     3-way partition, and on the full Orion tree (649,385 nodes, R=512);
+     against the port's host numpy reducers, and B4/B5 (the carry-seeded
+     slice and projection) chained over BFS tiles against their seeded
+     twins (image and depth, bitwise) and against one-shot B1/B2 — on
+     small Sedov trees (R=16 and 64; R=16 forces sub-pixel collisions;
+     512-row tiles), on an owner-masked 3-way partition, and on the full
+     Orion tree (649,385 nodes, R=512, 16384-row tiles);
   3. main path: ``InTransitEngine(device_reduce=True, device="cuda")``
      over the Orion tree with the 512-res slice/projection/histogram DAG,
      then the CLI's default DAG (LOD cut, slice, slice-of-LOD,
@@ -19,10 +22,19 @@ non-zero (and prints no result) otherwise, or on any failure.
      engine and through ``python -m repro_torch.launch.insitu``. Each
      catalog must be bit-equal to a host-engine run, no snapshot may fall
      back to the host, and every kernel's launch counter must move;
-  4. times at the full size: the device-reduce wall per step and bytes
-     to the host per step, where a step's time goes (the engine's spans
-     and the device's busy time from ``torch.profiler``), and, with CUDA
-     events, each kernel, its plain twin and its bound.
+  4. mesh path: ``InTransitEngine(device_reduce="mesh")`` over Orion with
+     one shard (catalog bit-equal to the host engine's) and with four
+     shards on the one card (slice and histogram bitwise, projection
+     bitwise against the ascending fold of the per-shard host
+     reductions and within rtol 1e-12 of the host), then
+     ``python -m repro_torch.launch.insitu --device-mesh 4 --device
+     cuda:0`` on Sedov steps under the same contract; B4/B5 must launch
+     once per tile per step and B3 once per shard per step;
+  5. times at the full size: the device-reduce and mesh walls per step
+     and bytes to the host per step, where a device-reduce step's time
+     goes (the engine's spans and the device's busy time from
+     ``torch.profiler``), and, with CUDA events, each kernel (B4/B5 per
+     tile call), its plain twin and its bound.
 
 The line before the last is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -50,11 +62,16 @@ KERNELS = {
     "slice_raster": "src/repro/kernels/raster_kernel.py:136",
     "projection_raster": "src/repro/kernels/raster_kernel.py:240",
     "level_hist": "src/repro/kernels/raster_kernel.py:320",
+    "slice_raster_carry": "src/repro/kernels/raster_kernel.py:166",
+    "projection_raster_carry": "src/repro/kernels/raster_kernel.py:267",
 }
+#: the kernels the device-reduce main path runs
+DEVICE_PATH = ("slice_raster", "projection_raster", "level_hist")
 SOURCE = "src/repro_torch/kernels/csrc/raster.cu"
 
 ORION_STEPS = 3          # timed main-path steps (after one warm-up step)
 LIVE_RESOLUTION = 512
+MESH_SHARDS = 4          # shards of the multi-shard mesh run, on one card
 
 
 def fail(msg: str) -> int:
@@ -101,7 +118,8 @@ def kernel_inputs(arrays: dict, device, *, n_domains: int = 1, axis: int = 2):
     from repro_torch.insitu.device import DeviceTree, to_device
     from repro_torch.kernels import ops
     dt = DeviceTree(to_device(arrays, device), n_domains)
-    return {"coords2": ops.plane_coords(dt.coords, axis),
+    return {"coords": dt.coords,
+            "coords2": ops.plane_coords(dt.coords, axis),
             "c_axis": dt.coords[:, axis], "levels": dt.levels.to(torch.int32),
             "values": dt.field("density"), "ok": dt.ok,
             "n_levels": dt.n_levels}
@@ -123,9 +141,28 @@ def _max_abs_err(a, b) -> float:
         if diff.numel() else 0.0
 
 
+def carry_chain(x: dict, kind: str, backend, *, resolution: int,
+                tile_n: int):
+    """``kernels.ops``' tiled partial raster over ``x``'s table: B4
+    (``kind="slice"``, returns image and depth) or B5, chained over
+    ``tile_n``-row tiles; ``backend="ref"`` chains the seeded twins."""
+    from repro_torch.kernels import ops
+    kw = dict(axis=2, resolution=resolution, n_levels=x["n_levels"],
+              backend=backend, tile_n=tile_n)
+    if kind == "slice":
+        return ops.raster_slice_partial(x["coords"], x["levels"],
+                                        x["values"], x["ok"], position=0.5,
+                                        **kw)
+    return (ops.raster_projection_partial(x["coords"], x["levels"],
+                                          x["values"], x["ok"], **kw),)
+
+
 def check_parity(label: str, arrays: dict, device, *, resolution: int,
-                 bins: int, lo, hi, n_domains: int = 1, domain: int = 0):
-    """B1-B3 vs their plain twins (bitwise) and vs the host reducers."""
+                 bins: int, lo, hi, n_domains: int = 1, domain: int = 0,
+                 tile_n: int = 512):
+    """B1-B3 vs their plain twins (bitwise) and vs the host reducers;
+    B4/B5 chained over ``tile_n``-row tiles vs their seeded twins
+    (bitwise) and vs the one-shot images."""
     import numpy as np
     import torch
 
@@ -182,15 +219,46 @@ def check_parity(label: str, arrays: dict, device, *, resolution: int,
             raise AssertionError(f"{label}: {name} differs from the host "
                                  f"reducer")
         errs[name] = _max_abs_err(got, twin)
+    n_tiles = -(-x["values"].shape[0] // tile_n)
+    for kind, name, one in (("slice", "slice_raster_carry", "slice"),
+                            ("projection", "projection_raster_carry",
+                             "proj")):
+        before = raster.LAUNCHES[name]
+        got = carry_chain(x, kind, None, resolution=resolution,
+                          tile_n=tile_n)
+        twin = carry_chain(x, kind, "ref", resolution=resolution,
+                           tile_n=tile_n)
+        torch.cuda.synchronize()
+        if raster.LAUNCHES[name] - before != n_tiles:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{raster.LAUNCHES[name] - before} times "
+                                 f"for {n_tiles} tiles")
+        for g, t in zip(got, twin):
+            if g.dtype != t.dtype or not torch.equal(_bits(g), _bits(t)):
+                raise AssertionError(f"{label}: {name} differs from its "
+                                     f"seeded twin (max abs err "
+                                     f"{_max_abs_err(g, t)})")
+        if not np.array_equal(got[0].cpu().numpy().view(np.int64),
+                              np.asarray(host[one]["image"]).view(np.int64)):
+            raise AssertionError(f"{label}: chained {name} differs from "
+                                 f"the one-shot image")
+        errs[name] = max(_max_abs_err(g, t) for g, t in zip(got, twin))
     print(f"parity {label}: B1-B3 bit-equal to plain twins and host "
-          f"reducers (R={resolution}, {x['values'].shape[0]} padded rows)")
+          f"reducers, B4/B5 over {n_tiles} tiles of {tile_n} rows bit-equal "
+          f"to seeded twins and one-shot images (R={resolution}, "
+          f"{x['values'].shape[0]} padded rows)")
     return errs, x, edges, n_hist
 
 
 # ----------------------------------------------------------- main path
 
-def catalogs_equal(root_a: str, root_b: str) -> int:
-    """Bitwise catalog comparison; returns the number of arrays checked."""
+def catalogs_equal(root_a: str, root_b: str, *, folds=None) -> int:
+    """Bitwise catalog comparison; returns the number of arrays checked.
+
+    ``folds`` maps (step, reducer name) to the image ``root_a`` must hold
+    bit for bit (a multi-shard mesh's projection: the ascending fold of
+    the per-shard host reductions); that image is held to ``root_b``
+    within rtol 1e-12 instead of bitwise."""
     import numpy as np
 
     from repro_torch.insitu import Catalog
@@ -209,8 +277,15 @@ def catalogs_equal(root_a: str, root_b: str) -> int:
                     raise AssertionError(f"step {s} {r}: keys differ")
                 for k, v in a.items():
                     w = b[k]
-                    if v.dtype != w.dtype or v.shape != w.shape or \
-                            v.tobytes() != w.tobytes():
+                    if v.dtype != w.dtype or v.shape != w.shape:
+                        raise AssertionError(f"step {s} {r}/{k} differs")
+                    if folds and (s, r) in folds and k == "image":
+                        if v.tobytes() != folds[s, r].tobytes():
+                            raise AssertionError(f"step {s} {r}/{k} differs "
+                                                 f"from the shard fold")
+                        np.testing.assert_allclose(v, w, rtol=1e-12, atol=0,
+                                                   err_msg=f"step {s} {r}")
+                    elif v.tobytes() != w.tobytes():
                         raise AssertionError(f"step {s} {r}/{k} differs")
                     n += 1
         return n
@@ -219,22 +294,21 @@ def catalogs_equal(root_a: str, root_b: str) -> int:
         cb.close()
 
 
-def run_engine(root: str, reducers, payloads, *, device, block=True):
-    """Submit ``payloads`` (step -> arrays) and drain; returns the engine
+def run_engine(root: str, reducers, payloads, **engine_kw):
+    """Submit ``payloads`` (step -> arrays) to an engine built with
+    ``engine_kw`` (none: the host engine) and drain; returns the engine
     and the wall seconds of every submit+drain, per step."""
     import torch
 
     from repro_torch.insitu import InTransitEngine
-    eng = InTransitEngine(root, reducers, policy="block" if block else
-                          "drop-oldest", queue_capacity=4,
-                          device_reduce=device is not None,
-                          device=device).start()
+    eng = InTransitEngine(root, reducers, policy="block", queue_capacity=4,
+                          **engine_kw).start()
     walls = []
     for step, arrays in payloads:
         t0 = time.perf_counter()
         eng.submit(step, arrays)
         eng.drain(timeout=600.0)
-        if device is not None:
+        if engine_kw.get("device_reduce"):
             torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     eng.close()
@@ -242,7 +316,7 @@ def run_engine(root: str, reducers, payloads, *, device, block=True):
 
 
 def check_launches(counts: dict, label: str) -> None:
-    missing = [k for k in KERNELS if counts.get(k, 0) <= 0]
+    missing = [k for k in DEVICE_PATH if counts.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"{label}: kernels {missing} were never "
                              f"launched on the main path ({counts})")
@@ -256,14 +330,15 @@ def main_path_orion(tree, tmp: Path, device):
     steps = range(1, ORION_STEPS + 2)      # first step warms the allocator
     raster.reset_launches()
     eng, walls = run_engine(str(tmp / "orion_dev"), live_reducers(),
-                            [(s, on_card) for s in steps], device=device)
+                            [(s, on_card) for s in steps],
+                            device_reduce=True, device=device)
     launches = dict(raster.LAUNCHES)
     check_launches(launches, "orion engine")
     ds = eng.device_stats
     if ds["fallback_snapshots"] or ds["fallback_runs"]:
         raise AssertionError(f"orion engine fell back to the host: {ds}")
     _, host_walls = run_engine(str(tmp / "orion_host"), live_reducers(),
-                               [(s, arrays) for s in steps], device=None)
+                               [(s, arrays) for s in steps])
     n = catalogs_equal(str(tmp / "orion_dev"), str(tmp / "orion_host"))
     n_steps = len(walls)
     timed = walls[1:]
@@ -287,24 +362,24 @@ def main_path_orion(tree, tmp: Path, device):
     return launches, out, on_card
 
 
-def step_breakdown(on_card: dict, tmp: Path, device) -> dict:
-    """Where one device-reduce step's wall time goes: the engine's own
-    spans (host clock) over two steps, then the device's busy time
-    (``torch.profiler``, CUDA activity only) over two more steps, as a
-    share of the unprofiled wall."""
+def step_breakdown(payload: dict, root: str, label: str,
+                   **engine_kw) -> dict:
+    """Where one step's wall time goes on an engine built with
+    ``engine_kw``: the engine's own spans (host clock) over two steps,
+    then the device's busy time (``torch.profiler``, CUDA activity only)
+    over two more steps, as a share of the unprofiled wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.insitu import InTransitEngine
     from repro_torch.obs.trace import TRACER
-    eng = InTransitEngine(str(tmp / "orion_prof"), live_reducers(),
-                          policy="block", device_reduce=True,
-                          device=device).start()
+    eng = InTransitEngine(root, live_reducers(), policy="block",
+                          **engine_kw).start()
 
     def steps(first: int) -> float:
         t0 = time.perf_counter()
         for step in (first, first + 1):
-            eng.submit(step, on_card)
+            eng.submit(step, payload)
             eng.drain(timeout=600.0)
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / 2
@@ -335,16 +410,17 @@ def step_breakdown(on_card: dict, tmp: Path, device) -> dict:
            "device_busy_ms_per_step": dev_ms if dev else None,
            "device_busy_share": dev_ms / wall_ms if dev else None,
            "device_top": [(k[:60], ms) for k, ms in dev[:8]]}
-    print(f"breakdown per step (2 traced steps): wall {wall_ms!r} ms; "
-          f"spans {spans!r}")
+    print(f"breakdown {label} per step (2 traced steps): wall {wall_ms!r} "
+          f"ms; spans {spans!r}")
     if dev:
-        print(f"breakdown device busy {dev_ms!r} ms/step (2 profiled steps, "
+        print(f"breakdown {label} device busy {dev_ms!r} ms/step (2 "
+              f"profiled steps, "
               f"{prof_wall_ms!r} ms/step under the profiler) = share "
               f"{out['device_busy_share']!r} of the traced wall; top "
               f"{out['device_top']!r}")
     else:
-        print("breakdown device busy: not measured (the profiler recorded "
-              "no device time)")
+        print(f"breakdown {label} device busy: not measured (the profiler "
+              f"recorded no device time)")
     return out
 
 
@@ -364,7 +440,7 @@ def main_path_cli_dag(tmp: Path, device) -> dict:
     raster.reset_launches()
     eng, _ = run_engine(str(tmp / "cli_dev"),
                         cli.default_reducers(res, lod), payloads,
-                        device=device)
+                        device_reduce=True, device=device)
     launches = dict(raster.LAUNCHES)
     check_launches(launches, "default DAG engine")
     ds = eng.device_stats
@@ -372,7 +448,7 @@ def main_path_cli_dag(tmp: Path, device) -> dict:
         raise AssertionError(f"default DAG materialized a snapshot on the "
                              f"host: {ds}")
     run_engine(str(tmp / "cli_host"), cli.default_reducers(res, lod),
-               payloads, device=None)
+               payloads)
     n = catalogs_equal(str(tmp / "cli_dev"), str(tmp / "cli_host"))
     print(f"main path default DAG: {n_steps} Sedov steps, catalog "
           f"bit-equal to the host engine ({n} arrays), fallback_snapshots=0, "
@@ -393,6 +469,167 @@ def main_path_cli_dag(tmp: Path, device) -> dict:
                     if "device reduce:" in ln), "")
     print(f"main path python -m repro_torch.launch.insitu --device-reduce: "
           f"rc 0, launches {cli_launches}; {summary}")
+    return launches
+
+
+# ------------------------------------------------------------ mesh path
+
+def shard_fold(arrays: dict, n_shards: int, reducer):
+    """The read-side reference for a multi-shard projection: the host
+    reducer over each Hilbert shard's leaves, folded in ascending shard
+    order (``hercule.api._merge_sum``)."""
+    import numpy as np
+
+    from repro_torch.insitu.partition import leaf_shards
+    from repro_torch.insitu.staging import Snapshot
+    refine = np.asarray(arrays["refine"])
+    leaves = np.flatnonzero(~refine)
+    shard = leaf_shards(arrays, n_shards)
+    acc = None
+    for g in range(n_shards):
+        owner = np.zeros(refine.shape[0], bool)
+        owner[leaves[shard == g]] = True
+        part = reducer.reduce(Snapshot(step=0, kind="amr",
+                                       arrays={**arrays, "owner": owner},
+                                       n_domains=2), {})["image"]
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def mesh_tiles(arrays: dict, n_shards: int) -> int:
+    """B4/B5 launches per reducer per step: tiles over every shard."""
+    from repro_torch.insitu.mesh_reduce import MESH_TILE, MeshTable
+    mt = MeshTable(arrays, 1, ["cpu"] * n_shards)    # row split only
+    return n_shards * -(-mt.rows_padded // MESH_TILE)
+
+
+def check_mesh_launches(counts: dict, label: str, *, tiles: int,
+                        n_shards: int, steps: int) -> None:
+    want = {"slice_raster_carry": tiles * steps,
+            "projection_raster_carry": tiles * steps,
+            "level_hist": n_shards * steps,
+            "slice_raster": 0, "projection_raster": 0}
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def main_path_mesh(tree, tmp: Path, device, host_root: str) -> tuple:
+    """``device_reduce="mesh"`` over Orion with one shard, then
+    ``MESH_SHARDS`` shards on the one card; each catalog held to the
+    host engine's (``host_root``, same steps and DAG)."""
+    from repro_torch.insitu import ProjectionReducer
+    from repro_torch.kernels import raster
+    arrays = tree.to_arrays()
+    steps = range(1, ORION_STEPS + 2)      # first step warms the allocator
+    out, first = {}, None
+    for n_shards in (1, MESH_SHARDS):
+        t0 = time.perf_counter()
+        tiles = mesh_tiles(arrays, n_shards)
+        split_ms = 1e3 * (time.perf_counter() - t0)
+        root = str(tmp / f"orion_mesh{n_shards}")
+        raster.reset_launches()
+        eng, walls = run_engine(root, live_reducers(),
+                                [(s, arrays) for s in steps],
+                                device_reduce="mesh",
+                                mesh_devices=[device] * n_shards)
+        launches = dict(raster.LAUNCHES)
+        check_mesh_launches(launches, f"mesh S={n_shards}", tiles=tiles,
+                            n_shards=n_shards, steps=len(walls))
+        ds = eng.device_stats
+        if ds["fallback_snapshots"] or ds["fallback_runs"]:
+            raise AssertionError(f"mesh S={n_shards} fell back to the "
+                                 f"host: {ds}")
+        folds = None
+        if n_shards > 1:
+            proj = next(r for r in live_reducers()
+                        if isinstance(r, ProjectionReducer))
+            fold = shard_fold(arrays, n_shards, proj)
+            folds = {(s, proj.name): fold for s in steps}
+        n = catalogs_equal(root, host_root, folds=folds)
+        timed = walls[1:]
+        out[n_shards] = {
+            "wall_ms_per_step": 1e3 * sum(timed) / len(timed),
+            "wall_ms_steps": [1e3 * w for w in walls],
+            "tiles_per_step": tiles, "launches": launches,
+            "host_shard_split_ms": split_ms,
+            "peak_leaf_frac": ds["peak_leaf_frac"],
+            "bytes_tables_to_device_per_step":
+                ds["bytes_tables_to_device"] / len(walls),
+            "bytes_to_host_per_step": ds["bytes_to_host"] / len(walls)}
+        if first is None:
+            first = launches
+        how = "bit-equal to the host engine" if n_shards == 1 else \
+            ("slice/hist bit-equal to the host engine, projection bit-equal "
+             "to the shard fold and within rtol 1e-12 of the host")
+        print(f"main path mesh S={n_shards} on {device}: {len(walls)} Orion "
+              f"steps, catalog {how} ({n} arrays), fallback_snapshots=0, "
+              f"{tiles} tiles per step, launches {launches}, "
+              f"peak_leaf_frac {ds['peak_leaf_frac']!r}")
+        print(f"time mesh_wall_ms_per_step S={n_shards}: "
+              f"{out[n_shards]['wall_ms_per_step']!r} (steps 2-{len(walls)}; "
+              f"all steps {out[n_shards]['wall_ms_steps']!r}); "
+              f"{out[n_shards]['bytes_tables_to_device_per_step']!r} bytes "
+              f"of sharded table up per step; the host shard split "
+              f"(MeshTable init) alone {split_ms!r} ms")
+        out[n_shards]["breakdown"] = step_breakdown(
+            arrays, str(tmp / f"orion_mesh{n_shards}_prof"),
+            f"mesh S={n_shards}", device_reduce="mesh",
+            mesh_devices=[device] * n_shards)
+    return first, out
+
+
+def main_path_mesh_cli(tmp: Path, device) -> dict:
+    """``python -m repro_torch.launch.insitu --device-mesh 4 --device D``
+    on Sedov steps: its catalog held to the host CLI run's under the
+    mesh contract, its kernels launched per tile."""
+    from repro_torch.insitu import ProjectionReducer
+    from repro_torch.kernels import raster
+    from repro_torch.launch import insitu as cli
+    from repro_torch.sim import amrgen, fields
+    n_steps, max_level, res = 4, 6, 128
+    common = ["--steps", str(n_steps), "--max-level", str(max_level),
+              "--resolution", str(res), "--policy", "block", "--queries",
+              "4"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if cli.main(["--out", str(tmp / "mesh_cli_host"), *common]) != 0:
+            raise AssertionError(f"host CLI run failed:\n{buf.getvalue()}")
+    buf = io.StringIO()
+    raster.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--out", str(tmp / "mesh_cli"), *common,
+                       "--device-mesh", str(MESH_SHARDS), "--device",
+                       str(device)])
+    launches = dict(raster.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"launch/insitu.py --device-mesh exited {rc}:"
+                             f"\n{buf.getvalue()}")
+    # the CLI writes every second step (--output-every 2): the trees of
+    # those steps, as the launcher makes them, give the shard folds
+    proj = next(r for r in cli.default_reducers(res, 4)
+                if isinstance(r, ProjectionReducer))
+    folds, tiles = {}, 0
+    for s in range(1, n_steps + 1):
+        tree = amrgen.generate_tree(
+            fields.sedov(r_shock=0.1 + 0.25 * s / n_steps), min_level=3,
+            max_level=max_level, threshold=1.15, level_factor=1.05)
+        if s % 2 == 0:
+            folds[s, proj.name] = shard_fold(tree.to_arrays(), MESH_SHARDS,
+                                             proj)
+            tiles += mesh_tiles(tree.to_arrays(), MESH_SHARDS)
+    n = catalogs_equal(str(tmp / "mesh_cli"), str(tmp / "mesh_cli_host"),
+                       folds=folds)
+    want = {"slice_raster_carry": tiles, "projection_raster_carry": tiles,
+            "level_hist": MESH_SHARDS * len(folds)}
+    if {k: launches.get(k, 0) for k in want} != want:
+        raise AssertionError(f"--device-mesh launches {launches}, "
+                             f"expected {want}")
+    summary = next((ln.strip() for ln in buf.getvalue().splitlines()
+                    if "mesh reduce[" in ln), "")
+    print(f"main path python -m repro_torch.launch.insitu --device-mesh "
+          f"{MESH_SHARDS} --device {device}: rc 0, catalog under the mesh "
+          f"contract ({n} arrays), launches {launches}; {summary}")
     return launches
 
 
@@ -422,13 +659,21 @@ def _row_bytes(t) -> int:
     return t[:1].numel() * t.element_size()
 
 
-def bounds(x: dict, edges, n_hist: int, resolution: int) -> dict:
-    """Least time for each kernel's work on these inputs: the bytes the
-    function must move (over the memory rate) vs its f64 operations
-    (over the FP64 peak). Every row's ``ok`` (and, for the slice, its
-    plane test) must be read; the other columns only for the rows this
-    data selects: the valid leaves, or the valid leaves the slice plane
-    hits. Each output is written once."""
+def _bound(nbytes: int, ops: int) -> dict:
+    """The least time for ``nbytes`` moved and ``ops`` f64 operations:
+    the larger of bytes over the memory rate and ops over the FP64 peak."""
+    tb, to = nbytes / MEM_BYTES_PER_S, ops / F64_OPS_PER_S
+    return {"bound_ms": 1e3 * max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def raster_work(x: dict, resolution: int) -> dict:
+    """Bytes and f64 operations the slice and the projection must spend
+    on ``x``'s table, each (R, R) float64 output written once. Every
+    row's ``ok`` (and, for the slice, its plane test) must be read; the
+    other columns only for the rows this data selects: the valid leaves,
+    or the valid leaves the slice plane hits."""
     import torch
 
     from repro_torch.kernels import raster
@@ -440,35 +685,57 @@ def bounds(x: dict, edges, n_hist: int, resolution: int) -> dict:
     hit = raster.plane_hit(x["c_axis"], x["levels"], 0.5, L) & valid
     n_rows, n_valid, n_hit = x["ok"].numel(), int(valid.sum()), int(hit.sum())
     leaf_row = sum(_row_bytes(x[k]) for k in ("coords2", "levels", "values"))
-    # projection: one multiply and one add per (leaf, covered pixel)
-    proj_ops = 2 * int((px.to(torch.int64) ** 2)[valid].sum())
-    work = {
+    return {
         # slice: c_axis, levels and ok of every row for the plane test (a
         # multiply and an add per row), then coords2 and values of the
         # leaves the plane hits
-        "slice_raster": (n_rows * sum(_row_bytes(x[k]) for k in
-                                      ("c_axis", "levels", "ok"))
-                         + n_hit * (_row_bytes(x["coords2"])
-                                    + _row_bytes(x["values"])) + img,
-                         2 * n_rows),
-        "projection_raster": (_nbytes(x["ok"]) + n_valid * leaf_row + img,
-                              proj_ops),
-        # histogram: one f64 compare per binary-search step per valid row
-        "level_hist": (_nbytes(x["ok"], edges)
-                       + n_valid * (_row_bytes(x["values"])
-                                    + _row_bytes(x["levels"]))
-                       + n_hist * (edges.numel() - 1) * 4,
-                       n_valid * (3 + math.ceil(math.log2(edges.numel())))),
+        "slice": (n_rows * sum(_row_bytes(x[k]) for k in
+                               ("c_axis", "levels", "ok"))
+                  + n_hit * (_row_bytes(x["coords2"])
+                             + _row_bytes(x["values"])) + img,
+                  2 * n_rows, n_hit),
+        # projection: one multiply and one add per (leaf, covered pixel)
+        "projection": (_nbytes(x["ok"]) + n_valid * leaf_row + img,
+                       2 * int((px.to(torch.int64) ** 2)[valid].sum()),
+                       n_valid),
     }
-    out = {}
-    for name, (nbytes, ops) in work.items():
-        tb, to = nbytes / MEM_BYTES_PER_S, ops / F64_OPS_PER_S
-        out[name] = {"bound_ms": 1e3 * max(tb, to),
-                     "bound_by": "bytes" if tb >= to else "operations",
-                     "bytes": nbytes, "ops": ops}
-    out["slice_raster"]["plane_hits"] = n_hit
+
+
+def bounds(x: dict, edges, n_hist: int, resolution: int) -> dict:
+    """Least time for B1-B3's work on these inputs (see
+    :func:`raster_work`); the histogram reads ``ok`` and the edges, the
+    values and levels of the valid leaves, and does one f64 compare per
+    binary-search step per valid row."""
+    w = raster_work(x, resolution)
+    n_valid = w["projection"][2]
+    out = {"slice_raster": _bound(*w["slice"][:2]),
+           "projection_raster": _bound(*w["projection"][:2]),
+           "level_hist": _bound(
+               _nbytes(x["ok"], edges)
+               + n_valid * (_row_bytes(x["values"]) + _row_bytes(x["levels"]))
+               + n_hist * (edges.numel() - 1) * 4,
+               n_valid * (3 + math.ceil(math.log2(edges.numel()))))}
+    out["slice_raster"]["plane_hits"] = w["slice"][2]
     out["projection_raster"]["valid_rows"] = n_valid
     return out
+
+
+def carry_bounds(tiles: list, resolution: int) -> dict:
+    """Least time of one B4/B5 call, the mean over the main path's tiles:
+    each tile's :func:`raster_work` plus its seed, read once — B4's
+    (image, depth) seed and outputs are 24·R² bytes, B5's 16·R²."""
+    px2 = resolution * resolution
+    sums = {"slice_raster_carry": [0, 0], "projection_raster_carry": [0, 0]}
+    for x in tiles:
+        w = raster_work(x, resolution)
+        for name, kind, seed in (("slice_raster_carry", "slice", 16 * px2),
+                                 ("projection_raster_carry", "projection",
+                                  8 * px2)):
+            sums[name][0] += w[kind][0] + seed
+            sums[name][1] += w[kind][1]
+    return {name: dict(_bound(nb // len(tiles), ops // len(tiles)),
+                       tiles=len(tiles))
+            for name, (nb, ops) in sums.items()}
 
 
 def time_kernels(x: dict, edges, n_hist: int, resolution: int) -> dict:
@@ -494,6 +761,34 @@ def time_kernels(x: dict, edges, n_hist: int, resolution: int) -> dict:
                      "plain_ms": time_ms(lambda: call(plain), reps=3,
                                          warm=1)}
     return out
+
+
+def time_carries(arrays: dict, device) -> tuple:
+    """B4/B5 per tile call at the mesh path's shapes: the one-shard Orion
+    table's tile chain timed whole (wrapper, then plain twin) over its
+    tile count, and the bound as the mean over the same tiles."""
+    from repro_torch.insitu.mesh_reduce import MESH_TILE, MeshTable
+    from repro_torch.kernels import ops
+    mt = MeshTable(arrays, 1, [device])
+    coords, levels, values, ok = next(mt.shards("density"))
+    x = {"coords": coords, "levels": levels, "values": values, "ok": ok,
+         "n_levels": mt.n_levels}
+    tiles = [{"coords2": ops.plane_coords(coords[a:a + MESH_TILE], 2),
+              "c_axis": coords[a:a + MESH_TILE, 2],
+              "levels": levels[a:a + MESH_TILE],
+              "values": values[a:a + MESH_TILE], "ok": ok[a:a + MESH_TILE],
+              "n_levels": mt.n_levels}
+             for a in range(0, values.shape[0], MESH_TILE)]
+    geo = dict(resolution=LIVE_RESOLUTION, tile_n=MESH_TILE)
+    out = {}
+    for kind, name in (("slice", "slice_raster_carry"),
+                       ("projection", "projection_raster_carry")):
+        chain = time_ms(lambda: carry_chain(x, kind, None, **geo), reps=5)
+        plain = time_ms(lambda: carry_chain(x, kind, "ref", **geo), reps=1,
+                        warm=1)
+        out[name] = {"ms": chain / len(tiles), "plain_ms": plain / len(tiles),
+                     "chain_ms": chain, "plain_chain_ms": plain}
+    return out, carry_bounds(tiles, LIVE_RESOLUTION)
 
 
 # ----------------------------------------------------------------- main
@@ -542,9 +837,11 @@ def main() -> int:
           f"{int((~tree.refine).sum())} leaves, "
           f"{sum(v.nbytes for v in tree.to_arrays().values())} bytes "
           f"({time.perf_counter() - t0:.1f} s to generate)")
+    from repro_torch.insitu.mesh_reduce import MESH_TILE
     errs, x, edges, n_hist = check_parity(
         "orion full size", tree.to_arrays(), device,
-        resolution=LIVE_RESOLUTION, bins=64, lo=0.0, hi=50.0)
+        resolution=LIVE_RESOLUTION, bins=64, lo=0.0, hi=50.0,
+        tile_n=MESH_TILE)
 
     # -- 3. main path
     with tempfile.TemporaryDirectory(prefix="chip_smoke_",
@@ -552,20 +849,39 @@ def main() -> int:
         tmp = Path(d)
         launches, wall, on_card = main_path_orion(tree, tmp, device)
         main_path_cli_dag(tmp, device)
-        wall["breakdown"] = step_breakdown(on_card, tmp, device)
+        wall["breakdown"] = step_breakdown(
+            on_card, str(tmp / "orion_prof"), "device_reduce",
+            device_reduce=True, device=device)
         del on_card
+        # -- 4. mesh path
+        mesh_launches, wall["mesh"] = main_path_mesh(
+            tree, tmp, device, str(tmp / "orion_host"))
+        main_path_mesh_cli(tmp, device)
         shutil.rmtree(tmp, ignore_errors=True)
+    print(f"time walls per Orion step: device_reduce "
+          f"{wall['wall_ms_per_step']!r} ms, mesh S=1 "
+          f"{wall['mesh'][1]['wall_ms_per_step']!r} ms, mesh "
+          f"S={MESH_SHARDS} {wall['mesh'][MESH_SHARDS]['wall_ms_per_step']!r}"
+          f" ms")
 
-    # -- 4. times at the full size
+    # -- 5. times at the full size
     times = time_kernels(x, edges, n_hist, LIVE_RESOLUTION)
     bnd = bounds(x, edges, n_hist, LIVE_RESOLUTION)
+    carry_times, carry_bnd = time_carries(tree.to_arrays(), device)
+    times.update(carry_times)
+    bnd.update(carry_bnd)
+    for name in ("slice_raster_carry", "projection_raster_carry"):
+        launches[name] = mesh_launches[name]     # the mesh path's (S=1)
     records = []
     for name, replaces in KERNELS.items():
         t, b = times[name], bnd[name]
-        print(f"time {name}: kernel {t['ms']!r} ms, plain {t['plain_ms']!r} "
-              f"ms, bound {b['bound_ms']!r} ms by {b['bound_by']} "
-              f"({b['bytes']} bytes, {b['ops']} f64 ops), launches on the "
-              f"main path {launches[name]} over {wall['steps']} steps")
+        per = f"per tile call (mean of {b['tiles']} tiles), " \
+            if "tiles" in b else ""
+        print(f"time {name}: {per}kernel {t['ms']!r} ms, plain "
+              f"{t['plain_ms']!r} ms, bound {b['bound_ms']!r} ms by "
+              f"{b['bound_by']} ({b['bytes']} bytes, {b['ops']} f64 ops), "
+              f"launches on the main path {launches[name]} over "
+              f"{wall['steps']} steps")
         records.append({"name": name, "route": "cuda", "source": SOURCE,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], "ms": t["ms"],

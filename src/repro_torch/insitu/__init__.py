@@ -17,6 +17,10 @@ written at an independent cadence.
     device-reducer registry over the CUDA raster kernels, so only
     *reduced* objects cross the device→host boundary
     (``InTransitEngine(device_reduce=True)``).
+  * :mod:`mesh_reduce` — the sharded variant: each snapshot's leaf
+    table is Hilbert-partitioned over a list of devices, rasterized per
+    shard and merged on the first device, so no device holds more than
+    its shard (``InTransitEngine(device_reduce="mesh")``).
   * :mod:`catalog`   — the read side: cached, domain-merged queries.
 """
 from .catalog import Catalog                                   # noqa: F401
@@ -32,3 +36,5 @@ from .staging import (POLICIES, ShmStagingArea, Snapshot,      # noqa: F401
 from .device import (DeviceDAGRunner, DeviceStagingArea,       # noqa: F401
                      DeviceTree, device_impl_for, register_device_impl,
                      to_device)
+from .mesh_reduce import (MeshDAGRunner, MeshRunStats,         # noqa: F401
+                          MeshTable, mesh_impl_for, register_mesh_impl)

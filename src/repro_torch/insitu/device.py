@@ -27,6 +27,9 @@ the DAG through the runner. Everything stays float64 (Hopper has native
 f64). ``device="cpu"`` runs the same path on CPU tensors through the
 kernels' plain torch twins.
 
+``insitu.mesh_reduce`` builds the sharded path on these pieces
+(``InTransitEngine(device_reduce="mesh")``).
+
 Device impl factories return ``None`` for configs the kernels do not
 cover — non-power-of-two resolutions (the kernels' pixel geometry is
 exact integer arithmetic). Reducers chained on an upstream ``source``
@@ -152,9 +155,11 @@ class DeviceTree:
     padded to :data:`PAD_BUCKET`. Padding rows carry ``ok=False``.
     """
 
-    def __init__(self, arrays: dict, n_domains: int, count_to_host=None):
+    def __init__(self, arrays: dict, n_domains: int, count_to_host=None,
+                 backend: str | None = None):
         self.arrays = arrays
         self.n_domains = n_domains
+        self.backend = backend
         self.count_to_host = count_to_host or (lambda nbytes: None)
         self.n_levels = int(arrays["level_offsets"].shape[0]) - 1
         self._geom = None
@@ -240,7 +245,7 @@ def _slice_impl(r: SliceReducer):
         img = ops.raster_slice(dt.coords, dt.levels, dt.field(r.field),
                                dt.ok, axis=r.axis, position=r.position,
                                resolution=r.resolution,
-                               n_levels=dt.n_levels)
+                               n_levels=dt.n_levels, backend=dt.backend)
         return {"image": img}
     return run
 
@@ -255,7 +260,8 @@ def _projection_impl(r: ProjectionReducer):
         img = ops.raster_projection(dt.coords, dt.levels, dt.field(r.field),
                                     dt.ok, axis=r.axis,
                                     resolution=r.resolution,
-                                    n_levels=dt.n_levels)
+                                    n_levels=dt.n_levels,
+                                    backend=dt.backend)
         return {"image": img}
     return run
 
@@ -314,7 +320,7 @@ def _hist_impl(r: LevelHistogramReducer):
         edges = np.linspace(lo, hi, r.bins + 1)
         hist = ops.raster_level_hist(
             v, dt.levels, dt.ok, torch.from_numpy(edges).to(v.device),
-            n_levels=min(dt.n_levels, r.max_levels))
+            n_levels=min(dt.n_levels, r.max_levels), backend=dt.backend)
         return {"hist": hist, "edges": edges}
     return run
 
@@ -357,8 +363,9 @@ class DeviceDAGRunner:
     Thread-safe — engine lanes may share one runner.
     """
 
-    def __init__(self, dag: ReducerDAG):
+    def __init__(self, dag: ReducerDAG, *, backend: str | None = None):
         self.dag = dag
+        self.backend = backend          # kernels.ops backend (None: auto)
         self.impls = {r.name: device_impl_for(r) for r in dag}
         self.stats = DeviceRunStats()
         self._lock = threading.Lock()
@@ -372,8 +379,10 @@ class DeviceDAGRunner:
             self.stats.bytes_meta_to_host += nbytes
 
     def _make_view(self, snap: Snapshot):
-        """Per-snapshot view handed to the registered impls."""
-        return DeviceTree(snap.arrays, snap.n_domains, self._count_meta)
+        """Per-snapshot view handed to the registered impls (the mesh
+        runner builds sharded leaf tables here instead)."""
+        return DeviceTree(snap.arrays, snap.n_domains, self._count_meta,
+                          backend=self.backend)
 
     def run(self, snap: Snapshot) -> dict[str, dict[str, np.ndarray]]:
         outputs: dict[str, dict[str, np.ndarray]] = {}

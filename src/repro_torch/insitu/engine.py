@@ -28,6 +28,9 @@ outside the producer's GIL — the live pipeline scales the way
 ``device_reduce=True`` keeps staged snapshots on ``device`` (the GPU
 unless the caller passes ``device="cpu"``) and reduces them there through
 ``insitu.device``; only the reduced objects cross to the host.
+``device_reduce="mesh"`` shards each snapshot's leaf table over
+``mesh_devices`` (the GPUs unless the caller passes a sequence of
+devices) through ``insitu.mesh_reduce``.
 
 ``step_ttl`` bounds the life of a partial step: when per-producer
 submission (:meth:`submit_part`) loses a producer (crash, skipped
@@ -82,30 +85,37 @@ class InTransitEngine:
                  ncf: int = 4, compress: bool = False, domains: int = 1,
                  durable_parts: bool = False, backend: str = "thread",
                  step_ttl: float | None = None,
-                 device_reduce: bool = False, device=None,
-                 lane_pool: bool = False):
+                 device_reduce: bool | str = False, device=None,
+                 mesh_devices=None, lane_pool: bool = False):
         from .lanes import BACKENDS
         if backend not in BACKENDS:   # before creating anything on disk
             raise ValueError(f"unknown lane backend {backend!r}; "
                              f"registered: {sorted(BACKENDS)}")
         self.n_domains = max(1, domains)
-        if isinstance(device_reduce, str):
+        if isinstance(device_reduce, str) and device_reduce != "mesh":
             raise ValueError(
-                f"device_reduce={device_reduce!r} is not supported: use "
-                f"True or False (sharded mesh reduction is not ported yet)")
-        self.device_reduce = bool(device_reduce)
-        if device is not None and not device_reduce:
-            raise ValueError("device only applies with device_reduce=True")
+                f"unknown device_reduce mode {device_reduce!r}; use "
+                f"True (single device) or 'mesh' (sharded reduction over "
+                f"a list of devices)")
+        self.device_reduce = device_reduce if device_reduce == "mesh" \
+            else bool(device_reduce)
+        if mesh_devices is not None and self.device_reduce != "mesh":
+            raise ValueError(
+                "mesh_devices only applies with device_reduce='mesh'")
+        if device is not None and self.device_reduce is not True:
+            raise ValueError(
+                "device only applies with device_reduce=True (for the "
+                "mesh, pass mesh_devices as a sequence of devices)")
         if self.device_reduce and backend != "thread":
             # device tensors cannot cross to spawned lane processes; the
             # device path exists precisely to avoid such copies
             raise ValueError(
                 f"device_reduce={self.device_reduce!r} requires "
-                f"backend='thread' (device tensors stay in the engine "
-                f"process)")
-        #: where device_reduce stages and reduces (None: host engine)
+                f"backend='thread' (device tensors and the device mesh "
+                f"stay in the engine process)")
+        #: where device_reduce=True stages and reduces (None otherwise)
         self.device = None
-        if self.device_reduce:
+        if self.device_reduce is True:
             from .device import resolve_device
             self.device = resolve_device(device)
         if lane_pool and backend != "process":
@@ -120,7 +130,13 @@ class InTransitEngine:
         #: device-reduce runner (None = host DAG execution); staging
         #: residency follows it — see lanes.ThreadLaneBackend
         self._device = None
-        if self.device_reduce:
+        if self.device_reduce == "mesh":
+            # sharded path: snapshots stage on the host (the leaf table
+            # is Hilbert-sharded over the devices at reduce time), so the
+            # staging area stays the plain host one — see lanes
+            from .mesh_reduce import MeshDAGRunner
+            self._device = MeshDAGRunner(self.dag, devices=mesh_devices)
+        elif self.device_reduce:
             from .device import DeviceDAGRunner
             self._device = DeviceDAGRunner(self.dag)
         self.compress = compress

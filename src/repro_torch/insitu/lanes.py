@@ -106,7 +106,7 @@ def reducer_fingerprint(reducers) -> str:
 class ThreadLaneBackend(LaneBackend):
     """In-process worker threads (the original engine execution model).
 
-    With ``engine.device_reduce`` the staging areas are
+    With ``engine.device_reduce=True`` the staging areas are
     :class:`~repro_torch.insitu.device.DeviceStagingArea` — snapshots stay on
     the accelerator and lanes run the DAG through the engine's
     :class:`~repro_torch.insitu.device.DeviceDAGRunner`; everything else
@@ -120,7 +120,10 @@ class ThreadLaneBackend(LaneBackend):
         super().__init__(engine)
         del lane_pool   # validated engine-side: process-lane concern
         area_cls = StagingArea
-        if engine.device_reduce:
+        if engine.device_reduce is True:
+            # mesh reduction stages on the host: the runner re-shards
+            # each snapshot's leaf table over the devices itself, so a
+            # single device-resident copy would only add a hop
             from .device import DeviceStagingArea
             area_cls = functools.partial(DeviceStagingArea,
                                          device=engine.device)

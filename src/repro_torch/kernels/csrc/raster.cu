@@ -4,6 +4,8 @@
 //   B1 slice_raster       (raster_kernel.py:136)  -> slice_key_kernel + slice_resolve_kernel
 //   B2 projection_raster  (raster_kernel.py:240)  -> projection_kernel
 //   B3 level_hist         (raster_kernel.py:320)  -> level_hist_kernel
+//   B4 slice_raster_carry (raster_kernel.py:166)  -> slice_key_kernel + slice_carry_resolve_kernel
+//   B5 projection_raster_carry (raster_kernel.py:267) -> projection_kernel seeded from img0
 //
 // The TPU kernels keep the whole (R, R) image in VMEM and test every leaf
 // against every pixel (O(N * R^2) mask work). Here the work is
@@ -22,6 +24,13 @@
 //     __dmul_rn/__dadd_rn keep nvcc from fusing the multiply into the add.
 //   * histogram: integer counts are order-free: a shared-memory (L, B)
 //     histogram per block, then integer atomicAdd into global memory.
+//   * carries (B4/B5): one leaf-table tile painted over the partial image of
+//     the earlier tiles. B4 resolves each pixel's tile winner against the
+//     seed depth: the sequential rule ``lvl >= depth`` lets the tile win at
+//     equal level (its rows come later in BFS order), so the tile's key wins
+//     iff its level >= depth0. B5 starts each pixel's sum at img0 instead of
+//     0.0; the tile's CSR keeps the adds in row order after it. Both read
+//     the seed once and write the outputs once (24 resp. 16 bytes a pixel).
 //
 // Plain C interface (loaded with ctypes); every entry launches on the given
 // stream, never synchronizes, and returns cudaGetLastError().
@@ -71,21 +80,43 @@ __global__ void slice_resolve_kernel(const unsigned long long* __restrict__ keys
                        : val[key & 0xffffffffull];
 }
 
-// ----------------------------------------------------------- B2 projection
+// B4: the tile's winner against the carried (img0, depth0) seed.
+__global__ void slice_carry_resolve_kernel(
+    const unsigned long long* __restrict__ keys,
+    const double* __restrict__ val, const double* __restrict__ img0,
+    const int32_t* __restrict__ depth0, int64_t npix,
+    double* __restrict__ img, int32_t* __restrict__ depth) {
+  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= npix) return;
+  const unsigned long long key = keys[p];
+  const int32_t d0 = depth0[p];
+  const int32_t lvl = (int32_t)(key >> 32) - 1;
+  if (key != 0ull && lvl >= d0) {
+    img[p] = val[key & 0xffffffffull];
+    depth[p] = lvl;
+  } else {
+    img[p] = img0[p];
+    depth[p] = d0;
+  }
+}
 
-// One thread per pixel. ``offsets`` is the CSR over buckets
-// base[l] + cell, cell = (i >> sh) * g + (j >> sh), sh = k - min(l, k),
-// g = res >> sh; ``order`` lists the rows of each bucket in row order.
+// ------------------------------------------------------ B2/B5 projection
+
+// One thread per pixel; the sum starts at ``img0[p]`` (B5) or 0.0 (B2,
+// ``img0`` null). ``offsets`` is the CSR over buckets base[l] + cell,
+// cell = (i >> sh) * g + (j >> sh), sh = k - min(l, k), g = res >> sh;
+// ``order`` lists the rows of each bucket in row order.
 __global__ void projection_kernel(const double* __restrict__ val,
                                   const int32_t* __restrict__ order,
                                   const int64_t* __restrict__ offsets,
+                                  const double* __restrict__ img0,
                                   int32_t res, int32_t k, int32_t n_levels,
                                   double* __restrict__ img) {
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t npix = (int64_t)res * res;
   if (p >= npix) return;
   const int64_t i = p / res, j = p % res;
-  double acc = 0.0;
+  double acc = img0 ? img0[p] : 0.0;
   int64_t base = 0;
   for (int l = 0; l < n_levels; ++l) {
     const int sh = k - (l < k ? l : k);
@@ -150,6 +181,21 @@ __global__ void level_hist_kernel(const double* __restrict__ val,
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
+// Pass 1 of B1 and B4: zero the (R, R) keys, then atomicMax each valid
+// leaf's key over its rectangle.
+cudaError_t paint_keys(const int32_t* u0, const int32_t* v0,
+                       const int32_t* px, const int32_t* lvl,
+                       const uint8_t* good, int64_t n, int32_t res,
+                       unsigned long long* keys, cudaStream_t s) {
+  const int64_t npix = (int64_t)res * res;
+  cudaError_t err = cudaMemsetAsync(keys, 0, npix * sizeof(unsigned long long), s);
+  if (err != cudaSuccess || n == 0) return err;
+  slice_key_kernel<<<ceil_div(n, kSliceWarpsPerBlock),
+                     kSliceWarpsPerBlock * kWarp, 0, s>>>(
+      u0, v0, px, lvl, good, n, res, keys);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -161,17 +207,26 @@ int raster_slice_f64(const int32_t* u0, const int32_t* v0, const int32_t* px,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t npix = (int64_t)res * res;
   auto* keys = static_cast<unsigned long long*>(keys_scratch);
-  cudaError_t err = cudaMemsetAsync(keys, 0, npix * sizeof(unsigned long long), s);
+  const cudaError_t err = paint_keys(u0, v0, px, lvl, good, n, res, keys, s);
   if (err != cudaSuccess) return err;
-  if (n > 0) {
-    slice_key_kernel<<<ceil_div(n, kSliceWarpsPerBlock),
-                       kSliceWarpsPerBlock * kWarp, 0, s>>>(
-        u0, v0, px, lvl, good, n, res, keys);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
   slice_resolve_kernel<<<ceil_div(npix, kThreads), kThreads, 0, s>>>(
       keys, val, npix, img);
+  return cudaGetLastError();
+}
+
+int raster_slice_carry_f64(const int32_t* u0, const int32_t* v0,
+                           const int32_t* px, const int32_t* lvl,
+                           const uint8_t* good, const double* val, int64_t n,
+                           int32_t res, void* keys_scratch, const double* img0,
+                           const int32_t* depth0, double* img, int32_t* depth,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t npix = (int64_t)res * res;
+  auto* keys = static_cast<unsigned long long*>(keys_scratch);
+  const cudaError_t err = paint_keys(u0, v0, px, lvl, good, n, res, keys, s);
+  if (err != cudaSuccess) return err;
+  slice_carry_resolve_kernel<<<ceil_div(npix, kThreads), kThreads, 0, s>>>(
+      keys, val, img0, depth0, npix, img, depth);
   return cudaGetLastError();
 }
 
@@ -181,7 +236,18 @@ int raster_projection_f64(const double* val, const int32_t* order,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t npix = (int64_t)res * res;
   projection_kernel<<<ceil_div(npix, kThreads), kThreads, 0, s>>>(
-      val, order, offsets, res, k, n_levels, img);
+      val, order, offsets, nullptr, res, k, n_levels, img);
+  return cudaGetLastError();
+}
+
+int raster_projection_carry_f64(const double* val, const int32_t* order,
+                                const int64_t* offsets, const double* img0,
+                                int32_t res, int32_t k, int32_t n_levels,
+                                double* img, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t npix = (int64_t)res * res;
+  projection_kernel<<<ceil_div(npix, kThreads), kThreads, 0, s>>>(
+      val, order, offsets, img0, res, k, n_levels, img);
   return cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""CUDA raster kernels B1-B3 for the in-transit device-reduce path.
+"""CUDA raster kernels B1-B5 for the in-transit device-reduce paths.
 
 Wrappers around the hand-written kernels in ``csrc/raster.cu`` (see the
 header there for the designs), the leaf-table geometry they consume and
@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 #: kernel launches per wrapper; each wrapper adds one where it launches
-LAUNCHES = {"slice_raster": 0, "projection_raster": 0, "level_hist": 0}
+LAUNCHES = {"slice_raster": 0, "projection_raster": 0, "level_hist": 0,
+            "slice_raster_carry": 0, "projection_raster_carry": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -93,8 +94,13 @@ def _load():
                                                   p, p]
             lib.raster_level_hist_f64.argtypes = [p, p, p, p, i64, i32, i32,
                                                   p, p]
+            lib.raster_slice_carry_f64.argtypes = [p, p, p, p, p, p, i64, i32,
+                                                   p, p, p, p, p, p]
+            lib.raster_projection_carry_f64.argtypes = [p, p, p, p, i32, i32,
+                                                        i32, p, p]
             for fn in (lib.raster_slice_f64, lib.raster_projection_f64,
-                       lib.raster_level_hist_f64):
+                       lib.raster_level_hist_f64, lib.raster_slice_carry_f64,
+                       lib.raster_projection_carry_f64):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -160,6 +166,29 @@ def _in_range(levels: torch.Tensor, n_levels: int) -> torch.Tensor:
 
 # ----------------------------------------------------------------- kernels
 
+def _slice_table(coords2, c_axis, levels, ok, *, position: float,
+                 resolution: int, n_levels: int):
+    """B1/B4's leaf table: (u0, v0, px, lvl, good), contiguous, where
+    ``good`` folds validity, level range and the slice-plane test."""
+    u0, v0, px = (t.contiguous() for t in
+                  leaf_table(coords2, levels, resolution=resolution))
+    lvl = levels.to(torch.int32).contiguous()
+    good = (ok & _in_range(lvl, n_levels)
+            & plane_hit(c_axis, lvl, position, n_levels)
+            ).to(torch.uint8).contiguous()
+    return u0, v0, px, lvl, good
+
+
+def _seed(init, resolution: int, dtypes):
+    """The carry seed as contiguous (R, R) tensors of ``dtypes``."""
+    for t, dt in zip(init, dtypes):
+        if t.shape != (resolution, resolution) or t.dtype != dt:
+            raise ValueError(f"carry seed must be ({resolution}, "
+                             f"{resolution}) {dt}, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    return tuple(t.contiguous() for t in init)
+
+
 def slice_raster(coords2, c_axis, levels, values, ok, *, position: float,
                  resolution: int, n_levels: int) -> torch.Tensor:
     """B1: (R, R) float64 slice image (deepest covering leaf, NaN where
@@ -170,12 +199,9 @@ def slice_raster(coords2, c_axis, levels, values, ok, *, position: float,
                                     n_levels=n_levels)
     dev = values.device
     lib = _load()
-    u0, v0, px = (t.contiguous() for t in
-                  leaf_table(coords2, levels, resolution=resolution))
-    lvl = levels.to(torch.int32).contiguous()
-    good = (ok & _in_range(lvl, n_levels)
-            & plane_hit(c_axis, lvl, position, n_levels)
-            ).to(torch.uint8).contiguous()
+    u0, v0, px, lvl, good = _slice_table(
+        coords2, c_axis, levels, ok, position=position,
+        resolution=resolution, n_levels=n_levels)
     val = values.to(torch.float64).contiguous()
     keys = torch.empty((resolution, resolution), dtype=torch.int64,
                        device=dev)
@@ -188,6 +214,41 @@ def slice_raster(coords2, c_axis, levels, values, ok, *, position: float,
             "slice_raster")
     LAUNCHES["slice_raster"] += 1
     return img
+
+
+def slice_raster_carry(coords2, c_axis, levels, values, ok, *,
+                       position: float, resolution: int, n_levels: int,
+                       init=None):
+    """B4: one tile painted over ``init=(img0, depth0)``; returns the
+    ``(image, depth)`` pair (float64, int32). Same contract as
+    :func:`.ref.slice_raster_depth_ref`; ``init=None`` seeds NaN / -1."""
+    dev = values.device
+    if init is None:
+        init = (torch.full((resolution, resolution), float("nan"),
+                           dtype=torch.float64, device=dev),
+                torch.full((resolution, resolution), -1, dtype=torch.int32,
+                           device=dev))
+    if not _on_cuda(coords2, c_axis, levels, values, ok, *init):
+        return ref.slice_raster_depth_ref(
+            coords2, c_axis, levels, values, ok, position=position,
+            resolution=resolution, n_levels=n_levels, init=init)
+    img0, depth0 = _seed(init, resolution, (torch.float64, torch.int32))
+    lib = _load()
+    u0, v0, px, lvl, good = _slice_table(
+        coords2, c_axis, levels, ok, position=position,
+        resolution=resolution, n_levels=n_levels)
+    val = values.to(torch.float64).contiguous()
+    keys = torch.empty((resolution, resolution), dtype=torch.int64,
+                       device=dev)
+    img = torch.empty_like(img0)
+    depth = torch.empty_like(depth0)
+    with torch.cuda.device(dev):
+        _check(lib.raster_slice_carry_f64(
+            _ptr(u0), _ptr(v0), _ptr(px), _ptr(lvl), _ptr(good), _ptr(val),
+            val.shape[0], resolution, _ptr(keys), _ptr(img0), _ptr(depth0),
+            _ptr(img), _ptr(depth), _stream(dev)), "slice_raster_carry")
+    LAUNCHES["slice_raster_carry"] += 1
+    return img, depth
 
 
 def projection_csr(coords2, levels, ok, *, resolution: int, n_levels: int):
@@ -230,6 +291,34 @@ def projection_raster(coords2, levels, values, ok, *, resolution: int,
             resolution.bit_length() - 1, n_levels, _ptr(img), _stream(dev)),
             "projection_raster")
     LAUNCHES["projection_raster"] += 1
+    return img
+
+
+def projection_raster_carry(coords2, levels, values, ok, *, resolution: int,
+                            n_levels: int, init=None) -> torch.Tensor:
+    """B5: one tile's column density added over the seed ``init``
+    (float64, zeros if None); same contract as
+    :func:`.ref.projection_raster_ref` with ``init``."""
+    dev = values.device
+    if init is None:
+        init = torch.zeros((resolution, resolution), dtype=torch.float64,
+                           device=dev)
+    if not _on_cuda(coords2, levels, values, ok, init):
+        return ref.projection_raster_ref(coords2, levels, values, ok,
+                                         resolution=resolution,
+                                         n_levels=n_levels, init=init)
+    (img0,) = _seed((init,), resolution, (torch.float64,))
+    lib = _load()
+    order, offsets = projection_csr(coords2, levels, ok,
+                                    resolution=resolution, n_levels=n_levels)
+    val = values.to(torch.float64).contiguous()
+    img = torch.empty_like(img0)
+    with torch.cuda.device(dev):
+        _check(lib.raster_projection_carry_f64(
+            _ptr(val), _ptr(order), _ptr(offsets), _ptr(img0), resolution,
+            resolution.bit_length() - 1, n_levels, _ptr(img), _stream(dev)),
+            "projection_raster_carry")
+    LAUNCHES["projection_raster_carry"] += 1
     return img
 
 

@@ -12,7 +12,9 @@ to the host numpy reducers (``insitu.reducers``/``hercule.analysis``):
   * projection — per level, a leaf's rank among the leaves of its cell
     (row order) splits the level into passes whose target cells are
     unique, so each pixel's f64 adds run in the host's BFS order;
-  * histogram — integer counts (``bincount``) are order-free.
+  * histogram — integer counts (``bincount``) are order-free;
+  * seeded (``init=``) — the carry twins of the tiled rasters start
+    from an earlier tile's partial instead of NaN/-1 or zeros.
 
 Pixel geometry is exact integer arithmetic; ``resolution`` must be a
 power of two (``ops`` checks it).
@@ -70,6 +72,23 @@ def slice_raster_ref(coords2, c_axis, levels, values, ok, *,
     ``coords2`` is the (N, 2) in-plane coords, ``c_axis`` the (N,) coord
     along the slice axis, ``ok`` the valid-leaf mask.
     """
+    img, _ = slice_raster_depth_ref(
+        coords2, c_axis, levels, values, ok, position=position,
+        resolution=resolution, n_levels=n_levels)
+    return img
+
+
+def slice_raster_depth_ref(coords2, c_axis, levels, values, ok, *,
+                           position: float, resolution: int, n_levels: int,
+                           init=None):
+    """Depth-tracking slice, optionally seeded: returns ``(image, depth)``.
+
+    ``depth`` (int32) holds the painting leaf's level, -1 where nothing
+    painted. ``init=(img0, depth0)`` seeds the paint (the earlier tiles'
+    partial of a tiled raster): a level-``l`` leaf lands only where
+    ``l >= depth0``, the sequential kernel's gate, so a tile's deeper or
+    equal-level leaves repaint the seed and shallower ones do not.
+    """
     r = resolution
     k = r.bit_length() - 1
     dev = values.device
@@ -86,29 +105,33 @@ def slice_raster_ref(coords2, c_axis, levels, values, ok, *,
     rows = torch.arange(lvl.shape[0], dtype=torch.int64, device=dev)
     win = torch.full((total + 1,), -1, dtype=torch.int64, device=dev)
     win.scatter_reduce_(0, idx, torch.where(sel, rows, -1), reduce="amax")
-    img_row = torch.full((r, r), -1, dtype=torch.int64, device=dev)
+    if init is None:
+        img = torch.full((r, r), _NAN, dtype=values.dtype, device=dev)
+        depth = torch.full((r, r), -1, dtype=torch.int32, device=dev)
+    else:
+        img, depth = init
     for level in range(n_levels):
         g = 1 << min(level, k)
         grid = win[bases[level]:bases[level] + g * g].reshape(g, g)
         up = _upsample(grid, r // g)
-        img_row = torch.where(up >= 0, up, img_row)
-    painted = img_row >= 0
-    img = values[img_row.clamp(min=0)]
-    return torch.where(painted, img, torch.full_like(img, _NAN))
+        take = (up >= 0) & (depth <= level)
+        img = torch.where(take, values[up.clamp(min=0)], img)
+        depth = torch.where(take, level, depth)
+    return img, depth
 
 
 def projection_raster_ref(coords2, levels, values, ok, *,
-                          resolution: int, n_levels: int):
+                          resolution: int, n_levels: int, init=None):
     """Column density: per-leaf value * 2^-level summed along the axis.
 
     Several leaves of one level can land on one pixel (they differ along
     the projection axis), so each pixel's adds must run leaf by leaf in
     BFS order. Per level, the leaves are split by their rank within
     their cell; every rank pass targets unique cells, so a plain
-    gather-add-scatter keeps the host's accumulation order exactly. At
-    coarse levels the pass runs on a coarse view of the running image —
-    exact, since every coarser level wrote values constant over this
-    level's cells — and touched cells are replicated back.
+    gather-add-scatter over the cells' pixel blocks keeps the host's
+    accumulation order exactly. ``init`` seeds the accumulator (the
+    earlier tiles' partial of a tiled raster); the adds run per pixel,
+    so any seed is exact and pixels no leaf covers keep its bits.
     """
     r = resolution
     k = r.bit_length() - 1
@@ -117,7 +140,8 @@ def projection_raster_ref(coords2, levels, values, ok, *,
     scale = level_scale(n_levels, dev)
     cells = level_cells(coords2, levels, resolution=r, n_levels=n_levels)
     bases = level_bases(n_levels, k)
-    img = torch.zeros((r, r), dtype=values.dtype, device=dev)
+    img = torch.zeros((r, r), dtype=values.dtype, device=dev) \
+        if init is None else init
     for level in range(n_levels):
         sel = torch.nonzero(ok & (lvl == level)).flatten()
         if sel.numel() == 0:
@@ -128,17 +152,15 @@ def projection_raster_ref(coords2, levels, values, ok, *,
         sorted_cell, perm = torch.sort(cell, stable=True)
         rank = (torch.arange(sorted_cell.numel(), device=dev)
                 - torch.searchsorted(sorted_cell, sorted_cell))
-        rows = sel[perm]
-        contrib = values[rows] * scale[level]
-        flat = img[::px, ::px].reshape(-1).clone()
+        contrib = values[sel[perm]] * scale[level]
+        # (cell, pixel of the cell) blocks of the running image: a copy
+        blocks = img.reshape(g, px, g, px).permute(0, 2, 1, 3) \
+            .reshape(g * g, px * px).clone()
         for rk in range(int(rank.max()) + 1):
             m = rank == rk
             tgt = sorted_cell[m]
-            flat[tgt] = flat[tgt] + contrib[m]
-        hit = torch.zeros(g * g, dtype=torch.bool, device=dev)
-        hit[sorted_cell] = True
-        up = _upsample(flat.reshape(g, g), px)
-        img = torch.where(_upsample(hit.reshape(g, g), px), up, img)
+            blocks[tgt] = blocks[tgt] + contrib[m, None]
+        img = blocks.reshape(g, g, px, px).permute(0, 2, 1, 3).reshape(r, r)
     return img
 
 

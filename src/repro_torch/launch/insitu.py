@@ -5,7 +5,9 @@ step), pushes every step's AMR tree through the in-transit engine, and
 then replays viewer queries against the reduced catalog — the full
 compute → staging → reducers → HDep → catalog pipeline on one box.
 With ``--device-reduce`` the snapshots stage and reduce on ``--device``
-(the GPU by default) through the CUDA raster kernels.
+(the GPU by default) through the CUDA raster kernels; with
+``--device-mesh N`` each snapshot's leaf table is sharded over N devices
+(the first N GPUs, or N shards on ``--device``) and merged on the first.
 """
 from __future__ import annotations
 
@@ -66,10 +68,14 @@ def main(argv=None):
                         "CUDA raster kernels; only reduced objects cross "
                         "the device->host boundary")
     p.add_argument("--device", default=None,
-                   help="torch device of --device-reduce (default: cuda; "
-                        "'cpu' runs the kernels' plain torch twins)")
+                   help="torch device of --device-reduce, or of all N "
+                        "shards of --device-mesh (default: cuda, resp. "
+                        "the first N GPUs; 'cpu' runs the kernels' plain "
+                        "torch twins)")
     p.add_argument("--device-mesh", type=int, default=0, metavar="N",
-                   help="not ported yet (sharded multi-GPU reduction)")
+                   help="shard each snapshot's leaf table over N devices, "
+                        "rasterize every shard on its own device and "
+                        "merge the partials on the first (0 = off)")
     p.add_argument("--lane-pool", action="store_true",
                    help="with --backend process: borrow lanes from the "
                         "persistent module pool instead of spawning")
@@ -86,13 +92,16 @@ def main(argv=None):
                    help="not ported yet (run ledger)")
     args = p.parse_args(argv)
 
-    for flag, on in (("--device-mesh", args.device_mesh),
-                     ("--serve-check", args.serve_check),
+    for flag, on in (("--serve-check", args.serve_check),
                      ("--ledger", args.ledger)):
         if on:
             p.error(f"{flag} is not ported to repro_torch yet")
-    if args.device is not None and not args.device_reduce:
-        p.error("--device only applies with --device-reduce")
+    if args.device_mesh and args.device_reduce:
+        p.error("--device-mesh and --device-reduce are exclusive paths")
+    if args.device is not None and not (args.device_reduce
+                                        or args.device_mesh):
+        p.error("--device only applies with --device-reduce or "
+                "--device-mesh")
     if args.trace_out:
         from ..obs import TRACER
         TRACER.enable()
@@ -102,14 +111,20 @@ def main(argv=None):
     else:
         shutil.rmtree(args.out, ignore_errors=True)
     reducers = default_reducers(args.resolution, args.lod, args.domains)
-    device_reduce = args.device_reduce
+    device_reduce = "mesh" if args.device_mesh else args.device_reduce
+    device, mesh_devices = args.device, None
+    if args.device_mesh:
+        import torch
+        mesh_devices = args.device_mesh if device is None else \
+            [torch.device(device)] * args.device_mesh
+        device = None
     engine = InTransitEngine(
         args.out, reducers,
         output_every=args.output_every, workers=args.workers,
         queue_capacity=args.queue_capacity, policy=args.policy,
         domains=args.domains, backend=args.backend,
-        device_reduce=device_reduce, device=args.device,
-        lane_pool=args.lane_pool).start()
+        device_reduce=device_reduce, device=device,
+        mesh_devices=mesh_devices, lane_pool=args.lane_pool).start()
 
     print(f"== compute flow: {args.steps} Sedov steps "
           f"(policy={args.policy}, output_every={args.output_every}, "
@@ -146,6 +161,16 @@ def main(argv=None):
               f"vs {staged/1e6:.2f} MB staged on device "
               f"({ds['device_objects']} device objects, "
               f"fallback_runs={ds['fallback_runs']})")
+    if args.device_mesh:
+        ds = engine.device_stats
+        print(f"   mesh reduce[{ds['mesh_devices']}d]: "
+              f"peak_leaf_frac={ds['peak_leaf_frac']:.3f} "
+              f"({ds['leaf_rows']} rows total, "
+              f"peak table {ds['peak_device_table_bytes']/1e6:.2f} MB + "
+              f"partial {ds['peak_device_partial_bytes']/1e6:.2f} MB "
+              f"per device; {ds['bytes_tables_to_device']/1e6:.2f} MB "
+              f"sharded up, {ds['bytes_reduced_to_host']/1e6:.2f} MB "
+              f"reduced down, fallback_runs={ds['fallback_runs']})")
     tel = engine.telemetry()
     tot = tel["staging"]["totals"]
     print(f"   telemetry[{tel['backend']}]: accepted={tot['accepted']} "

@@ -150,9 +150,9 @@ def test_device_reduce_without_gpu_raises(tmp_path, monkeypatch):
 
 
 def test_engine_rejects_unported_modes(tmp_path):
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="device_reduce mode"):
         InTransitEngine(str(tmp_path / "a"), [red_pt.SliceReducer()],
-                        device_reduce="mesh")
+                        device_reduce="tpu")
     with pytest.raises(ValueError, match="thread"):
         InTransitEngine(str(tmp_path / "b"), [red_pt.SliceReducer()],
                         device_reduce=True, device="cpu", backend="process")
@@ -244,7 +244,8 @@ def test_cli_default_out_is_a_fresh_temp_dir(tmp_path, monkeypatch, capsys):
     assert all(str(r) in out for r in runs)
 
 
-@pytest.mark.parametrize("flag", [["--device-mesh", "2"], ["--serve-check"],
+@pytest.mark.parametrize("flag", [["--device-mesh", "2", "--device-reduce"],
+                                  ["--serve-check"],
                                   ["--ledger"], ["--device", "cpu"]])
 def test_cli_refuses_unported_flags(tmp_path, flag):
     with pytest.raises(SystemExit) as ei:

@@ -1,0 +1,467 @@
+"""The sharded mesh path (``repro_torch.insitu.mesh_reduce``) and its
+carry kernels B4/B5 against the reference.
+
+Small size throughout: a Sedov tree (``min_level=2, max_level=5``,
+1,481 nodes) at R = 32 = 2**max_level, where slice painting is
+collision-free. Contract, as ``tests/test_mesh_reduce.py`` states it:
+
+  * the carry twins (``kernels/ref``, what a CPU tensor runs) chained
+    over BFS tiles are bit-equal — image and depth — to the reference's
+    Pallas carry kernels in interpret mode at the same ``tile_n``, and
+    to the untiled raster;
+  * a one-shard mesh is bit-equal to the reference's one-device mesh
+    runner and to the host reducers;
+  * S shards on the CPU (``[cpu] * S``): slice, histogram and LOD cut
+    bit-equal to the host reducers, the projection bit-equal to the
+    ascending fold of the per-shard host reductions (``md_fold``) and
+    within rtol 1e-12 of the host image.
+
+Every JAX call runs under ``jax.enable_x64(True)``. The ``gpu`` case
+holds the CUDA carry kernels against their twins on the card.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.insitu import Catalog as CatalogRef
+from repro.insitu import InTransitEngine as EngineRef
+from repro.insitu import partition_snapshot
+from repro.insitu import reducers as red_ref
+from repro.insitu.mesh_reduce import MeshDAGRunner as MeshRef
+from repro.insitu.partition import leaf_shards as leaf_shards_ref
+from repro.insitu.staging import Snapshot as SnapRef
+from repro.kernels import ops as ops_ref
+from repro.sim import amrgen, fields
+from repro_torch.insitu import Catalog, InTransitEngine
+from repro_torch.insitu import reducers as red_pt
+from repro_torch.insitu.mesh_reduce import (MESH_TILE, MeshDAGRunner,
+                                            mesh_devices, mesh_impl_for)
+from repro_torch.insitu.staging import Snapshot
+from repro_torch.kernels import ops, raster, ref
+from repro_torch.launch import insitu as cli
+
+R = 32
+CPU = torch.device("cpu")
+SNAME = f"slice-density-ax2-p0.5-r{R}"
+PNAME = f"proj-density-ax2-r{R}"
+
+
+def sedov_arrays(seed: int = 0) -> dict:
+    """A Sedov structure (6 levels) with random sign-mixed densities."""
+    rng = np.random.default_rng(seed)
+    tree = amrgen.generate_tree(fields.sedov(r_shock=0.2), min_level=2,
+                                max_level=5, threshold=1.15,
+                                level_factor=1.05)
+    tree.fields["density"] = rng.standard_normal(tree.n_nodes) * 4.0 + 1.0
+    return tree.to_arrays()
+
+
+@pytest.fixture(scope="module")
+def arrays():
+    return sedov_arrays()
+
+
+def dag(mod, lod: int = 3):
+    return mod.ReducerDAG([
+        mod.SliceReducer(field="density", axis=2, position=0.5,
+                         resolution=R),
+        mod.ProjectionReducer(field="density", axis=2, resolution=R),
+        mod.LevelHistogramReducer(field="density", bins=16),
+        mod.LODCutReducer(max_level=lod),
+        mod.SliceReducer(field="density", axis=2, position=0.5,
+                         resolution=R, source=f"lod{lod}"),
+    ])
+
+
+def host(arrays, *, domain=0, n_domains=1):
+    """The reference host reducers' outputs for :func:`dag`."""
+    d = dag(red_ref)
+    snap = SnapRef(step=0, kind="amr", arrays=arrays, domain=domain,
+                   n_domains=n_domains)
+    out = {}
+    for r in d.order:
+        o = r.reduce(snap, out)
+        if o:
+            out[r.name] = o
+    return out
+
+
+def md_fold(arrays, n_shards: int):
+    """Read-side reference: per-Hilbert-domain host projections folded in
+    ascending domain order (``hercule.api._merge_sum``)."""
+    refine = np.asarray(arrays["refine"])
+    leaves = np.flatnonzero(~refine)
+    shard = leaf_shards_ref(arrays, n_shards)
+    proj = red_ref.ProjectionReducer(field="density", axis=2, resolution=R)
+    acc = None
+    for g in range(n_shards):
+        owner = np.zeros(refine.shape[0], bool)
+        owner[leaves[shard == g]] = True
+        part = proj.reduce(SnapRef(step=0, kind="amr",
+                                   arrays={**arrays, "owner": owner},
+                                   n_domains=2), {})["image"]
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def assert_bits(got, want, what):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    assert got.tobytes() == want.tobytes(), what
+
+
+def node_tables(arrays):
+    """Flat node arrays (numpy) as the partial entry points take them."""
+    levels = (np.searchsorted(arrays["level_offsets"],
+                              np.arange(arrays["refine"].shape[0]),
+                              side="right") - 1).astype(np.int32)
+    return {"coords": arrays["coords"], "levels": levels,
+            "values": arrays["field:density"], "ok": ~arrays["refine"],
+            "n_levels": arrays["level_offsets"].shape[0] - 1}
+
+
+def port_partial(x, kind, tile_n, backend=None):
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in x.items()
+         if k != "n_levels"}
+    kw = dict(axis=2, resolution=R, n_levels=x["n_levels"],
+              backend=backend, tile_n=tile_n)
+    if kind == "slice":
+        img, depth = ops.raster_slice_partial(
+            t["coords"], t["levels"], t["values"], t["ok"], position=0.5,
+            **kw)
+        return img.numpy(), depth.numpy()
+    return (ops.raster_projection_partial(
+        t["coords"], t["levels"], t["values"], t["ok"], **kw).numpy(),)
+
+
+def reference_partial(x, kind, tile_n):
+    with jax.enable_x64(True):
+        j = {k: jnp.asarray(v) for k, v in x.items() if k != "n_levels"}
+        kw = dict(axis=2, resolution=R, n_levels=x["n_levels"],
+                  backend="pallas_interpret", tile_n=tile_n)
+        if kind == "slice":
+            out = ops_ref.raster_slice_partial(
+                j["coords"], j["levels"], j["values"], j["ok"],
+                position=0.5, **kw)
+        else:
+            out = (ops_ref.raster_projection_partial(
+                j["coords"], j["levels"], j["values"], j["ok"], **kw),)
+        return tuple(np.asarray(o) for o in out)
+
+
+# ------------------------------------------------------ carry kernels
+
+@pytest.mark.parametrize("tile_n", [512, 4096])
+@pytest.mark.parametrize("kind", ["slice", "projection"])
+def test_carry_twins_bit_equal_to_reference_kernels(arrays, kind, tile_n):
+    """B4/B5 semantics: the port's chained twins against the reference's
+    Pallas carry kernels (interpret mode), image and depth."""
+    x = node_tables(arrays)
+    got = port_partial(x, kind, tile_n)
+    want = reference_partial(x, kind, tile_n)
+    assert len(got) == len(want)
+    for g, w, what in zip(got, want, ("image", "depth")):
+        assert_bits(g, w, f"{kind} {what} tile_n={tile_n}")
+
+
+@pytest.mark.parametrize("tile_n", [512, 1024])
+@pytest.mark.parametrize("kind", ["slice", "projection"])
+def test_tiled_equals_whole(arrays, kind, tile_n):
+    """Chaining BFS tiles is bit-identical to one call over the table,
+    and the partial's image to the one-shot raster (B1/B2)."""
+    x = node_tables(arrays)
+    assert x["values"].shape[0] > tile_n            # several tiles
+    tiled = port_partial(x, kind, tile_n)
+    whole = port_partial(x, kind, None)
+    for a, b in zip(tiled, whole):
+        assert_bits(a, b, f"{kind} tiled vs whole")
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in x.items()
+         if k != "n_levels"}
+    if kind == "slice":
+        one = ops.raster_slice(t["coords"], t["levels"], t["values"],
+                               t["ok"], axis=2, position=0.5, resolution=R,
+                               n_levels=x["n_levels"])
+    else:
+        one = ops.raster_projection(t["coords"], t["levels"], t["values"],
+                                    t["ok"], axis=2, resolution=R,
+                                    n_levels=x["n_levels"])
+    assert_bits(tiled[0], one.numpy(), f"{kind} tiled vs one-shot")
+
+
+def test_projection_twin_is_exact_for_any_seed(arrays):
+    """The seeded projection twin adds per pixel, so a seed that varies
+    inside a coarse cell keeps its bits under every add sequence."""
+    x = node_tables(arrays)
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in x.items()
+         if k != "n_levels"}
+    c2 = ops.plane_coords(t["coords"], 2)
+    seed = torch.from_numpy(np.random.default_rng(3).standard_normal((R, R)))
+    got = ref.projection_raster_ref(c2, t["levels"], t["values"], t["ok"],
+                                    resolution=R, n_levels=x["n_levels"],
+                                    init=seed)
+    # the same adds one pixel at a time, in row (BFS) order
+    u0, v0, px = raster.leaf_table(c2, t["levels"], resolution=R)
+    want = seed.clone()
+    for row in np.flatnonzero(x["ok"]):
+        lv = int(x["levels"][row])
+        rect = want[u0[row]:u0[row] + px[row], v0[row]:v0[row] + px[row]]
+        rect += t["values"][row] * (2.0 ** -lv)
+    assert_bits(got.numpy(), want.numpy(), "seeded projection")
+
+
+def test_carry_wrappers_on_cpu_run_the_twin_and_count_nothing(arrays):
+    x = node_tables(arrays)
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in x.items()
+         if k != "n_levels"}
+    c2 = ops.plane_coords(t["coords"], 2)
+    geo = dict(resolution=R, n_levels=x["n_levels"])
+    before = dict(raster.LAUNCHES)
+    img, depth = raster.slice_raster_carry(c2, t["coords"][:, 2],
+                                           t["levels"], t["values"], t["ok"],
+                                           position=0.5, **geo)
+    want = ref.slice_raster_depth_ref(c2, t["coords"][:, 2], t["levels"],
+                                      t["values"], t["ok"], position=0.5,
+                                      **geo)
+    assert torch.equal(img.view(torch.int64), want[0].view(torch.int64))
+    assert torch.equal(depth, want[1]) and depth.dtype == torch.int32
+    p = raster.projection_raster_carry(c2, t["levels"], t["values"],
+                                       t["ok"], init=img.nan_to_num(), **geo)
+    assert torch.equal(p, ref.projection_raster_ref(
+        c2, t["levels"], t["values"], t["ok"], init=img.nan_to_num(), **geo))
+    assert raster.LAUNCHES == before
+
+
+def test_tile_n_must_be_a_block_multiple(arrays):
+    x = node_tables(arrays)
+    with pytest.raises(ValueError, match="not a multiple of block_n=512"):
+        port_partial(x, "projection", 1000)
+
+
+# ------------------------------------------------------------- runner
+
+def port_run(arrays, devices, *, tile_n=MESH_TILE, backend=None, **snap):
+    runner = MeshDAGRunner(dag(red_pt), devices=devices, backend=backend,
+                           tile_n=tile_n)
+    out = runner.run(Snapshot(step=0, kind="amr", arrays=arrays, **snap))
+    return out, runner.stats.as_dict()
+
+
+@pytest.mark.parametrize("backend", [None, "ref"])
+def test_single_shard_matches_reference_mesh_runner(arrays, monkeypatch,
+                                                    backend):
+    """One shard means no fold: every output is bit-equal to the
+    reference's one-device mesh runner and to the host reducers."""
+    import jax.experimental
+    # the reference runner spells jax.enable_x64 the pre-0.9 way
+    monkeypatch.setattr(jax.experimental, "enable_x64",
+                        lambda: jax.enable_x64(True), raising=False)
+    want = MeshRef(dag(red_ref), devices=1, backend="ref").run(
+        SnapRef(step=0, kind="amr", arrays=arrays))
+    got, st = port_run(arrays, [CPU], backend=backend)
+    assert sorted(got) == sorted(want)
+    for name, o in want.items():
+        for k, v in o.items():
+            assert_bits(got[name][k], v, f"{name}/{k}")
+    hst = host(arrays)
+    for name, o in hst.items():
+        for k, v in o.items():
+            assert_bits(got[name][k], v, f"host {name}/{k}")
+    assert st["fallback_snapshots"] == 0
+    assert st["peak_leaf_frac"] == 1.0 and st["mesh_devices"] == 1
+    assert st["bytes_tables_to_device"] > 0
+
+
+@pytest.mark.parametrize("tile_n", [MESH_TILE, 512])
+@pytest.mark.parametrize("n_shards", [2, 3, 4])
+def test_shards_meet_the_mesh_contract(arrays, n_shards, tile_n):
+    got, st = port_run(arrays, [CPU] * n_shards, tile_n=tile_n)
+    want = host(arrays)
+    assert sorted(got) == sorted(want)
+    for name, o in want.items():
+        for k, v in o.items():
+            if name == PNAME:
+                assert_bits(got[name][k], md_fold(arrays, n_shards),
+                            f"S={n_shards} projection vs md_fold")
+                np.testing.assert_allclose(got[name][k], v, rtol=1e-12)
+            else:
+                assert_bits(got[name][k], v, f"S={n_shards} {name}/{k}")
+    assert st["fallback_snapshots"] == 0
+    assert st["mesh_devices"] == n_shards
+    assert st["fallback_runs"] == {f"{SNAME}-of-lod3": 1}
+    if n_shards == 4:        # residency: no device holds more than ~1/S
+        assert st["peak_leaf_frac"] <= 0.6, st["peak_leaf_frac"]
+        assert st["peak_device_table_bytes"] * n_shards <= \
+            st["bytes_tables_to_device"] * 1.01
+        assert st["peak_device_partial_bytes"] > 0
+
+
+def test_owner_masked_partitions_compose_with_the_mesh(arrays):
+    parts = partition_snapshot(arrays, "amr", 2)
+    want = host(arrays)
+    slice_img = proj_img = None
+    for d, part in enumerate(parts):
+        out, _ = port_run(part, [CPU] * 4, domain=d, n_domains=2)
+        ref_part = host(part, domain=d, n_domains=2)
+        assert_bits(out[SNAME]["image"], ref_part[SNAME]["image"],
+                    f"part {d} slice")
+        np.testing.assert_allclose(out[PNAME]["image"],
+                                   ref_part[PNAME]["image"], rtol=1e-12)
+        s, p = out[SNAME]["image"], out[PNAME]["image"]
+        slice_img = s if slice_img is None else np.where(
+            np.isnan(slice_img), s, slice_img)
+        proj_img = p if proj_img is None else proj_img + p
+    assert_bits(slice_img, want[SNAME]["image"], "overlaid slice")
+    np.testing.assert_allclose(proj_img, want[PNAME]["image"], rtol=1e-12)
+
+
+def test_mesh_impl_registry_fallback_configs():
+    assert mesh_impl_for(red_pt.SliceReducer(resolution=64)) is not None
+    assert mesh_impl_for(red_pt.SliceReducer(resolution=100)) is None
+    assert mesh_impl_for(
+        red_pt.SliceReducer(resolution=64, source="lod2")) is None
+    assert mesh_impl_for(red_pt.ProjectionReducer(resolution=48)) is None
+    assert mesh_impl_for(red_pt.LODCutReducer(max_level=2)) is not None
+    assert mesh_impl_for(red_pt.LevelHistogramReducer()) is not None
+
+
+def test_nonpow2_resolution_falls_back_without_device_bytes(arrays):
+    d = red_pt.ReducerDAG([red_pt.SliceReducer(field="density",
+                                               resolution=48)])
+    runner = MeshDAGRunner(d, devices=[CPU] * 2)
+    assert runner.impls[d.order[0].name] is None
+    out = runner.run(Snapshot(step=0, kind="amr", arrays=arrays))
+    want = red_ref.SliceReducer(field="density", resolution=48).reduce(
+        SnapRef(step=0, kind="amr", arrays=arrays), {})
+    assert_bits(out[d.order[0].name]["image"], want["image"], "host slice")
+    assert runner.stats.bytes_fallback_to_host == 0
+    assert runner.stats.fallback_snapshots == 1
+
+
+@pytest.mark.parametrize("case", ["oversized", "none_without_gpu", "f32",
+                                  "empty"])
+def test_mesh_runner_config_errors(case):
+    d = dag(red_pt)
+    if case == "oversized":
+        with pytest.raises(ValueError, match="as a sequence"):
+            MeshDAGRunner(d, devices=torch.cuda.device_count() + 1)
+    elif case == "none_without_gpu":
+        if torch.cuda.is_available():
+            assert len(mesh_devices(None)) == torch.cuda.device_count()
+        else:
+            with pytest.raises(ValueError, match="0 CUDA device"):
+                MeshDAGRunner(d)
+    elif case == "f32":
+        with pytest.raises(NotImplementedError, match="float64 only"):
+            MeshDAGRunner(d, devices=[CPU], dtype="float32")
+    else:
+        with pytest.raises(ValueError, match="at least one"):
+            MeshDAGRunner(d, devices=[])
+
+
+# ------------------------------------------------------------- engine
+
+def test_engine_validates_mesh_config(tmp_path):
+    mk = lambda: [red_pt.SliceReducer(resolution=32)]  # noqa: E731
+    with pytest.raises(ValueError, match="device_reduce mode"):
+        InTransitEngine(str(tmp_path / "a"), mk(), device_reduce="tpu")
+    with pytest.raises(ValueError, match="mesh_devices"):
+        InTransitEngine(str(tmp_path / "b"), mk(), mesh_devices=2)
+    with pytest.raises(ValueError, match="thread"):
+        InTransitEngine(str(tmp_path / "c"), mk(), device_reduce="mesh",
+                        mesh_devices=[CPU], backend="process")
+    with pytest.raises(ValueError, match="sequence of devices"):
+        InTransitEngine(str(tmp_path / "d"), mk(), device_reduce="mesh",
+                        device="cpu")
+
+
+@pytest.mark.parametrize("n_shards", [1, 4])
+def test_engine_mesh_catalog_matches_reference_host(tmp_path, arrays,
+                                                    n_shards):
+    """device_reduce='mesh' writes the reference host engine's catalog:
+    bitwise, the projection within 1e-12 (bitwise at one shard)."""
+    with jax.enable_x64(True):
+        eng = EngineRef(str(tmp_path / "ref"), list(dag(red_ref)),
+                        policy="block").start()
+        assert eng.submit(0, arrays)
+        eng.close()
+    eng = InTransitEngine(str(tmp_path / "pt"), list(dag(red_pt)),
+                          policy="block", device_reduce="mesh",
+                          mesh_devices=[CPU] * n_shards).start()
+    assert eng.submit(0, arrays)
+    eng.close()
+    ds = eng.device_stats
+    assert ds["mesh_devices"] == n_shards and ds["fallback_snapshots"] == 0
+    assert all(a.stats.bytes_staged > 0 for a in eng.stages)
+    cr, cp = CatalogRef(str(tmp_path / "ref")), Catalog(str(tmp_path / "pt"))
+    try:
+        assert cr.reducers(0) == cp.reducers(0)
+        for r in cr.reducers(0):
+            with jax.enable_x64(True):
+                a = cr.query(0, r)
+            b = cp.query(0, r)
+            for k in a:
+                if r == PNAME and n_shards > 1:
+                    np.testing.assert_allclose(b[k], a[k], rtol=1e-12)
+                else:
+                    assert_bits(b[k], a[k], f"{r}/{k}")
+    finally:
+        cr.close()
+        cp.close()
+
+
+def test_cli_device_mesh_on_cpu(tmp_path, capsys):
+    rc = cli.main(["--out", str(tmp_path / "cli"), "--steps", "2",
+                   "--max-level", "4", "--resolution", "32", "--queries",
+                   "2", "--policy", "block", "--device-mesh", "4",
+                   "--device", "cpu"])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "device_reduce=mesh" in out and "mesh reduce[4d]:" in out
+    assert "contexts: [2]" in out
+
+
+def test_cli_device_mesh_needs_a_gpu_unless_asked(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cli.main(["--out", str(tmp_path / "x"), "--steps", "1",
+                  "--device-mesh", "2"])
+
+
+# --------------------------------------------------------------- card
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_n", [512, 1024])
+def test_cuda_carry_kernels_bit_equal_to_twins(cuda_device, arrays, tile_n):
+    x = node_tables(arrays)
+    t = {k: torch.from_numpy(np.asarray(v)).to(cuda_device)
+         for k, v in x.items() if k != "n_levels"}
+    kw = dict(axis=2, resolution=R, n_levels=x["n_levels"], tile_n=tile_n)
+    before = dict(raster.LAUNCHES)
+    for backend in ("cuda", "ref"):
+        img, depth = ops.raster_slice_partial(
+            t["coords"], t["levels"], t["values"], t["ok"], position=0.5,
+            backend=backend, **kw)
+        proj = ops.raster_projection_partial(
+            t["coords"], t["levels"], t["values"], t["ok"], backend=backend,
+            **kw)
+        torch.cuda.synchronize()
+        if backend == "cuda":
+            got = (img.view(torch.int64), depth, proj.view(torch.int64))
+        else:
+            want = (img.view(torch.int64), depth, proj.view(torch.int64))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    tiles = -(-x["values"].shape[0] // tile_n)
+    assert raster.LAUNCHES["slice_raster_carry"] - \
+        before["slice_raster_carry"] == tiles
+    assert raster.LAUNCHES["projection_raster_carry"] - \
+        before["projection_raster_carry"] == tiles
