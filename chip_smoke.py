@@ -4,9 +4,9 @@
 Needs one CUDA card and the repository checkout around this file; exits
 non-zero (and prints no result) otherwise, or on any failure.
 
-  1. prints the card's name and power limit, builds the CUDA raster
-     kernels from ``src/repro_torch/kernels/csrc`` and prints the build
-     seconds;
+  1. prints the card's name and power limit, builds every CUDA kernel
+     from ``src/repro_torch/kernels/csrc`` into one library and prints
+     the build seconds;
   2. kernel parity: each of B1-B3 (slice, projection, per-level
      histogram) against its plain torch twin on the card, bitwise, and
      against the port's host numpy reducers, and B4/B5 (the carry-seeded
@@ -14,7 +14,11 @@ non-zero (and prints no result) otherwise, or on any failure.
      twins (image and depth, bitwise) and against one-shot B1/B2 — on
      small Sedov trees (R=16 and 64; R=16 forces sub-pixel collisions;
      512-row tiles), on an owner-masked 3-way partition, and on the full
-     Orion tree (649,385 nodes, R=512, 16384-row tiles);
+     Orion tree (649,385 nodes, R=512, 16384-row tiles); the codec
+     kernels B6-B9 (father–son encode at widths 64/32/16 and zbits
+     2/4/8, decode, bitfield pack and unpack) against their twins,
+     bitwise, on the density groups and ``refine`` flags of the Sedov
+     trees and of the Orion tree;
   3. main path: ``InTransitEngine(device_reduce=True, device="cuda")``
      over the Orion tree with the 512-res slice/projection/histogram DAG,
      then the CLI's default DAG (LOD cut, slice, slice-of-LOD,
@@ -30,11 +34,22 @@ non-zero (and prints no result) otherwise, or on any failure.
      ``python -m repro_torch.launch.insitu --device-mesh 4 --device
      cuda:0`` on Sedov steps under the same contract; B4/B5 must launch
      once per tile per step and B3 once per shard per step;
-  5. times at the full size: the device-reduce and mesh walls per step
+  5. codec path: ``kernels.ops.compress_bits`` (B6 and the stream
+     packing) over the five Orion fields at width 64, from the host
+     codec's level-fused father/son groups; the code and payload words
+     must equal ``core.fpdelta.encode_tree_field``'s, word for word;
+     ``ops.decompress_bits`` (B7) must give every son word back; the
+     density field at widths 32 and 16 through ``f32_bits``/``bf16_bits``
+     against ``fpdelta.encode``; ``refine`` through ``bitfield_pack``
+     (B8, equal to ``np.packbits``) and ``bitfield_unpack`` (B9). One
+     snapshot must launch B6 and B7 five times and B8 and B9 once; the
+     codec wall per snapshot is printed beside the host codec's;
+  6. times at the full size: the device-reduce and mesh walls per step
      and bytes to the host per step, where a device-reduce step's time
      goes (the engine's spans and the device's busy time from
      ``torch.profiler``), and, with CUDA events, each kernel (B4/B5 per
-     tile call), its plain twin and its bound.
+     tile call; B6-B9 at the Orion codec shapes), its plain twin, B7's
+     library yardstick (one ``torch.bitwise_xor``) and its bound.
 
 The line before the last is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -57,17 +72,29 @@ ROOT = Path(__file__).resolve().parent
 #: NVIDIA H100 SXM data sheet: HBM3 bandwidth and FP64 (non-tensor) peak
 MEM_BYTES_PER_S = 3.35e12
 F64_OPS_PER_S = 34e12
+#: H100 SXM int32 rate of the CUDA cores (Hopper white paper: 64 INT32
+#: lanes per SM, 132 SMs, 1.98 GHz boost clock)
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
+RASTER_SRC = "src/repro_torch/kernels/csrc/raster.cu"
+CODEC_SRC = "src/repro_torch/kernels/csrc/codec.cu"
+#: each kernel: the TPU kernel it replaces, its CUDA source
 KERNELS = {
-    "slice_raster": "src/repro/kernels/raster_kernel.py:136",
-    "projection_raster": "src/repro/kernels/raster_kernel.py:240",
-    "level_hist": "src/repro/kernels/raster_kernel.py:320",
-    "slice_raster_carry": "src/repro/kernels/raster_kernel.py:166",
-    "projection_raster_carry": "src/repro/kernels/raster_kernel.py:267",
+    "slice_raster": ("src/repro/kernels/raster_kernel.py:136", RASTER_SRC),
+    "projection_raster": ("src/repro/kernels/raster_kernel.py:240",
+                          RASTER_SRC),
+    "level_hist": ("src/repro/kernels/raster_kernel.py:320", RASTER_SRC),
+    "slice_raster_carry": ("src/repro/kernels/raster_kernel.py:166",
+                           RASTER_SRC),
+    "projection_raster_carry": ("src/repro/kernels/raster_kernel.py:267",
+                                RASTER_SRC),
+    "encode_groups": ("src/repro/kernels/fpdelta_kernel.py:60", CODEC_SRC),
+    "decode_groups": ("src/repro/kernels/fpdelta_kernel.py:96", CODEC_SRC),
+    "bitpack": ("src/repro/kernels/bitpack_kernel.py:26", CODEC_SRC),
+    "bitunpack": ("src/repro/kernels/bitpack_kernel.py:49", CODEC_SRC),
 }
 #: the kernels the device-reduce main path runs
 DEVICE_PATH = ("slice_raster", "projection_raster", "level_hist")
-SOURCE = "src/repro_torch/kernels/csrc/raster.cu"
 
 ORION_STEPS = 3          # timed main-path steps (after one warm-up step)
 LIVE_RESOLUTION = 512
@@ -633,6 +660,211 @@ def main_path_mesh_cli(tmp: Path, device) -> dict:
     return launches
 
 
+
+# ------------------------------------------------------------ codec path
+
+def field_words(tree, field: str, device, width: int = 64) -> list:
+    """The host codec's level-fused father/son groups of ``field``
+    (``core.fpdelta._tree_groups``) as the (S, G) int32 words
+    ``[pred_hi, pred_lo, son_hi, son_lo]`` on ``device``."""
+    import torch
+
+    from repro_torch.core import fpdelta
+    from repro_torch.kernels import ops
+    pred, sons, _ = fpdelta._tree_groups(tree, tree.fields[field])
+    p = torch.from_numpy(pred).to(device)
+    s = torch.from_numpy(sons).to(device)
+    if width == 64:
+        (ph, plo), (sh, slo) = ops.f64_bits(p), ops.f64_bits(s)
+    else:
+        bits = ops.f32_bits if width == 32 else ops.bf16_bits
+        plo, slo = bits(p), bits(s)
+        ph, sh = torch.zeros_like(plo), torch.zeros_like(slo)
+    return [t.T.contiguous() for t in (ph[:, None].expand_as(sh),
+                                       plo[:, None].expand_as(slo), sh, slo)]
+
+
+def stream_words(packed) -> tuple:
+    """``compress_bits``' code and payload words cut to their bit counts,
+    as the host codec's uint32 arrays."""
+    import numpy as np
+    code_words, payload_words, code_bits, payload_bits = packed
+    nc, npl = (max(1, (int(b) + 31) // 32) for b in (code_bits, payload_bits))
+    return (code_words[:nc].cpu().numpy().view(np.uint32),
+            payload_words[:npl].cpu().numpy().view(np.uint32))
+
+
+def packbits_words(flags):
+    """``np.packbits`` of ``flags`` (little bit order) in whole
+    little-endian 32-bit words: the bitfield the host writes."""
+    import numpy as np
+    b = np.packbits(np.asarray(flags, bool), bitorder="little")
+    return np.pad(b, (0, (-b.size) % 4)).view("<u4")
+
+
+def _all_equal(label: str, pairs) -> float:
+    """Raise unless every (got, want) pair is bitwise equal; the largest
+    absolute difference, 0.0."""
+    import torch
+    err = 0.0
+    for name, got, want in pairs:
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"{label}: {name} differs from its plain "
+                                 f"twin (max abs err "
+                                 f"{_max_abs_err(got, want)})")
+        err = max(err, _max_abs_err(got, want))
+    return err
+
+
+def check_codec_parity(label: str, tree, device) -> dict:
+    """B6/B7 on ``tree``'s density groups (widths 64/32/16; zbits 2, 4, 8
+    at width 64) and B8/B9 on its ``refine`` flags against their twins,
+    bitwise; B7 must also give the son words back."""
+    import torch
+
+    from repro_torch.kernels import codec, ref
+    errs = dict.fromkeys(("encode_groups", "decode_groups", "bitpack",
+                          "bitunpack"), 0.0)
+    for width, zbits in ((64, 2), (64, 4), (64, 8), (32, 4), (16, 4)):
+        words = field_words(tree, "density", device, width)
+        got = codec.encode_groups(*words, zbits, width)
+        twin = ref.group_residues_ref(*words, zbits, width)
+        errs["encode_groups"] = max(errs["encode_groups"], _all_equal(
+            f"{label} width {width} zbits {zbits}",
+            [("encode_groups", a, b) for a, b in zip(got, twin)]))
+        sons = codec.decode_groups(got[0], got[1], words[0], words[1])
+        twin = ref.decode_residues_ref(got[0], got[1], words[0], words[1])
+        errs["decode_groups"] = max(errs["decode_groups"], _all_equal(
+            f"{label} width {width}",
+            [("decode_groups", a, b) for a, b in zip(sons, twin)]
+            + [("decode_groups (son words)", a, b)
+               for a, b in zip(sons, words[2:])]))
+    flags = torch.from_numpy(tree.refine).to(device)
+    packed = codec.bitpack(flags)
+    back = codec.bitunpack(packed, flags.shape[0])
+    errs["bitpack"] = _all_equal(label, [("bitpack", packed,
+                                          ref.bitpack_ref(flags))])
+    errs["bitunpack"] = _all_equal(label, [
+        ("bitunpack", back, ref.bitunpack_ref(packed, flags.shape[0])),
+        ("bitunpack (flags)", back.bool(), flags)])
+    print(f"parity {label}: B6 (widths 64/32/16, zbits 2/4/8) and B7 "
+          f"bit-equal to their twins over {words[0].shape[1]} groups of "
+          f"{words[0].shape[0]} sons; B8/B9 over {flags.shape[0]} refine "
+          f"flags")
+    return errs
+
+
+def codec_path_orion(tree, device) -> dict:
+    """The codec on the card over one Orion snapshot (see the module
+    docstring, phase 5): words held to the host codec's, son words and
+    flags round-tripped, launches counted, walls timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import fpdelta
+    from repro_torch.kernels import codec, ops
+    names = list(tree.fields)
+    refine = torch.from_numpy(tree.refine)
+
+    def snapshot(split: dict | None = None):
+        """Encode every field (host gather, upload, B6 and the packing,
+        streams to the host), then decode each on the card (B7) and pack
+        and unpack ``refine`` (B8, B9); returns the two walls in ms.
+        ``split`` adds each encode stage's ms, synchronized per stage."""
+        def stage(key, fn, *args):
+            if split is None:
+                return fn(*args)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            split[key] = split.get(key, 0.0) + 1e3 * (time.perf_counter() - t)
+            return out
+
+        t0 = time.perf_counter()
+        enc = {}
+        for f in names:
+            words = stage("gather_upload", field_words, tree, f, device)
+            packed = stage("compress_bits", ops.compress_bits, *words)
+            enc[f] = (words, packed, stage("streams_to_host", stream_words,
+                                           packed))
+        t1 = time.perf_counter()
+        dec = {f: ops.decompress_bits(*packed[:2], *words[:2])
+               for f, (words, packed, _) in enc.items()}
+        flags = refine.to(device)
+        packed_flags = ops.bitfield_pack(flags)
+        back = ops.bitfield_unpack(packed_flags, flags.shape[0])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return enc, dec, (flags, packed_flags, back), \
+            (1e3 * (t1 - t0), 1e3 * (t2 - t1))
+
+    snapshot()                           # warm-up: allocator, torch's kernels
+    codec.reset_launches()
+    enc, dec, (flags, packed_flags, back), first = snapshot()
+    launches = dict(codec.LAUNCHES)
+    want = {"encode_groups": len(names), "decode_groups": len(names),
+            "bitpack": 1, "bitunpack": 1}
+    if launches != want:
+        raise AssertionError(f"codec snapshot launches {launches}, "
+                             f"expected {want}")
+    walls = [first] + [snapshot()[3] for _ in range(2)]
+    split: dict = {}
+    snapshot(split)
+    t0 = time.perf_counter()
+    host = {f: fpdelta.encode_tree_field(tree, f) for f in names}
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    n_words = n_bytes = 0
+    for f in names:
+        words, _, (codes, payload) = enc[f]
+        stream = host[f].stream
+        if not (np.array_equal(codes, stream.codes)
+                and np.array_equal(payload, stream.payload)):
+            raise AssertionError(f"codec {f}: stream words differ from the "
+                                 f"host codec's")
+        if not (torch.equal(dec[f][0], words[2])
+                and torch.equal(dec[f][1], words[3])):
+            raise AssertionError(f"codec {f}: decoded son words differ")
+        n_words += codes.size + payload.size
+        n_bytes += stream.nbytes
+    if not np.array_equal(packed_flags.cpu().numpy().view(np.uint32),
+                          packbits_words(tree.refine)):
+        raise AssertionError("bitfield_pack(refine) differs from np.packbits")
+    if not torch.equal(back.bool(), flags):
+        raise AssertionError("bitfield_unpack did not give refine back")
+    pred, sons, _ = fpdelta._tree_groups(tree, tree.fields["density"])
+    for width in (32, 16):
+        codes, payload = stream_words(ops.compress_bits(
+            *field_words(tree, "density", device, width), width=width))
+        blk = fpdelta.encode(pred, sons, width=width)
+        if not (np.array_equal(codes, blk.codes)
+                and np.array_equal(payload, blk.payload)):
+            raise AssertionError(f"codec density width {width}: stream "
+                                 f"words differ from the host codec's")
+        n_words += codes.size + payload.size
+    raw = tree.n_nodes * 8 * len(names)
+    out = {"launches": launches, "fields": names,
+           "encode_wall_ms": [w[0] for w in walls],
+           "decode_wall_ms": [w[1] for w in walls],
+           "encode_split_ms": split,
+           "host_encode_ms": host_ms, "stream_bytes": n_bytes,
+           "raw_bytes": raw, "words_checked": n_words}
+    print(f"codec path orion: {len(names)} fields {names} at width 64 "
+          f"({sons.shape[0]} groups each), density at 32 and 16, and "
+          f"{tree.n_nodes} refine flags: {n_words} stream words equal to "
+          f"the host codec's, son words and flags round-tripped, launches "
+          f"per snapshot {launches}")
+    print(f"time codec_wall_ms_per_snapshot: encode {out['encode_wall_ms']!r}"
+          f" (host gather, upload, compress_bits, streams to the host), "
+          f"decode {out['decode_wall_ms']!r} (decompress_bits and refine "
+          f"pack/unpack); host codec encode_tree_field over the same fields "
+          f"{host_ms!r} ms; streams {n_bytes} bytes against {raw} raw")
+    print(f"breakdown codec encode per snapshot (one more run, stages "
+          f"synchronized): {split!r} ms")
+    return out
+
+
 # --------------------------------------------------------------- timing
 
 def time_ms(fn, reps: int, warm: int = 2) -> float:
@@ -659,13 +891,15 @@ def _row_bytes(t) -> int:
     return t[:1].numel() * t.element_size()
 
 
-def _bound(nbytes: int, ops: int) -> dict:
-    """The least time for ``nbytes`` moved and ``ops`` f64 operations:
-    the larger of bytes over the memory rate and ops over the FP64 peak."""
-    tb, to = nbytes / MEM_BYTES_PER_S, ops / F64_OPS_PER_S
+def _bound(nbytes: int, ops: int, kind: str = "f64") -> dict:
+    """The least time for ``nbytes`` moved and ``ops`` operations of
+    ``kind`` (f64 or int32): the larger of bytes over the memory rate and
+    ops over the card's peak for that type."""
+    rate = F64_OPS_PER_S if kind == "f64" else INT32_OPS_PER_S
+    tb, to = nbytes / MEM_BYTES_PER_S, ops / rate
     return {"bound_ms": 1e3 * max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations",
-            "bytes": nbytes, "ops": ops}
+            "bytes": nbytes, "ops": ops, "ops_type": kind}
 
 
 def raster_work(x: dict, resolution: int) -> dict:
@@ -791,6 +1025,71 @@ def time_carries(arrays: dict, device) -> tuple:
     return out, carry_bounds(tiles, LIVE_RESOLUTION)
 
 
+def codec_bounds(words, res, nlz, flags, packed) -> dict:
+    """Least time of B6-B9 on the timed inputs: each input read once and
+    each output written once, against their int32 operations — B6 two
+    XORs and two ORs per son word pair plus a clz, a select and a clamp
+    per group; B7 two XORs; B8 a compare per flag and a ballot per word;
+    B9 a shift and a mask per flag."""
+    n_sg, g = res.numel(), nlz.numel()
+    n, w = flags.numel(), packed.numel()
+    return {"encode_groups": _bound(_nbytes(*words) + 2 * _nbytes(res)
+                                    + _nbytes(nlz), 4 * n_sg + 3 * g,
+                                    "int32"),
+            "decode_groups": _bound(_nbytes(*words) + 2 * _nbytes(res),
+                                    2 * n_sg, "int32"),
+            "bitpack": _bound(_nbytes(flags, packed), n + w, "int32"),
+            "bitunpack": _bound(_nbytes(packed) + n, 2 * n, "int32")}
+
+
+def time_codec(tree, device) -> tuple:
+    """B6-B9 at the Orion codec path's shapes (the density groups at
+    width 64, the ``refine`` flags): the wrapper, its plain twin and, for
+    B7, one ``torch.bitwise_xor`` over both halves stacked (the library
+    yardstick); the kernels' device time from ``torch.profiler`` (None
+    where it records none); then the bounds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import codec, ref
+    words = field_words(tree, "density", device)
+    res_hi, res_lo, nlz = codec.encode_groups(*words, 4, 64)
+    flags = torch.from_numpy(tree.refine).to(device)
+    packed = codec.bitpack(flags)
+    n = flags.shape[0]
+    res2, pred2 = torch.stack([res_hi, res_lo]), torch.stack(words[:2])
+    calls = {
+        "encode_groups": (lambda: codec.encode_groups(*words, 4, 64),
+                          lambda: ref.group_residues_ref(*words, 4, 64),
+                          None),
+        "decode_groups": (lambda: codec.decode_groups(res_hi, res_lo,
+                                                      *words[:2]),
+                          lambda: ref.decode_residues_ref(res_hi, res_lo,
+                                                          *words[:2]),
+                          lambda: torch.bitwise_xor(res2, pred2)),
+        "bitpack": (lambda: codec.bitpack(flags),
+                    lambda: ref.bitpack_ref(flags), None),
+        "bitunpack": (lambda: codec.bitunpack(packed, n),
+                      lambda: ref.bitunpack_ref(packed, n), None),
+    }
+    out = {name: {"ms": time_ms(kern, reps=200),
+                  "plain_ms": time_ms(plain, reps=20),
+                  "library_ms": time_ms(lib, reps=200) if lib else None}
+           for name, (kern, plain, lib) in calls.items()}
+    # the kernels' own device time, apart from the wrappers' host work
+    reps = 50
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for kern, _, _ in calls.values():
+                kern()
+        torch.cuda.synchronize()
+    device_us = {e.key: e.self_device_time_total for e in prof.key_averages()}
+    for name in calls:
+        us = [t for k, t in device_us.items() if f"::{name}_kernel" in k]
+        out[name]["device_ms"] = sum(us) / reps / 1e3 if us else None
+    return out, codec_bounds(words, res_hi, nlz, flags, packed)
+
+
 # ----------------------------------------------------------------- main
 
 def main() -> int:
@@ -814,10 +1113,10 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
-    from repro_torch.kernels import raster
+    from repro_torch.kernels import cudalib
     t0 = time.perf_counter()
-    so = raster.build()
-    raster._load()
+    so = cudalib.build()
+    cudalib.lib()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {so}")
 
     from repro_torch.insitu import partition_snapshot
@@ -827,6 +1126,7 @@ def main() -> int:
         for res in (16, 64):
             check_parity(f"sedov seed={seed} R={res}", tree.to_arrays(),
                          device, resolution=res, bins=32, lo=None, hi=None)
+        check_codec_parity(f"sedov seed={seed}", tree, device)
     parts = partition_snapshot(random_sedov_tree(3).to_arrays(), "amr", 3)
     for g, part in enumerate(parts):
         check_parity(f"owner-masked part {g}/3", part, device, resolution=32,
@@ -842,6 +1142,7 @@ def main() -> int:
         "orion full size", tree.to_arrays(), device,
         resolution=LIVE_RESOLUTION, bins=64, lo=0.0, hi=50.0,
         tile_n=MESH_TILE)
+    errs.update(check_codec_parity("orion full size", tree, device))
 
     # -- 3. main path
     with tempfile.TemporaryDirectory(prefix="chip_smoke_",
@@ -858,36 +1159,50 @@ def main() -> int:
             tree, tmp, device, str(tmp / "orion_host"))
         main_path_mesh_cli(tmp, device)
         shutil.rmtree(tmp, ignore_errors=True)
+    # -- 5. codec path
+    wall["codec"] = codec_path_orion(tree, device)
     print(f"time walls per Orion step: device_reduce "
           f"{wall['wall_ms_per_step']!r} ms, mesh S=1 "
           f"{wall['mesh'][1]['wall_ms_per_step']!r} ms, mesh "
           f"S={MESH_SHARDS} {wall['mesh'][MESH_SHARDS]['wall_ms_per_step']!r}"
           f" ms")
 
-    # -- 5. times at the full size
+    # -- 6. times at the full size
     times = time_kernels(x, edges, n_hist, LIVE_RESOLUTION)
     bnd = bounds(x, edges, n_hist, LIVE_RESOLUTION)
     carry_times, carry_bnd = time_carries(tree.to_arrays(), device)
     times.update(carry_times)
     bnd.update(carry_bnd)
+    codec_times, codec_bnd = time_codec(tree, device)
+    times.update(codec_times)
+    bnd.update(codec_bnd)
     for name in ("slice_raster_carry", "projection_raster_carry"):
         launches[name] = mesh_launches[name]     # the mesh path's (S=1)
+    launches.update(wall["codec"]["launches"])   # one Orion snapshot's
     records = []
-    for name, replaces in KERNELS.items():
+    for name, (replaces, source) in KERNELS.items():
         t, b = times[name], bnd[name]
         per = f"per tile call (mean of {b['tiles']} tiles), " \
             if "tiles" in b else ""
+        where = "per Orion codec snapshot" if source == CODEC_SRC else \
+            f"on the main path over {wall['steps']} steps"
+        lib_ms = t.get("library_ms")
+        if "device_ms" in t:
+            dev_ms = t["device_ms"]
+            per = (f"device time {dev_ms!r} ms a call, " if dev_ms is not None
+                   else "device time not measured, ")
         print(f"time {name}: {per}kernel {t['ms']!r} ms, plain "
-              f"{t['plain_ms']!r} ms, bound {b['bound_ms']!r} ms by "
-              f"{b['bound_by']} ({b['bytes']} bytes, {b['ops']} f64 ops), "
-              f"launches on the main path {launches[name]} over "
-              f"{wall['steps']} steps")
-        records.append({"name": name, "route": "cuda", "source": SOURCE,
+              f"{t['plain_ms']!r} ms, library "
+              f"{'none' if lib_ms is None else repr(lib_ms) + ' ms'}, bound "
+              f"{b['bound_ms']!r} ms by {b['bound_by']} ({b['bytes']} bytes, "
+              f"{b['ops']} {b['ops_type']} ops), launches {launches[name]} "
+              f"{where}")
+        records.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], "ms": t["ms"],
                         "plain_ms": t["plain_ms"],
                         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-                        "library_ms": None})
+                        "library_ms": lib_ms})
     print(json.dumps({"main_path": wall, "card": card}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

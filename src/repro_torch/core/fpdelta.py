@@ -21,8 +21,10 @@ pure vectorized cumsum+gather — same total size, no sequential walk. The
 paper's top-down order is kept: groups are emitted level by level, so
 partial decompression down to a chosen level works (``decode_to_level``).
 
-Everything here is host-side numpy orchestration; the compute-hot inner
-step (XOR + group-OR + CLZ) has no GPU kernel in this package yet.
+Everything here is host-side numpy orchestration. On a card,
+``kernels.ops.compress_bits`` runs the compute-hot inner step (XOR +
+group-OR + CLZ) as a CUDA kernel and writes the same code and payload
+words.
 """
 from __future__ import annotations
 

@@ -1,24 +1,33 @@
-"""Device-reduction entry points over the raster kernels.
+"""Entry points over the CUDA kernels: device reduction and the codec.
 
-Same names and signatures as ``repro.kernels.ops``' raster entry points.
-Each takes flat BFS node arrays — coords (N, 3) int, levels (N,) int,
-values (N,) float64, ok (N,) bool (leaf ∧ owner ∧ not-padding) — plus
-the reducer parameters, and returns the reduced object with bits
-identical to the host numpy reducers. ``resolution`` must be a power of
-two (integer pixel geometry; ``insitu.device`` takes the host reducer
-otherwise).
+Same names and signatures as ``repro.kernels.ops``' entry points.
 
-Backends: ``cuda`` runs the hand-written kernels (``kernels/raster``)
-and needs CUDA tensors; ``ref`` runs the plain torch twins
-(``kernels/ref``) on any device; ``auto``/None calls the
-``kernels/raster`` wrappers, which launch the kernel for CUDA tensors
-and run the twin for CPU tensors.
+Raster (device reduction): each takes flat BFS node arrays — coords
+(N, 3) int, levels (N,) int, values (N,) float64, ok (N,) bool (leaf ∧
+owner ∧ not-padding) — plus the reducer parameters, and returns the
+reduced object with bits identical to the host numpy reducers.
+``resolution`` must be a power of two (integer pixel geometry;
+``insitu.device`` takes the host reducer otherwise).
+
+Codec (paper §2.3 father–son XOR delta, and bitfields): 32-bit words
+are ``torch.int32`` tensors holding the uint32 bit patterns (``uint32``
+inputs are taken through ``.view(torch.int32)``); 64-bit payloads travel
+as (hi, lo) word pairs in the reference's (S, G) layout, sons down,
+groups across. ``compress_bits`` writes the host codec's
+(``core.fpdelta.encode``) code and payload words, word for word.
+
+Backends: ``cuda`` runs the hand-written kernels (``kernels/raster``,
+``kernels/codec``) and needs CUDA tensors; ``ref`` runs the plain torch
+twins (``kernels/ref``) on any device; ``auto``/None calls the kernel
+wrappers, which launch the kernel for CUDA tensors and run the twin for
+CPU tensors.
 """
 from __future__ import annotations
 
 import torch
 
-from . import raster, ref
+from ..core import bitstream as bs
+from . import codec, raster, ref
 
 BACKENDS = ("cuda", "ref")
 
@@ -29,7 +38,7 @@ BLOCK_N = 512
 def _pick(backend: str | None, x: torch.Tensor, kernel, twin):
     """``twin`` for an explicit ``ref``, else the ``kernel`` wrapper."""
     if backend not in (None, "auto", *BACKENDS):
-        raise ValueError(f"unknown raster backend {backend!r}; "
+        raise ValueError(f"unknown backend {backend!r}; "
                          f"use one of {BACKENDS} or 'auto'")
     if backend == "cuda" and not x.is_cuda:
         raise ValueError("backend='cuda' needs CUDA tensors; "
@@ -167,3 +176,163 @@ def _run_tiles(tile_fn, arrays, seed, *, tile_n: int | None, block_n: int):
                    for a in cut]
         carry = tuple(tile_fn(*cut, *carry))
     return carry
+
+
+# ------------------------------------------------------------------ codec
+
+def _words(x) -> torch.Tensor:
+    """``x`` as int32 words: int32 as is, uint32 reinterpreted."""
+    x = torch.as_tensor(x)
+    if x.dtype == torch.uint32:
+        return x.view(torch.int32)
+    if x.dtype != torch.int32:
+        raise TypeError(f"codec words must be int32 or uint32, got {x.dtype}")
+    return x
+
+
+def encode_groups_bits(pred_hi, pred_lo, son_hi, son_lo, *, zbits: int = 4,
+                       width: int = 64, backend: str | None = None):
+    """Residues + group nlz from (S, G) words: returns (S, G) int32
+    residues ``son ^ pred`` (hi, lo) and the (G,) int32 shared
+    leading-zero counts clamped to ``2**zbits - 1``."""
+    args = [_words(a) for a in (pred_hi, pred_lo, son_hi, son_lo)]
+    fn = _pick(backend, args[0], codec.encode_groups, ref.group_residues_ref)
+    return fn(*args, zbits, width)
+
+
+def decode_groups_bits(res_hi, res_lo, pred_hi, pred_lo, *,
+                       backend: str | None = None):
+    """Son words ``res ^ pred`` (hi, lo) of (S, G) residues."""
+    args = [_words(a) for a in (res_hi, res_lo, pred_hi, pred_lo)]
+    fn = _pick(backend, args[0], codec.decode_groups, ref.decode_residues_ref)
+    return fn(*args)
+
+
+def _payload_lens(nlz: torch.Tensor, s: int, width: int) -> torch.Tensor:
+    """Bits of each payload entry in stream order: group-major, then
+    son-major, and at width 64 the son's lo word before its hi word."""
+    nb = (width - nlz.to(torch.int64))[None, :].expand(s, -1)     # (S, G)
+    if width == 64:
+        lens = torch.stack([nb.clamp(max=32), (nb - 32).clamp(min=0)], 1)
+        return lens.reshape(2 * s, -1).T.reshape(-1)
+    return nb.clamp(max=width).T.reshape(-1)
+
+
+def compress_bits(pred_hi, pred_lo, son_hi, son_lo, *, zbits: int = 4,
+                  width: int = 64, backend: str | None = None):
+    """Encode (S, G) words: B6, then pack the codes and payload streams.
+
+    Returns ``(code_words, payload_words, code_bits, payload_bits)``:
+    int32 word arrays sized at the reference's upper bounds and the int64
+    bit counts; the words up to ``ceil(bits / 32)`` are the host codec's.
+    """
+    res_hi, res_lo, nlz = encode_groups_bits(
+        pred_hi, pred_lo, son_hi, son_lo, zbits=zbits, width=width,
+        backend=backend)
+    s, g = res_lo.shape
+    code_words, code_bits = bs.pack_bits(
+        nlz, torch.full_like(nlz, zbits),
+        num_words=max(1, -(-g * zbits // 32)))
+    if width == 64:
+        vals = torch.stack([res_lo, res_hi], 1).reshape(2 * s, g).T.reshape(-1)
+    else:
+        vals = res_lo.T.reshape(-1)
+    payload_words, payload_bits = bs.pack_bits(
+        vals, _payload_lens(nlz, s, width),
+        num_words=max(1, -(-g * s * width // 32)))
+    return ref.i32(code_words), ref.i32(payload_words), code_bits, payload_bits
+
+
+def decompress_bits(code_words, payload_words, pred_hi, pred_lo, *,
+                    zbits: int = 4, width: int = 64,
+                    backend: str | None = None):
+    """Inverse of :func:`compress_bits` given the (S, G) predictor words:
+    unpack the codes and the residues, then B7. Returns (son_hi, son_lo)."""
+    pred_hi, pred_lo = _words(pred_hi), _words(pred_lo)
+    s, g = pred_lo.shape
+    dev = pred_lo.device
+    nlz = bs.unpack_bits(_words(code_words),
+                         torch.arange(g, device=dev) * zbits,
+                         torch.full((g,), zbits, device=dev))
+    lens = _payload_lens(nlz, s, width)
+    flat = ref.i32(bs.unpack_bits(_words(payload_words),
+                                  torch.cumsum(lens, 0) - lens, lens))
+    if width == 64:
+        pairs = flat.reshape(g, s, 2)
+        res_lo, res_hi = pairs[..., 0].T, pairs[..., 1].T
+    else:
+        res_lo = flat.reshape(g, s).T
+        res_hi = torch.zeros_like(res_lo)
+    return decode_groups_bits(res_hi, res_lo, pred_hi, pred_lo,
+                              backend=backend)
+
+
+def bitfield_pack(bits, *, backend: str | None = None) -> torch.Tensor:
+    """(N,) flags (nonzero = set) -> ceil(N/32) int32 words; bit i of
+    word w is flag 32w + i."""
+    bits = torch.as_tensor(bits).reshape(-1)
+    if bits.dtype not in (torch.uint8, torch.bool):
+        bits = bits != 0
+    fn = _pick(backend, bits, codec.bitpack, ref.bitpack_ref)
+    return fn(bits)
+
+
+def bitfield_unpack(words, n: int, *,
+                    backend: str | None = None) -> torch.Tensor:
+    """The first ``n`` flags of ``words``, uint8 {0, 1}."""
+    words = _words(words).reshape(-1)
+    fn = _pick(backend, words, codec.bitunpack, ref.bitunpack_ref)
+    return fn(words, n)
+
+
+# ------------------------------------------------ float <-> word conveniences
+
+def f32_bits(x) -> torch.Tensor:
+    """float32 bit patterns (int32) of ``x``; wider floats round to
+    nearest even. A float64 NaN keeps its sign and top payload bits,
+    quieted (the x86 conversion, which the reference gives on the CPU),
+    on any device."""
+    x = torch.as_tensor(x)
+    if x.dtype == torch.float32:
+        return x.view(torch.int32)
+    x = x.to(torch.float64)
+    b = x.view(torch.int64)
+    nan = ((b >> 32) & 0x80000000) | 0x7FC00000 | ((b >> 29) & 0x7FFFFF)
+    return ref.i32(torch.where(torch.isnan(x), nan,
+                               ref.u32(x.to(torch.float32).view(torch.int32))))
+
+
+def bits_f32(w) -> torch.Tensor:
+    return _words(w).view(torch.float32)
+
+
+def bf16_bits(x) -> torch.Tensor:
+    """bfloat16 bit patterns of ``x`` widened to int32 (high 16 bits 0).
+
+    Other floats round to float32 (:func:`f32_bits`), then to nearest
+    even bfloat16; NaN becomes 0x7FC0, or 0xFFC0 with the sign bit, as
+    the reference's conversion gives.
+    """
+    x = torch.as_tensor(x)
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).to(torch.int32) & 0xFFFF
+    b = ref.u32(f32_bits(x))
+    rne = (b + 0x7FFF + ((b >> 16) & 1)) >> 16
+    nan = torch.where(b >= 0x80000000, 0xFFC0, 0x7FC0)
+    return torch.where((b & 0x7FFFFFFF) > 0x7F800000, nan, rne) \
+        .to(torch.int32)
+
+
+def bits_bf16(w) -> torch.Tensor:
+    """The bfloat16 tensor whose bits are the low 16 bits of ``w``."""
+    low = ref.u32(_words(w)) & 0xFFFF
+    return torch.where(low >= 1 << 15, low - (1 << 16), low) \
+        .to(torch.int16).view(torch.bfloat16)
+
+
+def f64_bits(x) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) int32 words of float64 ``x`` (the host codec's
+    ``bitstream.f64_to_pair``)."""
+    x = torch.as_tensor(x, dtype=torch.float64).contiguous()
+    w = x.view(torch.int32).reshape(*x.shape, 2)      # little-endian words
+    return w[..., 1], w[..., 0]

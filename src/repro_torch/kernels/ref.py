@@ -1,9 +1,11 @@
-"""Plain torch twins of the raster kernels (the CPU path and the oracle).
+"""Plain torch twins of the CUDA kernels (the CPU path and the oracle).
 
-Counterparts of ``repro/kernels/ref.py``'s raster oracles, written so
-that they are deterministic on any device: no duplicate-index ``set``
-or float ``index_add_`` whose order a device may change. Bit-identical
-to the host numpy reducers (``insitu.reducers``/``hercule.analysis``):
+Counterparts of ``repro/kernels/ref.py``'s oracles, written so that they
+are deterministic on any device: no duplicate-index ``set`` or float
+``index_add_`` whose order a device may change.
+
+Raster twins, bit-identical to the host numpy reducers
+(``insitu.reducers``/``hercule.analysis``):
 
   * slice — every valid leaf competes for its per-level cell with the
     order-free key "largest row wins" (``scatter_reduce`` amax), which
@@ -18,6 +20,12 @@ to the host numpy reducers (``insitu.reducers``/``hercule.analysis``):
 
 Pixel geometry is exact integer arithmetic; ``resolution`` must be a
 power of two (``ops`` checks it).
+
+Codec twins (father–son XOR delta, bitfields): 32-bit words travel as
+``torch.int32`` tensors holding the uint32 bit patterns. ``torch.uint32``
+has no ``>>`` and an int32 ``>>`` is arithmetic, so every shift or
+comparison widens to int64 masked with ``0xFFFFFFFF`` first
+(:func:`u32`); :func:`i32` narrows back.
 """
 from __future__ import annotations
 
@@ -175,3 +183,79 @@ def level_hist_ref(values, levels, ok, edges, *, n_levels: int):
     flat = (lvl * bins + b)[good]
     hist = torch.bincount(flat, minlength=n_levels * bins)
     return hist.to(torch.int32).reshape(n_levels, bins)
+
+
+# ------------------------------------------------------------ codec twins
+
+_FULL = 0xFFFFFFFF
+
+
+def u32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) of 32-bit word patterns."""
+    return x.to(torch.int64) & _FULL
+
+
+def i32(x: torch.Tensor) -> torch.Tensor:
+    """The int32 tensor with the bit patterns of int64 words in
+    [0, 2^32)."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def clz32_ref(x: torch.Tensor) -> torch.Tensor:
+    """Leading zeros of 32-bit words (32 for 0), int32: the reference's
+    bit smear and SWAR popcount."""
+    x = u32(x)
+    for sh in (1, 2, 4, 8, 16):
+        x = x | (x >> sh)
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    pop = ((x * 0x01010101) & _FULL) >> 24
+    return (32 - pop).to(torch.int32)
+
+
+def _or_rows(x: torch.Tensor) -> torch.Tensor:
+    out = torch.zeros_like(x[0])
+    for row in x:
+        out = out | row
+    return out
+
+
+def group_residues_ref(pred_hi, pred_lo, son_hi, son_lo, zbits: int,
+                       width: int):
+    """Twin of B6: (S, G) int32 words -> residues ``son ^ pred`` (S, G)
+    and the clamped shared leading-zero count nlz (G,) int32."""
+    res_hi = son_hi ^ pred_hi
+    res_lo = son_lo ^ pred_lo
+    m_hi, m_lo = _or_rows(res_hi), _or_rows(res_lo)
+    if width == 64:
+        nlz = torch.where(m_hi != 0, clz32_ref(m_hi), 32 + clz32_ref(m_lo))
+    elif width == 32:
+        nlz = clz32_ref(m_lo)
+    else:  # 16-bit payloads in the low word
+        nlz = clz32_ref(m_lo) - 16
+    return res_hi, res_lo, nlz.clamp(max=(1 << zbits) - 1).to(torch.int32)
+
+
+def decode_residues_ref(res_hi, res_lo, pred_hi, pred_lo):
+    """Twin of B7: son words ``res ^ pred``."""
+    return res_hi ^ pred_hi, res_lo ^ pred_lo
+
+
+def bitpack_ref(bits: torch.Tensor) -> torch.Tensor:
+    """Twin of B8: (N,) flags -> ceil(N/32) int32 words, bit i of word w
+    set iff ``bits[32w + i] != 0``; bits past N are 0."""
+    n = bits.shape[0]
+    flat = torch.zeros(-(-n // 32) * 32, dtype=torch.int64,
+                       device=bits.device)
+    flat[:n] = bits != 0
+    weights = torch.ones(32, dtype=torch.int64, device=bits.device) << \
+        torch.arange(32, device=bits.device)
+    return i32((flat.reshape(-1, 32) * weights).sum(1))
+
+
+def bitunpack_ref(words: torch.Tensor, n: int) -> torch.Tensor:
+    """Twin of B9: the first ``n`` flags of ``words``, uint8 {0, 1}."""
+    shifts = torch.arange(32, device=words.device)
+    return ((u32(words)[:, None] >> shifts) & 1).reshape(-1)[:n] \
+        .to(torch.uint8)

@@ -27,7 +27,7 @@ from repro_torch.insitu.reducers import (LevelHistogramReducer,
                                          LODCutReducer, ProjectionReducer,
                                          ReducerDAG, SliceReducer)
 from repro_torch.insitu.staging import Snapshot
-from repro_torch.kernels import ops, raster, ref
+from repro_torch.kernels import cudalib, ops, raster, ref
 
 SEEDS = (0, 7)
 RESOLUTIONS = (16, 64)
@@ -202,7 +202,7 @@ def test_backend_selection_errors():
                               t["ok"], axis=2, resolution=48,
                               n_levels=x["n_levels"])
     with pytest.raises(ValueError, match="one CUDA device or all on the"):
-        raster._on_cuda(t["values"], torch.empty(0, device="meta"))
+        cudalib.on_cuda(t["values"], torch.empty(0, device="meta"))
 
 
 @pytest.mark.parametrize("where", ["env", "checkout", "installed"])
@@ -211,13 +211,14 @@ def test_build_dir(where, tmp_path, monkeypatch):
     monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "cache"))
     if where == "env":
         monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "b"))
-        assert raster.build_dir() == tmp_path / "b"
+        assert cudalib.build_dir() == tmp_path / "b"
     elif where == "checkout":
-        assert raster.build_dir() == raster.CHECKOUT / "build" / "repro_torch"
-        assert (raster.CHECKOUT / "src" / "repro_torch").is_dir()
+        assert cudalib.build_dir() == \
+            cudalib.CHECKOUT / "build" / "repro_torch"
+        assert (cudalib.CHECKOUT / "src" / "repro_torch").is_dir()
     else:
-        monkeypatch.setattr(raster, "CHECKOUT", tmp_path / "lib")
-        assert raster.build_dir() == tmp_path / "cache" / "repro_torch"
+        monkeypatch.setattr(cudalib, "CHECKOUT", tmp_path / "lib")
+        assert cudalib.build_dir() == tmp_path / "cache" / "repro_torch"
 
 
 @pytest.mark.parametrize("backend", [None, "auto", "ref"])
