@@ -18,7 +18,9 @@ non-zero (and prints no result) otherwise, or on any failure.
      kernels B6-B9 (father–son encode at widths 64/32/16 and zbits
      2/4/8, decode, bitfield pack and unpack) against their twins,
      bitwise, on the density groups and ``refine`` flags of the Sedov
-     trees and of the Orion tree;
+     trees and of the Orion tree; B4 (which builds its leaf table in the
+     kernel) also at slice positions on exact cell boundaries and with
+     rows of out-of-range level on the Sedov trees;
   3. main path: ``InTransitEngine(device_reduce=True, device="cuda")``
      over the Orion tree with the 512-res slice/projection/histogram DAG,
      then the CLI's default DAG (LOD cut, slice, slice-of-LOD,
@@ -49,7 +51,10 @@ non-zero (and prints no result) otherwise, or on any failure.
      goes (the engine's spans and the device's busy time from
      ``torch.profiler``), and, with CUDA events, each kernel (B4/B5 per
      tile call; B6-B9 at the Orion codec shapes), its plain twin, B7's
-     library yardstick (one ``torch.bitwise_xor``) and its bound.
+     library yardstick (one ``torch.bitwise_xor``) and its bound; for B4
+     and B7 also the host's own time per wrapper call (a loop with no
+     sync) and the kernels' device time (``torch.profiler``), and the
+     host cost of the two spellings of the current stream's handle.
 
 The line before the last is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -275,6 +280,50 @@ def check_parity(label: str, arrays: dict, device, *, resolution: int,
           f"to seeded twins and one-shot images (R={resolution}, "
           f"{x['values'].shape[0]} padded rows)")
     return errs, x, edges, n_hist
+
+
+def check_carry_boundaries(label: str, arrays: dict, device, *,
+                           resolution: int = 64, tile_n: int = 512) -> None:
+    """B4 chained over ``tile_n``-row tiles against its seeded twin,
+    bitwise (image and depth), at slice positions on exact cell
+    boundaries, with the tree's levels and with every 7th valid row
+    given a level outside [0, n_levels) (rows B4 must drop)."""
+    import torch
+
+    from repro_torch.kernels import ops, raster
+    x = kernel_inputs(arrays, device)
+    L = x["n_levels"]
+    rows = torch.nonzero(x["ok"]).flatten()[::7]
+    bad = x["levels"].clone()
+    bad[rows] = torch.tensor([L, L + 3, -1], dtype=torch.int32,
+                             device=device).repeat(rows.numel())[
+                                 :rows.numel()]
+    n_tiles = -(-x["values"].shape[0] // tile_n)
+    positions = (0.0, 0.25, 0.5, 1 - 2.0 ** -(L - 1))
+    for levels in (x["levels"], bad):
+        for pos in positions:
+            kw = dict(axis=2, position=pos, resolution=resolution,
+                      n_levels=L, tile_n=tile_n)
+            before = raster.LAUNCHES["slice_raster_carry"]
+            got = ops.raster_slice_partial(x["coords"], levels, x["values"],
+                                           x["ok"], **kw)
+            launched = raster.LAUNCHES["slice_raster_carry"] - before
+            twin = ops.raster_slice_partial(x["coords"], levels,
+                                            x["values"], x["ok"],
+                                            backend="ref", **kw)
+            torch.cuda.synchronize()
+            if launched != n_tiles:
+                raise AssertionError(f"{label}: B4 launched {launched} "
+                                     f"times for {n_tiles} tiles")
+            for g, t in zip(got, twin):
+                if g.dtype != t.dtype or not torch.equal(_bits(g), _bits(t)):
+                    raise AssertionError(f"{label}: B4 at position {pos} "
+                                         f"differs from its seeded twin "
+                                         f"(max abs err "
+                                         f"{_max_abs_err(g, t)})")
+    print(f"parity {label}: B4 over {n_tiles} tiles bit-equal to its seeded "
+          f"twin at positions {positions}, with and without {rows.numel()} "
+          f"rows of out-of-range level (R={resolution})")
 
 
 # ----------------------------------------------------------- main path
@@ -882,6 +931,42 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def host_us(fn, calls: int = 2000) -> float:
+    """Host µs per call of ``fn``: a loop with no sync inside, then one
+    sync (the card keeps up, so this is the host's own cost)."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    return us
+
+
+def profiled(fn, calls: int, reps: int) -> tuple:
+    """``fn`` run ``reps`` times (``calls`` wrapper calls in all) under
+    ``torch.profiler`` with CPU and CUDA activity: the device ms per call
+    by kernel, and the host ms per call of the eight events with the most
+    host time (the profiler's own cost included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    device = {e.key[:48]: e.self_device_time_total / calls / 1e3
+              for e in events if e.self_device_time_total > 0}
+    host = sorted(((e.key[:48], e.self_cpu_time_total / calls / 1e3)
+                   for e in events if e.self_cpu_time_total > 0),
+                  key=lambda kv: -kv[1])[:8]
+    return device, dict(host)
+
+
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -1022,7 +1107,76 @@ def time_carries(arrays: dict, device) -> tuple:
                         warm=1)
         out[name] = {"ms": chain / len(tiles), "plain_ms": plain / len(tiles),
                      "chain_ms": chain, "plain_chain_ms": plain}
+    out["slice_raster_carry"].update(slice_carry_calls(tiles, device))
     return out, carry_bounds(tiles, LIVE_RESOLUTION)
+
+
+def slice_carry_calls(tiles: list, device, reps: int = 20) -> dict:
+    """B4's wrapper alone over the pre-cut tiles, chained (no
+    ``_run_tiles`` slicing): ms per call with CUDA events, the host's own
+    ms per call (a loop with no sync, then one sync), and the device ms
+    per call (paint, resolve) and host account from ``torch.profiler``."""
+    import torch
+
+    from repro_torch.kernels import raster
+    r = LIVE_RESOLUTION
+    seed = (torch.full((r, r), float("nan"), dtype=torch.float64,
+                       device=device),
+            torch.full((r, r), -1, dtype=torch.int32, device=device))
+
+    def chain():
+        carry = seed
+        for t in tiles:
+            carry = raster.slice_raster_carry(
+                t["coords2"], t["c_axis"], t["levels"], t["values"], t["ok"],
+                position=0.5, resolution=r, n_levels=t["n_levels"],
+                init=carry)
+        return carry
+
+    calls = reps * len(tiles)
+    wrapper_ms = time_ms(chain, reps=reps) / len(tiles)
+    host_ms = host_us(chain, reps) / 1e3 / len(tiles)
+    split, host_split = profiled(chain, calls, reps)
+    return {"wrapper_ms": wrapper_ms, "host_ms": host_ms,
+            "device_ms": sum(split.values()) if split else None,
+            "device_split_ms": split, "profiled_host_ms": host_split,
+            "host_steps_us": slice_carry_steps(tiles[0], seed)}
+
+
+def slice_carry_steps(t: dict, seed) -> dict:
+    """Host µs per call of each step of B4's wrapper, alone, on one tile:
+    the device and seed checks, one output allocation (it makes two),
+    the ctypes call with its two launches, the whole wrapper, and
+    ``_run_tiles``' cut of one tile's five columns."""
+    import torch
+
+    from repro_torch.kernels import cudalib, raster
+    r = LIVE_RESOLUTION
+    cols = (t["coords2"], t["c_axis"], t["levels"], t["values"], t["ok"])
+    i = cudalib.device_index(*cols, *seed)
+    keys = torch.zeros((r, r), dtype=torch.int64, device=t["values"].device)
+    img, depth = torch.empty_like(seed[0]), torch.empty_like(seed[1])
+    args = (cols[0].data_ptr(), cols[1].data_ptr(), cols[1].stride(0),
+            cols[2].data_ptr(), cols[4].data_ptr(), cols[3].data_ptr(),
+            cols[3].shape[0], r, t["n_levels"], 0.5, keys.data_ptr(),
+            seed[0].data_ptr(), seed[1].data_ptr(), img.data_ptr(),
+            depth.data_ptr())
+    cudalib.lib()
+    entry = cudalib._FNS["raster_slice_carry_f64"]
+    stream = cudalib.current_stream(i)
+    whole = torch.cat(cols[3:4] * 35)
+    steps = {
+        "checks": lambda: (cudalib.device_index(*cols, *seed),
+                           raster._seed(seed, r, (torch.float64,
+                                                  torch.int32))),
+        "one allocation": lambda: torch.empty_like(seed[0]),
+        "ctypes call and launches": lambda: entry(*args, i, stream),
+        "whole wrapper": lambda: raster.slice_raster_carry(
+            *cols, position=0.5, resolution=r, n_levels=t["n_levels"],
+            init=seed),
+        "tile cut (5 slices)": lambda: [whole[:16384] for _ in range(5)],
+    }
+    return {name: host_us(fn, 500) for name, fn in steps.items()}
 
 
 def codec_bounds(words, res, nlz, flags, packed) -> dict:
@@ -1076,6 +1230,8 @@ def time_codec(tree, device) -> tuple:
                   "plain_ms": time_ms(plain, reps=20),
                   "library_ms": time_ms(lib, reps=200) if lib else None}
            for name, (kern, plain, lib) in calls.items()}
+    out["decode_groups"]["host_ms"] = \
+        host_us(calls["decode_groups"][0]) / 1e3
     # the kernels' own device time, apart from the wrappers' host work
     reps = 50
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1087,7 +1243,59 @@ def time_codec(tree, device) -> tuple:
     for name in calls:
         us = [t for k, t in device_us.items() if f"::{name}_kernel" in k]
         out[name]["device_ms"] = sum(us) / reps / 1e3 if us else None
+    out["decode_groups"]["host_steps_us"] = decode_steps(
+        (res_hi, res_lo, *words[:2]))
     return out, codec_bounds(words, res_hi, nlz, flags, packed)
+
+
+def decode_steps(ins) -> dict:
+    """Host µs per call of each step of B7's wrapper, alone: the checks,
+    the one ``(2, S, G)`` output and its halves as views (against two
+    separate outputs), the stream handle, the ctypes call with its
+    launch, and the whole wrapper."""
+    import torch
+
+    from repro_torch.kernels import codec, cudalib
+    son = ins[0].new_empty(2, *ins[0].shape)
+    n, i = ins[0].numel(), ins[0].get_device()
+    ptrs = [t.data_ptr() for t in ins]
+    son_ptr = son.data_ptr()
+    entry = cudalib._FNS["codec_decode_groups"]
+    stream = cudalib.current_stream(i)
+    steps = {
+        "checks": lambda: (codec._same_words(*ins),
+                           cudalib.device_index(*ins),
+                           [cudalib.dense(t) for t in ins]),
+        "one (2, S, G) output": lambda: ins[0].new_empty(2, *ins[0].shape),
+        "its halves as views": lambda: (son[0], son[1]),
+        "two (S, G) outputs": lambda: (torch.empty_like(ins[0]),
+                                       torch.empty_like(ins[1])),
+        "stream handle": lambda: cudalib.current_stream(i),
+        "ctypes call and launch": lambda: entry(*ptrs, n, son_ptr,
+                                                son_ptr + 4 * n, i, stream),
+        "whole wrapper": lambda: codec.decode_groups(*ins),
+    }
+    out = {name: host_us(fn) for name, fn in steps.items()}
+    out["profiled host ms a call"] = profiled(
+        lambda: codec.decode_groups(*ins), 200, 200)[1]
+    return out
+
+
+def time_stream_handles(device) -> dict:
+    """Host µs per call of the current stream's raw handle: the public
+    ``torch.cuda.current_stream(i).cuda_stream`` against
+    ``cudalib.current_stream`` (``torch._C._cuda_getCurrentRawStream``),
+    which the wrappers' launches use."""
+    import torch
+
+    from repro_torch.kernels import cudalib
+    i = device.index
+    out = {"torch.cuda.current_stream(i).cuda_stream": host_us(
+               lambda: torch.cuda.current_stream(i).cuda_stream, 20000),
+           "cudalib.current_stream(i)": host_us(
+               lambda: cudalib.current_stream(i), 20000)}
+    print(f"time stream handle, host us per call: {out!r}")
+    return out
 
 
 # ----------------------------------------------------------------- main
@@ -1127,6 +1335,8 @@ def main() -> int:
             check_parity(f"sedov seed={seed} R={res}", tree.to_arrays(),
                          device, resolution=res, bins=32, lo=None, hi=None)
         check_codec_parity(f"sedov seed={seed}", tree, device)
+        check_carry_boundaries(f"sedov seed={seed}", tree.to_arrays(),
+                               device)
     parts = partition_snapshot(random_sedov_tree(3).to_arrays(), "amr", 3)
     for g, part in enumerate(parts):
         check_parity(f"owner-masked part {g}/3", part, device, resolution=32,
@@ -1176,6 +1386,22 @@ def main() -> int:
     codec_times, codec_bnd = time_codec(tree, device)
     times.update(codec_times)
     bnd.update(codec_bnd)
+    wall["stream_handle_us"] = time_stream_handles(device)
+    b4, b7 = times["slice_raster_carry"], times["decode_groups"]
+    print(f"time slice_raster_carry wrapper alone over "
+          f"{bnd['slice_raster_carry']['tiles']} pre-cut tiles: "
+          f"{b4['wrapper_ms']!r} ms a call (CUDA events), host "
+          f"{b4['host_ms']!r} ms a call, device {b4['device_ms']!r} ms a "
+          f"call {b4['device_split_ms']!r}; the "
+          f"{bnd['slice_raster_carry']['tiles']}-tile chain through "
+          f"ops.raster_slice_partial {b4['chain_ms']!r} ms")
+    print(f"time decode_groups: wrapper {b7['ms']!r} ms a call (CUDA "
+          f"events), host {b7['host_ms']!r} ms a call, device "
+          f"{b7['device_ms']!r} ms; library torch.bitwise_xor "
+          f"{b7['library_ms']!r} ms")
+    print(f"time host us per call of each step: slice_raster_carry "
+          f"{b4['host_steps_us']!r}; decode_groups {b7['host_steps_us']!r}")
+    wall["b4_b7_calls"] = {"slice_raster_carry": b4, "decode_groups": b7}
     for name in ("slice_raster_carry", "projection_raster_carry"):
         launches[name] = mesh_launches[name]     # the mesh path's (S=1)
     launches.update(wall["codec"]["launches"])   # one Orion snapshot's

@@ -13,7 +13,7 @@ import torch
 
 from ..core.fpdelta import WIDTHS
 from . import ref
-from .cudalib import check, lib, on_cuda, ptr, stream
+from .cudalib import dense, device_index, launch
 
 #: kernel launches per wrapper; each wrapper adds one where it launches
 LAUNCHES = {"encode_groups": 0, "decode_groups": 0, "bitpack": 0,
@@ -27,12 +27,17 @@ def reset_launches() -> None:
 
 def _same_words(*ts: torch.Tensor) -> None:
     """All ``ts`` int32 and of one shape."""
+    shape = ts[0].shape
+    for t in ts:
+        if t.dtype != torch.int32 or t.shape != shape:
+            break
+    else:
+        return
     bad = [t.dtype for t in ts if t.dtype != torch.int32]
     if bad:
         raise TypeError(f"codec kernels take int32 word tensors, got {bad}")
-    if len({tuple(t.shape) for t in ts}) != 1:
-        raise ValueError(f"word arrays differ in shape: "
-                         f"{[tuple(t.shape) for t in ts]}")
+    raise ValueError(f"word arrays differ in shape: "
+                     f"{[tuple(t.shape) for t in ts]}")
 
 
 def encode_groups(pred_hi, pred_lo, son_hi, son_lo, zbits: int, width: int):
@@ -45,39 +50,42 @@ def encode_groups(pred_hi, pred_lo, son_hi, son_lo, zbits: int, width: int):
     if width not in WIDTHS or not 1 <= zbits <= 31:
         raise ValueError(f"width must be one of {WIDTHS} and zbits in "
                          f"[1, 31]; got width={width}, zbits={zbits}")
-    if not on_cuda(pred_hi, pred_lo, son_hi, son_lo):
+    dev = device_index(pred_hi, pred_lo, son_hi, son_lo)
+    if dev < 0:
         return ref.group_residues_ref(pred_hi, pred_lo, son_hi, son_lo,
                                       zbits, width)
-    dev = son_hi.device
     s, g = son_hi.shape
-    ins = [t.contiguous() for t in (pred_hi, pred_lo, son_hi, son_lo)]
+    ins = [dense(t) for t in (pred_hi, pred_lo, son_hi, son_lo)]
     res_hi, res_lo = torch.empty_like(ins[2]), torch.empty_like(ins[3])
-    nlz = torch.empty(g, dtype=torch.int32, device=dev)
+    nlz = son_hi.new_empty(g)
     if g:
-        with torch.cuda.device(dev):
-            check(lib().codec_encode_groups(
-                *map(ptr, ins), s, g, width, (1 << zbits) - 1, ptr(res_hi),
-                ptr(res_lo), ptr(nlz), stream(dev)), "encode_groups")
+        launch("codec_encode_groups", dev, *(t.data_ptr() for t in ins), s, g,
+               width, (1 << zbits) - 1, res_hi.data_ptr(), res_lo.data_ptr(),
+               nlz.data_ptr())
         LAUNCHES["encode_groups"] += 1
     return res_hi, res_lo, nlz
 
 
 def decode_groups(res_hi, res_lo, pred_hi, pred_lo):
     """B7: son words ``res ^ pred`` (int32, the inputs' shape); same
-    contract as :func:`.ref.decode_residues_ref`."""
+    contract as :func:`.ref.decode_residues_ref`. On the card the two
+    results are the halves of one ``(2, *shape)`` buffer (views)."""
     _same_words(res_hi, res_lo, pred_hi, pred_lo)
-    if not on_cuda(res_hi, res_lo, pred_hi, pred_lo):
+    dev = device_index(res_hi, res_lo, pred_hi, pred_lo)
+    if dev < 0:
         return ref.decode_residues_ref(res_hi, res_lo, pred_hi, pred_lo)
-    dev = res_hi.device
-    ins = [t.contiguous() for t in (res_hi, res_lo, pred_hi, pred_lo)]
-    son_hi, son_lo = torch.empty_like(ins[0]), torch.empty_like(ins[1])
-    if son_hi.numel():
-        with torch.cuda.device(dev):
-            check(lib().codec_decode_groups(
-                *map(ptr, ins), son_hi.numel(), ptr(son_hi), ptr(son_lo),
-                stream(dev)), "decode_groups")
+    # held in locals: a copy freed before the launch could be handed to
+    # the next copy by the caching allocator
+    rh, rl, ph, pl = dense(res_hi), dense(res_lo), dense(pred_hi), \
+        dense(pred_lo)
+    son = rh.new_empty(2, *rh.shape)   # ints, not a tuple: half the cost
+    n = rh.numel()
+    if n:
+        out = son.data_ptr()
+        launch("codec_decode_groups", dev, rh.data_ptr(), rl.data_ptr(),
+               ph.data_ptr(), pl.data_ptr(), n, out, out + 4 * n)
         LAUNCHES["decode_groups"] += 1
-    return son_hi, son_lo
+    return son[0], son[1]
 
 
 def bitpack(bits: torch.Tensor) -> torch.Tensor:
@@ -86,16 +94,14 @@ def bitpack(bits: torch.Tensor) -> torch.Tensor:
     if bits.dim() != 1 or bits.dtype not in (torch.uint8, torch.bool):
         raise ValueError(f"bitpack takes (N,) uint8 or bool flags, got "
                          f"{tuple(bits.shape)} {bits.dtype}")
-    if not on_cuda(bits):
+    dev = device_index(bits)
+    if dev < 0:
         return ref.bitpack_ref(bits)
-    dev = bits.device
-    flags = bits.contiguous().view(torch.uint8)
+    flags = dense(bits)            # bool and uint8 share the byte layout
     n = flags.shape[0]
-    words = torch.empty(-(-n // 32), dtype=torch.int32, device=dev)
+    words = torch.empty(-(-n // 32), dtype=torch.int32, device=bits.device)
     if n:
-        with torch.cuda.device(dev):
-            check(lib().codec_bitpack(ptr(flags), n, ptr(words),
-                                      stream(dev)), "bitpack")
+        launch("codec_bitpack", dev, flags.data_ptr(), n, words.data_ptr())
         LAUNCHES["bitpack"] += 1
     return words
 
@@ -107,14 +113,12 @@ def bitunpack(words: torch.Tensor, n: int) -> torch.Tensor:
     if words.dim() != 1 or not 0 <= n <= 32 * words.shape[0]:
         raise ValueError(f"bitunpack takes (W,) words and n <= 32 W, got "
                          f"{tuple(words.shape)} and n={n}")
-    if not on_cuda(words):
+    dev = device_index(words)
+    if dev < 0:
         return ref.bitunpack_ref(words, n)
-    dev = words.device
-    w = words.contiguous()
-    bits = torch.empty(n, dtype=torch.uint8, device=dev)
+    w = dense(words)
+    bits = torch.empty(n, dtype=torch.uint8, device=words.device)
     if n:
-        with torch.cuda.device(dev):
-            check(lib().codec_bitunpack(ptr(w), n, ptr(bits), stream(dev)),
-                  "bitunpack")
+        launch("codec_bitunpack", dev, w.data_ptr(), n, bits.data_ptr())
         LAUNCHES["bitunpack"] += 1
     return bits

@@ -25,12 +25,19 @@
 //     past n read as 0, so the ragged last word is exact.
 //   * B9: one thread per output flag, (words[i >> 5] >> (i & 31)) & 1.
 //
-// Plain C interface (loaded with ctypes); every entry launches on the given
-// stream, never synchronizes, and returns cudaGetLastError(). Sizes are
-// positive: the wrappers launch nothing for empty inputs.
+// B7's whole cost is its call: its device time sits under the HBM bound,
+// so its wrapper does the least host work a launch allows (one output
+// allocation, no copies of contiguous inputs; cudalib.launch).
+//
+// Plain C interface (loaded with ctypes); every entry takes the tensors'
+// device index (see device_guard.cuh), launches on the given stream, never
+// synchronizes, and returns cudaGetLastError(). Sizes are positive: the
+// wrappers launch nothing for empty inputs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "device_guard.cuh"
 
 namespace {
 
@@ -133,7 +140,9 @@ int codec_encode_groups(const uint32_t* pred_hi, const uint32_t* pred_lo,
                         const uint32_t* son_hi, const uint32_t* son_lo,
                         int32_t s, int64_t g, int32_t width, int32_t cap,
                         uint32_t* res_hi, uint32_t* res_lo, int32_t* nlz,
-                        void* stream) {
+                        int32_t device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   encode_groups_kernel<<<ceil_div(g, kThreads), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       pred_hi, pred_lo, son_hi, son_lo, s, g, width, cap, res_hi, res_lo,
@@ -144,7 +153,9 @@ int codec_encode_groups(const uint32_t* pred_hi, const uint32_t* pred_lo,
 int codec_decode_groups(const uint32_t* res_hi, const uint32_t* res_lo,
                         const uint32_t* pred_hi, const uint32_t* pred_lo,
                         int64_t n, uint32_t* son_hi, uint32_t* son_lo,
-                        void* stream) {
+                        int32_t device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t blocks = ceil_div(ceil_div(n, 4), kThreads);
   if (aligned16(res_hi) && aligned16(res_lo) && aligned16(pred_hi) &&
@@ -159,7 +170,9 @@ int codec_decode_groups(const uint32_t* res_hi, const uint32_t* res_lo,
 }
 
 int codec_bitpack(const uint8_t* bits, int64_t n, uint32_t* words,
-                  void* stream) {
+                  int32_t device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   const int64_t n_words = ceil_div(n, 32);
   bitpack_kernel<<<ceil_div(32 * n_words, kThreads), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(bits, n, n_words,
@@ -168,7 +181,9 @@ int codec_bitpack(const uint8_t* bits, int64_t n, uint32_t* words,
 }
 
 int codec_bitunpack(const uint32_t* words, int64_t n, uint8_t* bits,
-                    void* stream) {
+                    int32_t device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   bitunpack_kernel<<<ceil_div(n, kThreads), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(words, n, bits);
   return cudaGetLastError();

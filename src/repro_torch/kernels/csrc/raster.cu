@@ -4,7 +4,7 @@
 //   B1 slice_raster       (raster_kernel.py:136)  -> slice_key_kernel + slice_resolve_kernel
 //   B2 projection_raster  (raster_kernel.py:240)  -> projection_kernel
 //   B3 level_hist         (raster_kernel.py:320)  -> level_hist_kernel
-//   B4 slice_raster_carry (raster_kernel.py:166)  -> slice_key_kernel + slice_carry_resolve_kernel
+//   B4 slice_raster_carry (raster_kernel.py:166)  -> slice_carry_paint_kernel + slice_carry_resolve_kernel
 //   B5 projection_raster_carry (raster_kernel.py:267) -> projection_kernel seeded from img0
 //
 // The TPU kernels keep the whole (R, R) image in VMEM and test every leaf
@@ -31,12 +31,22 @@
 //     iff its level >= depth0. B5 starts each pixel's sum at img0 instead of
 //     0.0; the tile's CSR keeps the adds in row order after it. Both read
 //     the seed once and write the outputs once (24 resp. 16 bytes a pixel).
+//   * B4's leaf table is computed inside its paint kernel from the tile's
+//     raw columns (coords, the strided slice-axis column, levels, ok): a
+//     tile's device work is a few us, so the ~15 torch launches that built
+//     the table on the host cost far more than the kernel did. Its key
+//     scratch is kept by the wrapper and stays all zero between calls (the
+//     resolve clears every key it finds set), so one C call launches just
+//     the paint and the resolve: no allocation, no memset.
 //
-// Plain C interface (loaded with ctypes); every entry launches on the given
-// stream, never synchronizes, and returns cudaGetLastError().
+// Plain C interface (loaded with ctypes); every entry takes the tensors'
+// device index (see device_guard.cuh), launches on the given stream, never
+// synchronizes, and returns cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "device_guard.cuh"
 
 namespace {
 
@@ -80,15 +90,55 @@ __global__ void slice_resolve_kernel(const unsigned long long* __restrict__ keys
                        : val[key & 0xffffffffull];
 }
 
-// B4: the tile's winner against the carried (img0, depth0) seed.
+// B4 pass 1: B1's paint with the leaf table made per leaf from the raw
+// columns, exactly as raster.py's _slice_table makes it: leaf_table's
+// integer geometry, the level range 0 <= lvl < n_levels, and plane_hit's
+// float64 test lo <= position < lo + size with size = 2^-lvl and
+// lo = c * size (exact dyadic rationals; __dmul_rn/__dadd_rn keep nvcc
+// from contracting the add). ``c_axis`` is read with its element stride.
+__global__ void slice_carry_paint_kernel(const int32_t* __restrict__ coords2,
+                                         const int32_t* __restrict__ c_axis,
+                                         int64_t c_stride,
+                                         const int32_t* __restrict__ lvl,
+                                         const uint8_t* __restrict__ ok,
+                                         int64_t n, int32_t res,
+                                         int32_t n_levels, double position,
+                                         unsigned long long* __restrict__ keys) {
+  const int64_t leaf = (int64_t)blockIdx.x * kSliceWarpsPerBlock
+                       + threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (leaf >= n || !ok[leaf]) return;
+  const int32_t l = lvl[leaf];
+  if (l < 0 || l >= n_levels) return;
+  const double size = ldexp(1.0, -l);
+  const double lo = __dmul_rn((double)c_axis[leaf * c_stride], size);
+  if (!(lo <= position && position < __dadd_rn(lo, size))) return;
+  const int32_t k = 31 - __clz(res);
+  const int32_t up = max(k - l, 0), dn = max(l - k, 0);
+  // int32 shifts as torch's: left as unsigned (no overflow), right arithmetic
+  const int64_t u = (int32_t)((uint32_t)coords2[2 * leaf] << up) >> dn;
+  const int64_t v = (int32_t)((uint32_t)coords2[2 * leaf + 1] << up) >> dn;
+  const int64_t p = max(res >> min(l, 30), 1);
+  const unsigned long long key =
+      ((unsigned long long)(l + 1) << 32) | (unsigned long long)leaf;
+  const int64_t area = p * p;
+  for (int64_t t = lane; t < area; t += kWarp) {
+    const int64_t i = u + t / p, j = v + t % p;
+    if (i < res && j < res) atomicMax(&keys[i * res + j], key);
+  }
+}
+
+// B4 pass 2: the tile's winner against the carried (img0, depth0) seed;
+// clears the key, so the scratch is all zero again for the next call.
 __global__ void slice_carry_resolve_kernel(
-    const unsigned long long* __restrict__ keys,
+    unsigned long long* __restrict__ keys,
     const double* __restrict__ val, const double* __restrict__ img0,
     const int32_t* __restrict__ depth0, int64_t npix,
     double* __restrict__ img, int32_t* __restrict__ depth) {
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= npix) return;
   const unsigned long long key = keys[p];
+  if (key != 0ull) keys[p] = 0ull;
   const int32_t d0 = depth0[p];
   const int32_t lvl = (int32_t)(key >> 32) - 1;
   if (key != 0ull && lvl >= d0) {
@@ -181,8 +231,8 @@ __global__ void level_hist_kernel(const double* __restrict__ val,
 
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-// Pass 1 of B1 and B4: zero the (R, R) keys, then atomicMax each valid
-// leaf's key over its rectangle.
+// Pass 1 of B1: zero the (R, R) keys, then atomicMax each valid leaf's key
+// over its rectangle.
 cudaError_t paint_keys(const int32_t* u0, const int32_t* v0,
                        const int32_t* px, const int32_t* lvl,
                        const uint8_t* good, int64_t n, int32_t res,
@@ -203,7 +253,9 @@ extern "C" {
 int raster_slice_f64(const int32_t* u0, const int32_t* v0, const int32_t* px,
                      const int32_t* lvl, const uint8_t* good, const double* val,
                      int64_t n, int32_t res, void* keys_scratch, double* img,
-                     void* stream) {
+                     int32_t device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t npix = (int64_t)res * res;
   auto* keys = static_cast<unsigned long long*>(keys_scratch);
@@ -214,17 +266,26 @@ int raster_slice_f64(const int32_t* u0, const int32_t* v0, const int32_t* px,
   return cudaGetLastError();
 }
 
-int raster_slice_carry_f64(const int32_t* u0, const int32_t* v0,
-                           const int32_t* px, const int32_t* lvl,
-                           const uint8_t* good, const double* val, int64_t n,
-                           int32_t res, void* keys_scratch, const double* img0,
+int raster_slice_carry_f64(const int32_t* coords2, const int32_t* c_axis,
+                           int64_t c_stride, const int32_t* lvl,
+                           const uint8_t* ok, const double* val, int64_t n,
+                           int32_t res, int32_t n_levels, double position,
+                           void* keys_scratch, const double* img0,
                            const int32_t* depth0, double* img, int32_t* depth,
-                           void* stream) {
+                           int32_t device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t npix = (int64_t)res * res;
+  // all zero on entry (see slice_carry_resolve_kernel)
   auto* keys = static_cast<unsigned long long*>(keys_scratch);
-  const cudaError_t err = paint_keys(u0, v0, px, lvl, good, n, res, keys, s);
-  if (err != cudaSuccess) return err;
+  if (n > 0) {
+    slice_carry_paint_kernel<<<ceil_div(n, kSliceWarpsPerBlock),
+                               kSliceWarpsPerBlock * kWarp, 0, s>>>(
+        coords2, c_axis, c_stride, lvl, ok, n, res, n_levels, position, keys);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   slice_carry_resolve_kernel<<<ceil_div(npix, kThreads), kThreads, 0, s>>>(
       keys, val, img0, depth0, npix, img, depth);
   return cudaGetLastError();
@@ -232,7 +293,10 @@ int raster_slice_carry_f64(const int32_t* u0, const int32_t* v0,
 
 int raster_projection_f64(const double* val, const int32_t* order,
                           const int64_t* offsets, int32_t res, int32_t k,
-                          int32_t n_levels, double* img, void* stream) {
+                          int32_t n_levels, double* img, int32_t device,
+                          void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t npix = (int64_t)res * res;
   projection_kernel<<<ceil_div(npix, kThreads), kThreads, 0, s>>>(
@@ -243,7 +307,9 @@ int raster_projection_f64(const double* val, const int32_t* order,
 int raster_projection_carry_f64(const double* val, const int32_t* order,
                                 const int64_t* offsets, const double* img0,
                                 int32_t res, int32_t k, int32_t n_levels,
-                                double* img, void* stream) {
+                                double* img, int32_t device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t npix = (int64_t)res * res;
   projection_kernel<<<ceil_div(npix, kThreads), kThreads, 0, s>>>(
@@ -254,7 +320,9 @@ int raster_projection_carry_f64(const double* val, const int32_t* order,
 int raster_level_hist_f64(const double* val, const int32_t* lvl,
                           const uint8_t* ok, const double* edges, int64_t n,
                           int32_t n_levels, int32_t bins, int32_t* hist,
-                          void* stream) {
+                          int32_t device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(
       hist, 0, (size_t)n_levels * bins * sizeof(int32_t), s);

@@ -8,6 +8,13 @@ rebuilt. It goes to ``$REPRO_TORCH_BUILD_DIR`` if set, else
 ``build/repro_torch/`` of the source checkout this module runs from,
 else ``repro_torch`` under the user's cache directory (an installed
 copy).
+
+Every wrapper launches through :func:`launch`, whose per-call cost is
+the ctypes call itself: the function handles are looked up once when the
+library loads, pointers travel as plain ints (``data_ptr()``), the stream
+as the raw ``cudaStream_t`` int, and the C entry, not a Python context
+manager, makes the tensors' device current for the launch and restores
+the caller's device before it returns.
 """
 from __future__ import annotations
 
@@ -27,28 +34,34 @@ CHECKOUT = Path(__file__).resolve().parents[3]
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-_p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-#: the library's C functions and their argument types; each returns the
-#: launch's cudaError_t as an int
+_p, _i32, _i64, _f64 = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
+                      ctypes.c_double)
+#: the library's C functions and their argument types; every entry ends
+#: with the device index and the stream and returns the launch's
+#: cudaError_t as an int
 SIGNATURES = {
     # csrc/raster.cu
-    "raster_slice_f64": [_p, _p, _p, _p, _p, _p, _i64, _i32, _p, _p, _p],
-    "raster_projection_f64": [_p, _p, _p, _i32, _i32, _i32, _p, _p],
-    "raster_level_hist_f64": [_p, _p, _p, _p, _i64, _i32, _i32, _p, _p],
-    "raster_slice_carry_f64": [_p, _p, _p, _p, _p, _p, _i64, _i32, _p, _p,
-                               _p, _p, _p, _p],
+    "raster_slice_f64": [_p, _p, _p, _p, _p, _p, _i64, _i32, _p, _p, _i32,
+                         _p],
+    "raster_projection_f64": [_p, _p, _p, _i32, _i32, _i32, _p, _i32, _p],
+    "raster_level_hist_f64": [_p, _p, _p, _p, _i64, _i32, _i32, _p, _i32,
+                              _p],
+    "raster_slice_carry_f64": [_p, _p, _i64, _p, _p, _p, _i64, _i32, _i32,
+                               _f64, _p, _p, _p, _p, _p, _i32, _p],
     "raster_projection_carry_f64": [_p, _p, _p, _p, _i32, _i32, _i32, _p,
-                                    _p],
+                                    _i32, _p],
     # csrc/codec.cu
     "codec_encode_groups": [_p, _p, _p, _p, _i32, _i64, _i32, _i32, _p, _p,
-                            _p, _p],
-    "codec_decode_groups": [_p, _p, _p, _p, _i64, _p, _p, _p],
-    "codec_bitpack": [_p, _i64, _p, _p],
-    "codec_bitunpack": [_p, _i64, _p, _p],
+                            _p, _i32, _p],
+    "codec_decode_groups": [_p, _p, _p, _p, _i64, _p, _p, _i32, _p],
+    "codec_bitpack": [_p, _i64, _p, _i32, _p],
+    "codec_bitunpack": [_p, _i64, _p, _i32, _p],
 }
 
 _lib = None
 _lib_lock = threading.Lock()
+#: name -> the loaded library's function, filled once by :func:`lib`
+_FNS: dict = {}
 
 
 def _nvcc() -> str:
@@ -76,10 +89,10 @@ def sources() -> list[Path]:
 
 
 def library_name() -> str:
-    """``librepro_torch-<hash>.so``, the hash over every source's name
-    and bytes."""
+    """``librepro_torch-<hash>.so``, the hash over the name and bytes of
+    every source and header (``csrc/*.cu``, ``csrc/*.cuh``)."""
     digest = hashlib.sha1()
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode() + b"\0" + src.read_bytes())
     return f"librepro_torch-{digest.hexdigest()[:12]}.so"
 
@@ -123,28 +136,61 @@ def lib() -> ctypes.CDLL:
     """The loaded library with every function of :data:`SIGNATURES`
     declared (built first if needed)."""
     global _lib
-    with _lib_lock:
-        if _lib is None:
-            loaded = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(loaded, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = loaded
-        return _lib
+    if _lib is None:
+        with _lib_lock:
+            if _lib is None:
+                # PyDLL: each call holds the interpreter lock, so its
+                # launches reach the stream as one group (raster.py's B4
+                # key scratch relies on it); a call lasts microseconds
+                loaded = ctypes.PyDLL(str(build()))
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(loaded, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    _FNS[name] = fn
+                _lib = loaded
+    return _lib
 
 
-def check(err: int, name: str) -> None:
-    if err != 0:
+def current_stream(device: int) -> int:
+    """The raw ``cudaStream_t`` of CUDA device ``device``'s current
+    stream, by the call torch's own generated kernels use: it builds no
+    ``torch.cuda.Stream`` object, which costs more than the rest of a
+    launch (PERF.md)."""
+    return torch._C._cuda_getCurrentRawStream(device)
+
+
+def launch(name: str, device: int, *args) -> None:
+    """Call the library's entry ``name`` with ``args`` (ints, pointers as
+    ``data_ptr()``, and floats, in :data:`SIGNATURES`' order), then the
+    device index and that device's current stream; raises if the entry
+    returns a CUDA error."""
+    fn = _FNS.get(name)
+    if fn is None:
+        lib()
+        fn = _FNS[name]
+    err = fn(*args, device, current_stream(device))
+    if err:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {err}")
 
 
-def stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def device_index(*tensors: torch.Tensor) -> int:
+    """The index of the one CUDA device all ``tensors`` lie on, or -1 when
+    all lie on the CPU; raises on a mix (see :func:`on_cuda`)."""
+    dev = tensors[0].get_device()
+    if dev >= 0:
+        for t in tensors:
+            if t.get_device() != dev:
+                break
+        else:
+            return dev
+    on_cuda(*tensors)
+    return -1
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when contiguous, else a contiguous copy."""
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:

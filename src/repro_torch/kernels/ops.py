@@ -120,7 +120,9 @@ def raster_slice_partial(coords, levels, values, ok, *, axis: int,
                        dtype=values.dtype, device=dev),
             torch.full((resolution, resolution), -1, dtype=torch.int32,
                        device=dev))
-    return _run_tiles(tile, (plane_coords(coords, axis), coords[:, axis],
+    # int32 coords keep their strided axis column (B4 reads it in place)
+    return _run_tiles(tile, (plane_coords(coords, axis),
+                             coords[:, axis].to(torch.int32),
                              levels.to(torch.int32), values, ok), seed,
                       tile_n=tile_n, block_n=block_n)
 

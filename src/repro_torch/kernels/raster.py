@@ -12,11 +12,18 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .cudalib import check, lib, on_cuda, ptr, stream
+from .cudalib import current_stream, dense, device_index, launch
 
 #: kernel launches per wrapper; each wrapper adds one where it launches
 LAUNCHES = {"slice_raster": 0, "projection_raster": 0, "level_hist": 0,
             "slice_raster_carry": 0, "projection_raster_carry": 0}
+
+#: B4's (R, R) int64 key scratch per (device, raw stream, R), all zero
+#: between calls: the kernel's resolve clears every key it reads. Only
+#: calls on one stream share one, and the library holds the interpreter
+#: lock through each call, so one call's paint and resolve reach the
+#: stream with no other call's launches between them.
+_SLICE_KEYS: dict = {}
 
 
 def reset_launches() -> None:
@@ -80,31 +87,29 @@ def _seed(init, resolution: int, dtypes):
             raise ValueError(f"carry seed must be ({resolution}, "
                              f"{resolution}) {dt}, got {tuple(t.shape)} "
                              f"{t.dtype}")
-    return tuple(t.contiguous() for t in init)
+    return tuple(dense(t) for t in init)
 
 
 def slice_raster(coords2, c_axis, levels, values, ok, *, position: float,
                  resolution: int, n_levels: int) -> torch.Tensor:
     """B1: (R, R) float64 slice image (deepest covering leaf, NaN where
     none); same contract as :func:`.ref.slice_raster_ref`."""
-    if not on_cuda(coords2, c_axis, levels, values, ok):
+    dev = device_index(coords2, c_axis, levels, values, ok)
+    if dev < 0:
         return ref.slice_raster_ref(coords2, c_axis, levels, values, ok,
                                     position=position, resolution=resolution,
                                     n_levels=n_levels)
-    dev = values.device
     u0, v0, px, lvl, good = _slice_table(
         coords2, c_axis, levels, ok, position=position,
         resolution=resolution, n_levels=n_levels)
     val = values.to(torch.float64).contiguous()
     keys = torch.empty((resolution, resolution), dtype=torch.int64,
-                       device=dev)
+                       device=values.device)
     img = torch.empty((resolution, resolution), dtype=torch.float64,
-                      device=dev)
-    with torch.cuda.device(dev):
-        check(lib().raster_slice_f64(
-            ptr(u0), ptr(v0), ptr(px), ptr(lvl), ptr(good), ptr(val),
-            val.shape[0], resolution, ptr(keys), ptr(img), stream(dev)),
-            "slice_raster")
+                      device=values.device)
+    launch("raster_slice_f64", dev, u0.data_ptr(), v0.data_ptr(),
+           px.data_ptr(), lvl.data_ptr(), good.data_ptr(), val.data_ptr(),
+           val.shape[0], resolution, keys.data_ptr(), img.data_ptr())
     LAUNCHES["slice_raster"] += 1
     return img
 
@@ -114,31 +119,53 @@ def slice_raster_carry(coords2, c_axis, levels, values, ok, *,
                        init=None):
     """B4: one tile painted over ``init=(img0, depth0)``; returns the
     ``(image, depth)`` pair (float64, int32). Same contract as
-    :func:`.ref.slice_raster_depth_ref`; ``init=None`` seeds NaN / -1."""
-    dev = values.device
+    :func:`.ref.slice_raster_depth_ref`; ``init=None`` seeds NaN / -1.
+
+    On the card the kernel reads the raw columns — int32 ``coords2`` (N,
+    2), ``c_axis`` (any stride) and ``levels``, float64 ``values``, bool
+    or uint8 ``ok`` — and makes the leaf table itself, so the tile sees
+    no torch op but the two output allocations.
+    """
     if init is None:
         init = (torch.full((resolution, resolution), float("nan"),
-                           dtype=torch.float64, device=dev),
+                           dtype=torch.float64, device=values.device),
                 torch.full((resolution, resolution), -1, dtype=torch.int32,
-                           device=dev))
-    if not on_cuda(coords2, c_axis, levels, values, ok, *init):
+                           device=values.device))
+    dev = device_index(coords2, c_axis, levels, values, ok, *init)
+    if dev < 0:
         return ref.slice_raster_depth_ref(
             coords2, c_axis, levels, values, ok, position=position,
             resolution=resolution, n_levels=n_levels, init=init)
     img0, depth0 = _seed(init, resolution, (torch.float64, torch.int32))
-    u0, v0, px, lvl, good = _slice_table(
-        coords2, c_axis, levels, ok, position=position,
-        resolution=resolution, n_levels=n_levels)
-    val = values.to(torch.float64).contiguous()
-    keys = torch.empty((resolution, resolution), dtype=torch.int64,
-                       device=dev)
+    n = values.shape[0]
+    if not (coords2.dtype == c_axis.dtype == levels.dtype == torch.int32
+            and values.dtype == torch.float64
+            and ok.dtype in (torch.bool, torch.uint8)
+            and coords2.shape == (n, 2)
+            and c_axis.shape == levels.shape == ok.shape == values.shape):
+        got = [(tuple(t.shape), t.dtype)
+               for t in (coords2, c_axis, levels, values, ok)]
+        raise TypeError(f"slice_raster_carry on the card takes int32 "
+                        f"coords2 (N, 2), int32 c_axis and levels (N,), "
+                        f"float64 values (N,) and bool ok (N,); got {got}")
+    c2, lvl, val, okb = dense(coords2), dense(levels), dense(values), \
+        dense(ok)
+    scratch = (dev, current_stream(dev), resolution)
+    keys = _SLICE_KEYS.get(scratch)
+    if keys is None:
+        keys = _SLICE_KEYS[scratch] = torch.zeros(
+            (resolution, resolution), dtype=torch.int64, device=values.device)
     img = torch.empty_like(img0)
     depth = torch.empty_like(depth0)
-    with torch.cuda.device(dev):
-        check(lib().raster_slice_carry_f64(
-            ptr(u0), ptr(v0), ptr(px), ptr(lvl), ptr(good), ptr(val),
-            val.shape[0], resolution, ptr(keys), ptr(img0), ptr(depth0),
-            ptr(img), ptr(depth), stream(dev)), "slice_raster_carry")
+    try:
+        launch("raster_slice_carry_f64", dev, c2.data_ptr(),
+               c_axis.data_ptr(), c_axis.stride(0), lvl.data_ptr(),
+               okb.data_ptr(), val.data_ptr(), n, resolution, n_levels,
+               position, keys.data_ptr(), img0.data_ptr(),
+               depth0.data_ptr(), img.data_ptr(), depth.data_ptr())
+    except RuntimeError:
+        _SLICE_KEYS.pop(scratch, None)    # may hold a paint, unresolved
+        raise
     LAUNCHES["slice_raster_carry"] += 1
     return img, depth
 
@@ -166,21 +193,19 @@ def projection_raster(coords2, levels, values, ok, *, resolution: int,
                       n_levels: int) -> torch.Tensor:
     """B2: (R, R) float64 column density; same contract as
     :func:`.ref.projection_raster_ref`."""
-    if not on_cuda(coords2, levels, values, ok):
+    dev = device_index(coords2, levels, values, ok)
+    if dev < 0:
         return ref.projection_raster_ref(coords2, levels, values, ok,
                                          resolution=resolution,
                                          n_levels=n_levels)
-    dev = values.device
     order, offsets = projection_csr(coords2, levels, ok,
                                     resolution=resolution, n_levels=n_levels)
     val = values.to(torch.float64).contiguous()
     img = torch.empty((resolution, resolution), dtype=torch.float64,
-                      device=dev)
-    with torch.cuda.device(dev):
-        check(lib().raster_projection_f64(
-            ptr(val), ptr(order), ptr(offsets), resolution,
-            resolution.bit_length() - 1, n_levels, ptr(img), stream(dev)),
-            "projection_raster")
+                      device=values.device)
+    launch("raster_projection_f64", dev, val.data_ptr(), order.data_ptr(),
+           offsets.data_ptr(), resolution, resolution.bit_length() - 1,
+           n_levels, img.data_ptr())
     LAUNCHES["projection_raster"] += 1
     return img
 
@@ -190,11 +215,11 @@ def projection_raster_carry(coords2, levels, values, ok, *, resolution: int,
     """B5: one tile's column density added over the seed ``init``
     (float64, zeros if None); same contract as
     :func:`.ref.projection_raster_ref` with ``init``."""
-    dev = values.device
     if init is None:
         init = torch.zeros((resolution, resolution), dtype=torch.float64,
-                           device=dev)
-    if not on_cuda(coords2, levels, values, ok, init):
+                           device=values.device)
+    dev = device_index(coords2, levels, values, ok, init)
+    if dev < 0:
         return ref.projection_raster_ref(coords2, levels, values, ok,
                                          resolution=resolution,
                                          n_levels=n_levels, init=init)
@@ -203,11 +228,9 @@ def projection_raster_carry(coords2, levels, values, ok, *, resolution: int,
                                     resolution=resolution, n_levels=n_levels)
     val = values.to(torch.float64).contiguous()
     img = torch.empty_like(img0)
-    with torch.cuda.device(dev):
-        check(lib().raster_projection_carry_f64(
-            ptr(val), ptr(order), ptr(offsets), ptr(img0), resolution,
-            resolution.bit_length() - 1, n_levels, ptr(img), stream(dev)),
-            "projection_raster_carry")
+    launch("raster_projection_carry_f64", dev, val.data_ptr(),
+           order.data_ptr(), offsets.data_ptr(), img0.data_ptr(), resolution,
+           resolution.bit_length() - 1, n_levels, img.data_ptr())
     LAUNCHES["projection_raster_carry"] += 1
     return img
 
@@ -215,19 +238,19 @@ def projection_raster_carry(coords2, levels, values, ok, *, resolution: int,
 def level_hist(values, levels, ok, edges, *, n_levels: int) -> torch.Tensor:
     """B3: (L, B) int32 per-level histogram; same contract as
     :func:`.ref.level_hist_ref`."""
-    if not on_cuda(values, levels, ok, edges):
+    dev = device_index(values, levels, ok, edges)
+    if dev < 0:
         return ref.level_hist_ref(values, levels, ok, edges,
                                   n_levels=n_levels)
-    dev = values.device
     bins = edges.shape[-1] - 1
     val = values.to(torch.float64).contiguous()
     lvl = levels.to(torch.int32).contiguous()
     okb = ok.to(torch.uint8).contiguous()
     edg = edges.to(torch.float64).contiguous()
-    hist = torch.empty((n_levels, bins), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        check(lib().raster_level_hist_f64(
-            ptr(val), ptr(lvl), ptr(okb), ptr(edg), val.shape[0],
-            n_levels, bins, ptr(hist), stream(dev)), "level_hist")
+    hist = torch.empty((n_levels, bins), dtype=torch.int32,
+                       device=values.device)
+    launch("raster_level_hist_f64", dev, val.data_ptr(), lvl.data_ptr(),
+           okb.data_ptr(), edg.data_ptr(), val.shape[0], n_levels, bins,
+           hist.data_ptr())
     LAUNCHES["level_hist"] += 1
     return hist

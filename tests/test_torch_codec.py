@@ -7,6 +7,9 @@ must give the words of ``repro.kernels.ops`` (``pallas_interpret`` and
 tolerance anywhere. The ``gpu`` cases hold each CUDA kernel against its
 twin on the card and skip where there is none.
 """
+import ctypes
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -286,6 +289,78 @@ def test_library_named_by_every_source(tmp_path, monkeypatch):
     assert cudalib.library_name() != first
 
 
+# ------------------------------------------------------ the C interface
+
+#: C argument types of the library's entries -> their ctypes; a pointer is
+#: c_void_p (an int argtype would cut it to 32 bits)
+C_TYPES = {"int32_t": ctypes.c_int32, "int": ctypes.c_int32,
+           "int64_t": ctypes.c_int64, "double": ctypes.c_double}
+
+
+def c_prototypes(src) -> dict:
+    """Name -> ctypes argument types of every ``extern "C"`` entry that
+    ``src`` defines."""
+    text = src.read_text()
+    out = {}
+    for name, args in re.findall(r"^int\s+(\w+)\(([^)]*)\)\s*\{",
+                                 text[text.index('extern "C" {'):], re.M):
+        decls = [" ".join(a.split()) for a in args.split(",")]
+        out[name] = [ctypes.c_void_p if "*" in d else
+                     C_TYPES[d.rsplit(" ", 1)[0].removeprefix("const ")]
+                     for d in decls]
+    return out
+
+
+@pytest.mark.parametrize("source", ["codec.cu", "raster.cu"])
+def test_c_prototypes_match_signatures(source):
+    """Every entry of the source has ``cudalib.SIGNATURES``' argument
+    count and, per argument, its pointer or integer width; each ends with
+    the device index and the stream."""
+    protos = c_prototypes(cudalib.CSRC / source)
+    assert protos
+    for name, types in protos.items():
+        assert cudalib.SIGNATURES.get(name) == types, name
+        assert types[-2:] == [ctypes.c_int32, ctypes.c_void_p], name
+
+
+def test_every_signature_has_a_c_entry():
+    protos = {}
+    for src in cudalib.sources():
+        protos.update(c_prototypes(src))
+    assert sorted(protos) == sorted(cudalib.SIGNATURES)
+
+
+def test_launch_appends_device_and_stream_and_raises_on_error(monkeypatch):
+    calls = []
+
+    def entry(*args):
+        calls.append(args)
+        return args[0]                # the "error" is the first argument
+
+    monkeypatch.setitem(cudalib._FNS, "codec_bitpack", entry)
+    monkeypatch.setattr(cudalib, "current_stream", lambda dev: 1000 + dev)
+    cudalib.launch("codec_bitpack", 3, 0, 40, 77)
+    assert calls == [(0, 40, 77, 3, 1003)]
+    with pytest.raises(RuntimeError, match="codec_bitpack failed: "
+                                           "cudaError 9"):
+        cudalib.launch("codec_bitpack", 1, 9, 40, 77)
+
+
+def test_device_index_and_word_checks():
+    a = torch.zeros(3, dtype=torch.int32)
+    assert cudalib.device_index(a, a.to(torch.bool)) == -1
+    meta = torch.empty(3, dtype=torch.int32, device="meta")
+    for ts in ((a, meta), (meta, a)):
+        with pytest.raises(ValueError, match="one CUDA device or all on"):
+            cudalib.device_index(*ts)
+    assert cudalib.dense(a) is a
+    assert cudalib.dense(a[::2]).is_contiguous()
+    with pytest.raises(TypeError, match="int32 word tensors"):
+        codec.decode_groups(a, a, a, a.to(torch.int64))
+    with pytest.raises(ValueError, match="differ in shape"):
+        codec.decode_groups(a, a, a, a[:2])
+
+
 # ------------------------------------------------------------------ card
 
 @pytest.fixture
@@ -305,6 +380,10 @@ def test_cuda_codec_kernels_bit_equal_to_twins(cuda_device, width):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     dec = codec.decode_groups(got[0], got[1], words[0], words[1])
     assert torch.equal(dec[0], words[2]) and torch.equal(dec[1], words[3])
+    # one (2, S, G) allocation: the son words are its two halves
+    assert dec[0].untyped_storage().data_ptr() == \
+        dec[1].untyped_storage().data_ptr()
+    assert dec[1].data_ptr() - dec[0].data_ptr() == 4 * dec[0].numel()
     odd = [w.reshape(-1)[1:] for w in (got[0], got[1], words[0], words[1])]
     assert all(torch.equal(a, b) for a, b in
                zip(codec.decode_groups(*odd), ref.decode_residues_ref(*odd)))

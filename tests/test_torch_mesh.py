@@ -33,6 +33,7 @@ from repro.insitu.mesh_reduce import MeshDAGRunner as MeshRef
 from repro.insitu.partition import leaf_shards as leaf_shards_ref
 from repro.insitu.staging import Snapshot as SnapRef
 from repro.kernels import ops as ops_ref
+from repro.kernels import raster_kernel
 from repro.sim import amrgen, fields
 from repro_torch.insitu import Catalog, InTransitEngine
 from repro_torch.insitu import reducers as red_pt
@@ -136,7 +137,7 @@ def port_partial(x, kind, tile_n, backend=None):
         t["coords"], t["levels"], t["values"], t["ok"], **kw).numpy(),)
 
 
-def reference_partial(x, kind, tile_n):
+def reference_partial(x, kind, tile_n, position=0.5):
     with jax.enable_x64(True):
         j = {k: jnp.asarray(v) for k, v in x.items() if k != "n_levels"}
         kw = dict(axis=2, resolution=R, n_levels=x["n_levels"],
@@ -144,7 +145,7 @@ def reference_partial(x, kind, tile_n):
         if kind == "slice":
             out = ops_ref.raster_slice_partial(
                 j["coords"], j["levels"], j["values"], j["ok"],
-                position=0.5, **kw)
+                position=position, **kw)
         else:
             out = (ops_ref.raster_projection_partial(
                 j["coords"], j["levels"], j["values"], j["ok"], **kw),)
@@ -237,6 +238,90 @@ def test_tile_n_must_be_a_block_multiple(arrays):
     x = node_tables(arrays)
     with pytest.raises(ValueError, match="not a multiple of block_n=512"):
         port_partial(x, "projection", 1000)
+
+
+#: slice positions on exact cell boundaries: the domain's low face, a
+#: level-2 and a level-1 face, and the low face of the finest level's last
+#: cell (max_level = 5)
+BOUNDARIES = [0.0, 0.25, 0.5, 1 - 2.0 ** -5]
+
+
+def with_bad_levels(x):
+    """``x`` with every 97th valid leaf given a level outside [0,
+    n_levels): rows the level-range test must drop."""
+    levels = x["levels"].copy()
+    rows = np.flatnonzero(x["ok"])[::97]
+    levels[rows] = np.resize([x["n_levels"], x["n_levels"] + 3, -1],
+                             rows.size)
+    return {**x, "levels": levels}
+
+
+def fused_good(c_axis, levels, ok, *, position, n_levels):
+    """``slice_carry_paint_kernel``'s row test, as the CUDA source writes
+    it: ok, 0 <= lvl < n_levels, size = ldexp(1, -lvl), lo = c * size,
+    lo <= position < lo + size."""
+    lvl = levels.astype(np.int64)
+    size = np.ldexp(1.0, -lvl)
+    lo = c_axis.astype(np.float64) * size
+    return (ok & (lvl >= 0) & (lvl < n_levels) & (lo <= position)
+            & (position < lo + size))
+
+
+def reference_carry_chain(table, values, *, tile_n):
+    """The reference's Pallas ``slice_raster_carry`` (interpret mode)
+    chained over ``tile_n``-row tiles of a given leaf table."""
+    n = values.shape[0]
+    with jax.enable_x64(True):
+        img = jnp.full((R, R), jnp.nan, jnp.float64)
+        depth = jnp.full((R, R), -1, jnp.int32)
+        for a in range(0, n, tile_n):
+            cols = [jnp.asarray(c[a:a + tile_n]) for c in (*table, values)]
+            u0, v0, px, lvl, good, val = (
+                ops_ref._pad_leaf(c, 1 if i == 2 else 0, ops.BLOCK_N)
+                for i, c in enumerate(cols))
+            img, depth = raster_kernel.slice_raster_carry(
+                u0, v0, px, lvl, val, good, img, depth, resolution=R,
+                block_n=ops.BLOCK_N, interpret=True)
+        return np.asarray(img), np.asarray(depth)
+
+
+@pytest.mark.parametrize("bad_levels", [False, True])
+@pytest.mark.parametrize("position", BOUNDARIES)
+def test_slice_carry_predicate_at_cell_boundaries(arrays, position,
+                                                  bad_levels):
+    """What B4's fused paint kernel computes per leaf — ``_slice_table``'s
+    geometry, level range and float64 plane test — at positions on exact
+    cell boundaries and with rows of out-of-range level: the port's
+    chained twin equals the reference's interpret-mode carry kernel fed
+    the port's table, and (levels in range) the reference's own partial."""
+    x = node_tables(arrays)
+    if bad_levels:
+        x = with_bad_levels(x)
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in x.items()
+         if k != "n_levels"}
+    c2 = ops.plane_coords(t["coords"], 2)
+    c_axis = t["coords"][:, 2].to(torch.int32)
+    u0, v0, px, lvl, good = raster._slice_table(
+        c2, c_axis, t["levels"], t["ok"], position=position, resolution=R,
+        n_levels=x["n_levels"])
+    want_good = fused_good(x["coords"][:, 2], x["levels"], x["ok"],
+                           position=position, n_levels=x["n_levels"])
+    np.testing.assert_array_equal(good.numpy().astype(bool), want_good)
+    assert 0 < want_good.sum() < x["ok"].sum()
+    got = ops.raster_slice_partial(t["coords"], t["levels"], t["values"],
+                                   t["ok"], axis=2, position=position,
+                                   resolution=R, n_levels=x["n_levels"],
+                                   tile_n=512)
+    want = reference_carry_chain([c.numpy() for c in (u0, v0, px, lvl,
+                                                      good)],
+                                 x["values"], tile_n=512)
+    for g, w, what in zip(got, want, ("image", "depth")):
+        assert_bits(g.numpy(), w, f"{what} at {position}")
+    if not bad_levels:
+        for g, w, what in zip(got, reference_partial(x, "slice", 512,
+                                                     position=position),
+                              ("image", "depth")):
+            assert_bits(g.numpy(), w, f"reference {what} at {position}")
 
 
 # ------------------------------------------------------------- runner
@@ -439,17 +524,22 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bad_levels", [False, True])
+@pytest.mark.parametrize("position", BOUNDARIES)
 @pytest.mark.parametrize("tile_n", [512, 1024])
-def test_cuda_carry_kernels_bit_equal_to_twins(cuda_device, arrays, tile_n):
+def test_cuda_carry_kernels_bit_equal_to_twins(cuda_device, arrays, tile_n,
+                                               position, bad_levels):
     x = node_tables(arrays)
+    if bad_levels:
+        x = with_bad_levels(x)
     t = {k: torch.from_numpy(np.asarray(v)).to(cuda_device)
          for k, v in x.items() if k != "n_levels"}
     kw = dict(axis=2, resolution=R, n_levels=x["n_levels"], tile_n=tile_n)
     before = dict(raster.LAUNCHES)
     for backend in ("cuda", "ref"):
         img, depth = ops.raster_slice_partial(
-            t["coords"], t["levels"], t["values"], t["ok"], position=0.5,
-            backend=backend, **kw)
+            t["coords"], t["levels"], t["values"], t["ok"],
+            position=position, backend=backend, **kw)
         proj = ops.raster_projection_partial(
             t["coords"], t["levels"], t["values"], t["ok"], backend=backend,
             **kw)
