@@ -20,7 +20,11 @@ non-zero (and prints no result) otherwise, or on any failure.
      bitwise, on the density groups and ``refine`` flags of the Sedov
      trees and of the Orion tree; B4 (which builds its leaf table in the
      kernel) also at slice positions on exact cell boundaries and with
-     rows of out-of-range level on the Sedov trees;
+     rows of out-of-range level on the Sedov trees; B2 and B5 (which build
+     their (level, cell) CSR on the card) also on adversarial tables —
+     deep columns of up to 2,048 leaves, sub-pixel levels, n_levels >
+     k + 1, rows of out-of-range level, all-invalid and padded tiles —
+     at R = 16, 64 and 512, each call twice on the kept scratch;
   3. main path: ``InTransitEngine(device_reduce=True, device="cuda")``
      over the Orion tree with the 512-res slice/projection/histogram DAG,
      then the CLI's default DAG (LOD cut, slice, slice-of-LOD,
@@ -51,10 +55,12 @@ non-zero (and prints no result) otherwise, or on any failure.
      goes (the engine's spans and the device's busy time from
      ``torch.profiler``), and, with CUDA events, each kernel (B4/B5 per
      tile call; B6-B9 at the Orion codec shapes), its plain twin, B7's
-     library yardstick (one ``torch.bitwise_xor``) and its bound; for B4
-     and B7 also the host's own time per wrapper call (a loop with no
-     sync) and the kernels' device time (``torch.profiler``), and the
-     host cost of the two spellings of the current stream's handle.
+     library yardstick (one ``torch.bitwise_xor``) and its bound; for
+     B2, B4, B5 and B7 also the host's own time per wrapper call (a loop
+     with no sync), its split by step, and the kernels' device time by
+     kernel (``torch.profiler``), for B2/B5 the longest (level, cell)
+     segment of the Orion table and tiles; and the host cost of the two
+     spellings of the current stream's handle.
 
 The line before the last is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -324,6 +330,120 @@ def check_carry_boundaries(label: str, arrays: dict, device, *,
     print(f"parity {label}: B4 over {n_tiles} tiles bit-equal to its seeded "
           f"twin at positions {positions}, with and without {rows.numel()} "
           f"rows of out-of-range level (R={resolution})")
+
+
+def projection_table(seed: int, *, resolution: int, n_levels: int,
+                     per_level: int, column_levels, invalid_run: int = 0):
+    """A level-major leaf table (numpy) B2/B5's on-card CSR must get
+    right: up to ``per_level`` random leaves on every level, each level's
+    rows shuffled; at each of ``column_levels`` two deep columns (every
+    leaf of (x, y) and of (x + 1, y) along the axis: one cell, or one
+    pixel at a sub-pixel level); ~15 % rows not ok; every 11th ok row of
+    a level outside [0, n_levels); ``invalid_run`` rows with ok False
+    after level 3 (all-invalid tiles when chained)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    coords, levels = [], []
+    for lvl in range(n_levels):
+        side = 1 << lvl
+        c = rng.integers(0, side, size=(int(rng.integers(8, per_level)), 3))
+        if lvl in column_levels:
+            x, y = rng.integers(0, side, size=2)
+            z = np.arange(side)
+            c = np.concatenate([c, *(np.stack(
+                [np.full(side, min(x + dx, side - 1)), np.full(side, y), z],
+                1) for dx in (0, 1))])
+        c = c[rng.permutation(c.shape[0])]
+        coords.append(c)
+        levels.append(np.full(c.shape[0], lvl))
+        if lvl == 3 and invalid_run:
+            coords.append(rng.integers(0, side, size=(invalid_run, 3)))
+            levels.append(np.full(invalid_run, -7))
+    coords = np.concatenate(coords).astype(np.int32)
+    levels = np.concatenate(levels).astype(np.int32)
+    ok = (rng.random(levels.shape[0]) < 0.85) & (levels != -7)
+    levels[levels == -7] = 3
+    bad = np.flatnonzero(ok)[::11]
+    levels[bad] = np.resize([n_levels, n_levels + 3, -1], bad.size)
+    values = rng.standard_normal(levels.shape[0]) * 4.0 + 1.0
+    return {"coords": coords, "levels": levels, "values": values, "ok": ok,
+            "n_levels": n_levels}
+
+
+def longest_segment(coords2, levels, ok, *, resolution: int,
+                    n_levels: int) -> int:
+    """Rows in the fullest (level, cell) segment of B2/B5's CSR."""
+    import torch
+
+    from repro_torch.kernels import ref
+    keep = ok & (levels >= 0) & (levels < n_levels)
+    if not bool(keep.any()):
+        return 0
+    cells = ref.level_cells(coords2, levels, resolution=resolution,
+                            n_levels=n_levels)[keep]
+    return int(torch.bincount(cells).max())
+
+
+def check_projection_tables(device) -> int:
+    """B2 whole and B5 chained against their twins on the card, bitwise,
+    on :func:`projection_table` tables: sub-pixel levels with n_levels >
+    k + 1 at R = 16 and 64, and at R = 512 (12 levels) deep columns of
+    512 leaves at level 9 and of 2,048 at sub-pixel level 11; B5 chained
+    over 512-row and ``MESH_TILE``-row tiles (all-invalid and padded
+    tiles). Each call pair runs twice, the second on the kept scratch.
+    Returns the longest cell segment of the tables."""
+    import torch
+
+    from repro_torch.insitu.mesh_reduce import MESH_TILE
+    from repro_torch.kernels import ops, raster, ref
+    cases = [(16, 8, 48, (3, 7), 2100, 512),
+             (64, 8, 48, (3, 7), 2100, 512),
+             (512, 12, 4000, (3, 9, 11), 40000, MESH_TILE)]
+    longest = 0
+    for seed, (res, L, per, cols, run, tile_n) in enumerate(cases):
+        x = projection_table(seed, resolution=res, n_levels=L,
+                             per_level=per, column_levels=cols,
+                             invalid_run=run)
+        t = {k: torch.from_numpy(v).to(device) for k, v in x.items()
+             if k != "n_levels"}
+        c2 = ops.plane_coords(t["coords"], 2)
+        args = (c2, t["levels"], t["values"], t["ok"])
+        geo = dict(resolution=res, n_levels=L)
+        longest = max(longest, longest_segment(*args[:2], t["ok"], **geo))
+        want = ref.projection_raster_ref(*args, **geo)
+        for _ in range(2):
+            got = raster.projection_raster(*args, **geo)
+            torch.cuda.synchronize()
+            if not torch.equal(_bits(got), _bits(want)):
+                raise AssertionError(f"projection table R={res} L={L}: B2 "
+                                     f"differs from its twin (max abs err "
+                                     f"{_max_abs_err(got, want)})")
+        for tn in (512, tile_n):
+            kw = dict(axis=2, resolution=res, n_levels=L, tile_n=tn)
+            want = ops.raster_projection_partial(
+                t["coords"], t["levels"], t["values"], t["ok"],
+                backend="ref", **kw)
+            n_tiles = -(-x["values"].shape[0] // tn)
+            for _ in range(2):
+                before = raster.LAUNCHES["projection_raster_carry"]
+                got = ops.raster_projection_partial(
+                    t["coords"], t["levels"], t["values"], t["ok"], **kw)
+                torch.cuda.synchronize()
+                launched = raster.LAUNCHES["projection_raster_carry"] - before
+                if launched != n_tiles:
+                    raise AssertionError(f"projection table R={res}: B5 "
+                                         f"launched {launched} times for "
+                                         f"{n_tiles} tiles")
+                if not torch.equal(_bits(got), _bits(want)):
+                    raise AssertionError(
+                        f"projection table R={res} L={L} tile_n={tn}: B5 "
+                        f"differs from its seeded twin (max abs err "
+                        f"{_max_abs_err(got, want)})")
+        print(f"parity projection table R={res} L={L}: "
+              f"{x['values'].shape[0]} rows, B2 and B5 (tiles of 512 and "
+              f"{tile_n}) bit-equal to their twins, twice each")
+    print(f"parity projection tables: longest cell segment {longest} rows")
+    return longest
 
 
 # ----------------------------------------------------------- main path
@@ -1108,14 +1228,28 @@ def time_carries(arrays: dict, device) -> tuple:
         out[name] = {"ms": chain / len(tiles), "plain_ms": plain / len(tiles),
                      "chain_ms": chain, "plain_chain_ms": plain}
     out["slice_raster_carry"].update(slice_carry_calls(tiles, device))
+    out["projection_raster_carry"].update(
+        projection_calls(tiles, device, carry=True))
     return out, carry_bounds(tiles, LIVE_RESOLUTION)
 
 
+def wrapper_calls(chain, n_calls: int, reps: int = 20) -> dict:
+    """A kernel's wrapper alone, ``chain`` making ``n_calls`` calls of it
+    (chained carries over pre-cut tiles, no ``_run_tiles`` slicing): ms
+    per call with CUDA events, the host's own ms per call (a loop with no
+    sync, then one sync), and the device ms per call by kernel and the
+    host account from ``torch.profiler``."""
+    wrapper_ms = time_ms(chain, reps=reps) / n_calls
+    host_ms = host_us(chain, reps) / 1e3 / n_calls
+    split, host_split = profiled(chain, reps * n_calls, reps)
+    return {"wrapper_ms": wrapper_ms, "host_ms": host_ms,
+            "device_ms": sum(split.values()) if split else None,
+            "device_split_ms": split, "profiled_host_ms": host_split}
+
+
 def slice_carry_calls(tiles: list, device, reps: int = 20) -> dict:
-    """B4's wrapper alone over the pre-cut tiles, chained (no
-    ``_run_tiles`` slicing): ms per call with CUDA events, the host's own
-    ms per call (a loop with no sync, then one sync), and the device ms
-    per call (paint, resolve) and host account from ``torch.profiler``."""
+    """B4's wrapper alone over the pre-cut tiles (:func:`wrapper_calls`;
+    device split: paint, resolve) and its host steps."""
     import torch
 
     from repro_torch.kernels import raster
@@ -1133,14 +1267,85 @@ def slice_carry_calls(tiles: list, device, reps: int = 20) -> dict:
                 init=carry)
         return carry
 
-    calls = reps * len(tiles)
-    wrapper_ms = time_ms(chain, reps=reps) / len(tiles)
-    host_ms = host_us(chain, reps) / 1e3 / len(tiles)
-    split, host_split = profiled(chain, calls, reps)
-    return {"wrapper_ms": wrapper_ms, "host_ms": host_ms,
-            "device_ms": sum(split.values()) if split else None,
-            "device_split_ms": split, "profiled_host_ms": host_split,
+    return {**wrapper_calls(chain, len(tiles), reps),
             "host_steps_us": slice_carry_steps(tiles[0], seed)}
+
+
+def projection_calls(tiles: list, device, *, carry: bool,
+                     reps: int = 20) -> dict:
+    """B5's wrapper alone over the pre-cut tiles (``carry``), or B2's on
+    the one table in ``tiles`` (:func:`wrapper_calls`; device split: key
+    and count, scan, place, order, projection), its host steps, and the
+    longest (level, cell) segment of the tables."""
+    import torch
+
+    from repro_torch.kernels import raster
+    r = LIVE_RESOLUTION
+    seed = torch.zeros((r, r), dtype=torch.float64, device=device)
+
+    def cols(t):
+        return t["coords2"], t["levels"], t["values"], t["ok"]
+
+    def chain():
+        img = seed
+        for t in tiles:
+            img = raster.projection_raster_carry(
+                *cols(t), resolution=r, n_levels=t["n_levels"], init=img) \
+                if carry else raster.projection_raster(
+                    *cols(t), resolution=r, n_levels=t["n_levels"])
+        return img
+
+    return {**wrapper_calls(chain, len(tiles), reps),
+            "host_steps_us": projection_steps(tiles[0],
+                                              seed if carry else None),
+            "longest_segment": max(longest_segment(
+                t["coords2"], t["levels"], t["ok"], resolution=r,
+                n_levels=t["n_levels"]) for t in tiles)}
+
+
+def projection_steps(t: dict, seed) -> dict:
+    """Host µs per call of each step of B5's wrapper (``seed`` the carry)
+    or B2's (``seed`` None), alone, on one table: the device and seed
+    checks, the casts (none: the columns come in their dtypes), the
+    scratch lookup, the one output allocation, the ctypes call with its
+    five launches, and the whole wrapper."""
+    import torch
+
+    from repro_torch.kernels import cudalib, raster
+    r, L = LIVE_RESOLUTION, t["n_levels"]
+    cols = (t["coords2"], t["levels"], t["values"], t["ok"])
+    seeds = () if seed is None else (seed,)
+    dev = t["values"].device
+    n = t["values"].shape[0]
+    i = cudalib.device_index(*cols, *seeds)
+    _, (zeros, offsets, rows) = raster._projection_scratch(dev, r, L, n)
+    img = torch.empty((r, r), dtype=torch.float64, device=dev)
+    args = (*(c.data_ptr() for c in cols[:2]), cols[3].data_ptr(),
+            cols[2].data_ptr(), n, r, L, zeros.data_ptr(),
+            offsets.data_ptr(), rows.data_ptr(),
+            *(s.data_ptr() for s in seeds), img.data_ptr())
+    cudalib.lib()
+    entry = cudalib._FNS["raster_projection_carry_f64" if seeds
+                         else "raster_projection_f64"]
+    stream = cudalib.current_stream(i)
+    wrapper = (lambda: raster.projection_raster_carry(
+        *cols, resolution=r, n_levels=L, init=seed)) if seeds else \
+        (lambda: raster.projection_raster(*cols, resolution=r, n_levels=L))
+    steps = {
+        "checks": lambda: (cudalib.device_index(*cols, *seeds),
+                           seeds and raster._seed(seeds, r,
+                                                  (torch.float64,))),
+        "casts": lambda: (raster._as(cols[0], torch.int32),
+                          raster._as(cols[1], torch.int32),
+                          raster._as(cols[2], torch.float64),
+                          cudalib.dense(cols[3])),
+        "scratch lookup": lambda: raster._projection_scratch(dev, r, L, n),
+        "one allocation": lambda: torch.empty((r, r), dtype=torch.float64,
+                                              device=dev),
+        "ctypes call and five launches": lambda: entry(*args, i, stream),
+        "whole wrapper": wrapper,
+    }
+    return {name: host_us(fn, 500) for name, fn in steps.items()}
 
 
 def slice_carry_steps(t: dict, seed) -> dict:
@@ -1341,6 +1546,7 @@ def main() -> int:
     for g, part in enumerate(parts):
         check_parity(f"owner-masked part {g}/3", part, device, resolution=32,
                      bins=16, lo=-8.0, hi=8.0, n_domains=3, domain=g)
+    table_segment = check_projection_tables(device)
     t0 = time.perf_counter()
     tree = orion_tree()
     print(f"orion tree: {tree.n_nodes} nodes, {tree.n_levels} levels, "
@@ -1383,6 +1589,8 @@ def main() -> int:
     carry_times, carry_bnd = time_carries(tree.to_arrays(), device)
     times.update(carry_times)
     bnd.update(carry_bnd)
+    times["projection_raster"].update(
+        projection_calls([x], device, carry=False, reps=50))
     codec_times, codec_bnd = time_codec(tree, device)
     times.update(codec_times)
     bnd.update(codec_bnd)
@@ -1399,9 +1607,29 @@ def main() -> int:
           f"events), host {b7['host_ms']!r} ms a call, device "
           f"{b7['device_ms']!r} ms; library torch.bitwise_xor "
           f"{b7['library_ms']!r} ms")
+    b2, b5 = times["projection_raster"], times["projection_raster_carry"]
+    print(f"time projection_raster wrapper alone on the Orion table: "
+          f"{b2['wrapper_ms']!r} ms a call (CUDA events), host "
+          f"{b2['host_ms']!r} ms a call, device {b2['device_ms']!r} ms a "
+          f"call {b2['device_split_ms']!r}; longest cell segment "
+          f"{b2['longest_segment']} rows")
+    print(f"time projection_raster_carry wrapper alone over "
+          f"{bnd['projection_raster_carry']['tiles']} pre-cut tiles: "
+          f"{b5['wrapper_ms']!r} ms a call (CUDA events), host "
+          f"{b5['host_ms']!r} ms a call, device {b5['device_ms']!r} ms a "
+          f"call {b5['device_split_ms']!r}; the "
+          f"{bnd['projection_raster_carry']['tiles']}-tile chain through "
+          f"ops.raster_projection_partial {b5['chain_ms']!r} ms; longest "
+          f"cell segment of a tile {b5['longest_segment']} rows, of the "
+          f"adversarial tables {table_segment}")
     print(f"time host us per call of each step: slice_raster_carry "
-          f"{b4['host_steps_us']!r}; decode_groups {b7['host_steps_us']!r}")
-    wall["b4_b7_calls"] = {"slice_raster_carry": b4, "decode_groups": b7}
+          f"{b4['host_steps_us']!r}; projection_raster "
+          f"{b2['host_steps_us']!r}; projection_raster_carry "
+          f"{b5['host_steps_us']!r}; decode_groups {b7['host_steps_us']!r}")
+    wall["wrapper_calls"] = {"slice_raster_carry": b4,
+                             "projection_raster": b2,
+                             "projection_raster_carry": b5,
+                             "decode_groups": b7}
     for name in ("slice_raster_carry", "projection_raster_carry"):
         launches[name] = mesh_launches[name]     # the mesh path's (S=1)
     launches.update(wall["codec"]["launches"])   # one Orion snapshot's
@@ -1415,8 +1643,8 @@ def main() -> int:
         lib_ms = t.get("library_ms")
         if "device_ms" in t:
             dev_ms = t["device_ms"]
-            per = (f"device time {dev_ms!r} ms a call, " if dev_ms is not None
-                   else "device time not measured, ")
+            per += (f"device time {dev_ms!r} ms a call, "
+                    if dev_ms is not None else "device time not measured, ")
         print(f"time {name}: {per}kernel {t['ms']!r} ms, plain "
               f"{t['plain_ms']!r} ms, library "
               f"{'none' if lib_ms is None else repr(lib_ms) + ' ms'}, bound "

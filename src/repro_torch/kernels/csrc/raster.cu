@@ -2,10 +2,12 @@
 //
 // Replaces the Pallas TPU kernels of repro/kernels/raster_kernel.py:
 //   B1 slice_raster       (raster_kernel.py:136)  -> slice_key_kernel + slice_resolve_kernel
-//   B2 projection_raster  (raster_kernel.py:240)  -> projection_kernel
+//   B2 projection_raster  (raster_kernel.py:240)  -> proj_key_kernel, proj_scan_kernel,
+//                                                    proj_place_kernel, proj_order_kernel,
+//                                                    projection_kernel
 //   B3 level_hist         (raster_kernel.py:320)  -> level_hist_kernel
 //   B4 slice_raster_carry (raster_kernel.py:166)  -> slice_carry_paint_kernel + slice_carry_resolve_kernel
-//   B5 projection_raster_carry (raster_kernel.py:267) -> projection_kernel seeded from img0
+//   B5 projection_raster_carry (raster_kernel.py:267) -> B2's five, seeded from img0
 //
 // The TPU kernels keep the whole (R, R) image in VMEM and test every leaf
 // against every pixel (O(N * R^2) mask work). Here the work is
@@ -18,10 +20,10 @@
 //     64-bit key ((level + 1) << 32 | row) over each rectangle, pass 2 reads
 //     the winner's value. No float arithmetic touches the values.
 //   * projection: order matters (f64 adds in BFS leaf order per pixel), so
-//     no float atomics. The wrapper groups the valid leaves by (level, cell)
-//     with a stable sort (CSR); one thread per pixel walks the levels in
-//     ascending order and adds its cell's leaves in row order. Explicit
-//     __dmul_rn/__dadd_rn keep nvcc from fusing the multiply into the add.
+//     no float atomics. The valid leaves are grouped by (level, cell) in a
+//     CSR; one thread per pixel walks the levels in ascending order and
+//     adds its cell's leaves in row order. Explicit __dmul_rn/__dadd_rn
+//     keep nvcc from fusing the multiply into the add.
 //   * histogram: integer counts are order-free: a shared-memory (L, B)
 //     histogram per block, then integer atomicAdd into global memory.
 //   * carries (B4/B5): one leaf-table tile painted over the partial image of
@@ -31,13 +33,23 @@
 //     iff its level >= depth0. B5 starts each pixel's sum at img0 instead of
 //     0.0; the tile's CSR keeps the adds in row order after it. Both read
 //     the seed once and write the outputs once (24 resp. 16 bytes a pixel).
-//   * B4's leaf table is computed inside its paint kernel from the tile's
-//     raw columns (coords, the strided slice-axis column, levels, ok): a
-//     tile's device work is a few us, so the ~15 torch launches that built
-//     the table on the host cost far more than the kernel did. Its key
-//     scratch is kept by the wrapper and stays all zero between calls (the
-//     resolve clears every key it finds set), so one C call launches just
-//     the paint and the resolve: no allocation, no memset.
+//   * B4's leaf table and B2/B5's CSR are built on the card from the raw
+//     columns (coords, levels, ok; B4 also the strided slice-axis column):
+//     a tile's device work is a few us, so the ~15 torch ops that built
+//     them on the host (for B2/B5 a radix sort and a searchsorted over
+//     every pyramid cell) cost far more than the kernels did. One C
+//     call launches every step on the stream; the scratch is kept by the
+//     wrapper and left all zero where the next call needs zeros (B4's
+//     resolve clears every key it finds set; B2/B5's place step counts
+//     each cell back down to zero), so no call allocates scratch or memsets.
+//   * B2/B5's CSR in five launches: key/count (one thread per row, the
+//     cell base[l] + (c0 >> dn) * g + (c1 >> dn) with base[l] in closed
+//     form, integer atomics, warp-aggregated counts per 4096-cell chunk);
+//     an exclusive scan of the cell counts (each block adds the chunk
+//     counts before it, then scans its chunk); place (offset plus the
+//     atomically decremented count); order (each row's rank in its cell =
+//     the rows of the cell below it, so the segment is in row order,
+//     exactly the stable sort's permutation); the projection.
 //
 // Plain C interface (loaded with ctypes); every entry takes the tensors'
 // device index (see device_guard.cuh), launches on the given stream, never
@@ -152,8 +164,157 @@ __global__ void slice_carry_resolve_kernel(
 
 // ------------------------------------------------------ B2/B5 projection
 
-// One thread per pixel; the sum starts at ``img0[p]`` (B5) or 0.0 (B2,
-// ``img0`` null). ``offsets`` is the CSR over buckets base[l] + cell,
+// cells of the (level, cell) CSR one scan block owns; the wrapper pads the
+// count scratch to a multiple of it (raster.py's SCAN_CHUNK)
+constexpr int kScanChunk = 4096;
+constexpr int kScanItems = kScanChunk / kThreads;
+
+// First cell of level l's grid in the pyramid: sum over j < l of
+// 4^min(j, k) (ref.level_bases), in closed form.
+__host__ __device__ int64_t level_base(int l, int k) {
+  if (l <= k + 1) return ((1ll << (2 * l)) - 1) / 3;
+  return ((1ll << (2 * (k + 1))) - 1) / 3 + (int64_t)(l - k - 1) * (1ll << (2 * k));
+}
+
+// Cells of the count / offsets scratch for a pyramid of ``total`` cells:
+// every cell plus the end cell, rounded up to whole scan chunks.
+int64_t scan_cells(int64_t total) { return (total / kScanChunk + 1) * kScanChunk; }
+
+// Step 1, one thread per row: the row's pyramid cell (ref.level_cells), or
+// -1 for a row that is not ok, of a level outside [0, n_levels) or of a
+// cell outside the pyramid; one count per cell, and the rows per
+// kScanChunk-cell chunk counted once per warp and chunk.
+__global__ void proj_key_kernel(const int32_t* __restrict__ coords2,
+                                const int32_t* __restrict__ lvl,
+                                const uint8_t* __restrict__ ok, int64_t n,
+                                int32_t k, int32_t n_levels, int64_t total,
+                                int32_t* __restrict__ key,
+                                int32_t* __restrict__ count,
+                                int32_t* __restrict__ chunk_count) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  int32_t cell = -1;
+  if (row < n && ok[row]) {
+    const int32_t l = lvl[row];
+    if (l >= 0 && l < n_levels) {
+      const int dn = max(l - k, 0);
+      const int64_t g = 1ll << min(l, k);
+      const int64_t c = level_base(l, k)
+                        + (int64_t)(coords2[2 * row] >> dn) * g
+                        + (coords2[2 * row + 1] >> dn);
+      if (c >= 0 && c < total) cell = (int32_t)c;
+    }
+  }
+  if (row < n) key[row] = cell;
+  if (cell >= 0) atomicAdd(&count[cell], 1);
+  const int chunk = cell >= 0 ? cell / kScanChunk : -1;
+  const unsigned peers = __match_any_sync(0xffffffffu, chunk);
+  if (chunk >= 0 && threadIdx.x % kWarp == __ffs(peers) - 1)
+    atomicAdd(&chunk_count[chunk], __popc(peers));
+}
+
+// Exclusive prefix of ``x`` over the block (kThreads threads); ``*sum``
+// gets the block's total. ``s_warp`` holds kThreads / kWarp ints.
+__device__ int32_t block_exclusive_scan(int32_t x, int32_t* s_warp,
+                                        int32_t* sum) {
+  constexpr int kWarps = kThreads / kWarp;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  int32_t inc = x;
+  for (int d = 1; d < kWarp; d <<= 1) {
+    const int32_t y = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += y;
+  }
+  if (lane == kWarp - 1) s_warp[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    int32_t w = lane < kWarps ? s_warp[lane] : 0;
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const int32_t y = __shfl_up_sync(0xffffffffu, w, d);
+      if (lane >= d) w += y;
+    }
+    if (lane < kWarps) s_warp[lane] = w;
+  }
+  __syncthreads();
+  const int32_t before = warp ? s_warp[warp - 1] : 0;
+  *sum = s_warp[kWarps - 1];
+  __syncthreads();                 // s_warp free for the next scan
+  return before + inc - x;
+}
+
+// Step 2, one block per chunk: offsets[c] = the rows of every cell < c.
+// The block first adds the chunk counts of the chunks before its own,
+// then scans its chunk's kScanItems cells a thread. The scratch is padded
+// with zero cells past the pyramid, so offsets[total] is the valid rows.
+__global__ void proj_scan_kernel(const int32_t* __restrict__ count,
+                                 const int32_t* __restrict__ chunk_count,
+                                 int64_t* __restrict__ offsets) {
+  __shared__ int32_t s_warp[kThreads / kWarp];
+  const int32_t chunk = blockIdx.x;
+  int32_t before = 0;
+  for (int32_t c = threadIdx.x; c < chunk; c += kThreads)
+    before += chunk_count[c];
+  int32_t base;
+  block_exclusive_scan(before, s_warp, &base);
+  const int64_t first = (int64_t)chunk * kScanChunk
+                        + (int64_t)threadIdx.x * kScanItems;
+  int32_t v[kScanItems];
+  int32_t mine = 0;
+  const int4* c4 = reinterpret_cast<const int4*>(count + first);
+#pragma unroll
+  for (int i = 0; i < kScanItems / 4; ++i) {
+    const int4 q = c4[i];
+    v[4 * i] = q.x; v[4 * i + 1] = q.y; v[4 * i + 2] = q.z; v[4 * i + 3] = q.w;
+    mine += q.x + q.y + q.z + q.w;
+  }
+  int32_t block_sum;
+  int64_t run = base + block_exclusive_scan(mine, s_warp, &block_sum);
+  longlong2* o2 = reinterpret_cast<longlong2*>(offsets + first);
+#pragma unroll
+  for (int i = 0; i < kScanItems / 2; ++i) {
+    longlong2 q;
+    q.x = run; run += v[2 * i];
+    q.y = run; run += v[2 * i + 1];
+    o2[i] = q;
+  }
+}
+
+// Step 3, one thread per row: a slot in its cell's segment, by counting
+// the cell down (which leaves the count scratch all zero again); block 0
+// zeroes the chunk counts, which the scan has read.
+__global__ void proj_place_kernel(const int32_t* __restrict__ key, int64_t n,
+                                  const int64_t* __restrict__ offsets,
+                                  int32_t* __restrict__ count,
+                                  int32_t* __restrict__ chunk_count,
+                                  int32_t n_chunks,
+                                  int32_t* __restrict__ slot_row) {
+  if (blockIdx.x == 0)
+    for (int32_t c = threadIdx.x; c < n_chunks; c += blockDim.x)
+      chunk_count[c] = 0;
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  const int32_t cell = key[row];
+  if (cell < 0) return;
+  slot_row[offsets[cell] + atomicSub(&count[cell], 1) - 1] = (int32_t)row;
+}
+
+// Step 4, one thread per row: its rank in the segment is the number of
+// the segment's rows below it (rows are unique), so ``order`` lists each
+// segment in row order whatever order the atomics placed it in.
+__global__ void proj_order_kernel(const int32_t* __restrict__ key, int64_t n,
+                                  const int64_t* __restrict__ offsets,
+                                  const int32_t* __restrict__ slot_row,
+                                  int32_t* __restrict__ order) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  const int32_t cell = key[row];
+  if (cell < 0) return;
+  const int64_t lo = offsets[cell], hi = offsets[cell + 1];
+  int64_t rank = 0;
+  for (int64_t e = lo; e < hi; ++e) rank += slot_row[e] < row;
+  order[lo + rank] = (int32_t)row;
+}
+
+// Step 5, one thread per pixel; the sum starts at ``img0[p]`` (B5) or 0.0
+// (B2, ``img0`` null). ``offsets`` is the CSR over buckets base[l] + cell,
 // cell = (i >> sh) * g + (j >> sh), sh = k - min(l, k), g = res >> sh;
 // ``order`` lists the rows of each bucket in row order.
 __global__ void projection_kernel(const double* __restrict__ val,
@@ -246,6 +407,51 @@ cudaError_t paint_keys(const int32_t* u0, const int32_t* v0,
   return cudaGetLastError();
 }
 
+// B2/B5: the five steps on ``s``. ``zero_scratch`` holds scan_cells()
+// int32 counts then their chunk counts, all zero on entry and on return;
+// ``offsets_scratch`` scan_cells() int64; ``row_scratch`` three int32 rows
+// per table row (key, placed row, ordered row).
+cudaError_t projection(const int32_t* coords2, const int32_t* lvl,
+                       const uint8_t* ok, const double* val, int64_t n,
+                       int32_t res, int32_t n_levels, void* zero_scratch,
+                       void* offsets_scratch, void* row_scratch,
+                       const double* img0, double* img, cudaStream_t s) {
+  const int k = 31 - __builtin_clz(res);
+  const int64_t total = level_base(n_levels, k);
+  const int64_t cells = scan_cells(total);
+  const int32_t n_chunks = (int32_t)(cells / kScanChunk);
+  auto* count = static_cast<int32_t*>(zero_scratch);
+  int32_t* chunk_count = count + cells;
+  auto* offsets = static_cast<int64_t*>(offsets_scratch);
+  auto* key = static_cast<int32_t*>(row_scratch);
+  int32_t* slot_row = key + n;
+  int32_t* order = slot_row + n;
+  const int64_t row_blocks = ceil_div(n, kThreads);
+  if (n > 0) {
+    proj_key_kernel<<<row_blocks, kThreads, 0, s>>>(
+        coords2, lvl, ok, n, k, n_levels, total, key, count, chunk_count);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  proj_scan_kernel<<<n_chunks, kThreads, 0, s>>>(count, chunk_count, offsets);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (n > 0) {
+    proj_place_kernel<<<row_blocks, kThreads, 0, s>>>(
+        key, n, offsets, count, chunk_count, n_chunks, slot_row);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    proj_order_kernel<<<row_blocks, kThreads, 0, s>>>(key, n, offsets,
+                                                       slot_row, order);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t npix = (int64_t)res * res;
+  projection_kernel<<<ceil_div(npix, kThreads), kThreads, 0, s>>>(
+      val, order, offsets, img0, res, k, n_levels, img);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -291,30 +497,29 @@ int raster_slice_carry_f64(const int32_t* coords2, const int32_t* c_axis,
   return cudaGetLastError();
 }
 
-int raster_projection_f64(const double* val, const int32_t* order,
-                          const int64_t* offsets, int32_t res, int32_t k,
-                          int32_t n_levels, double* img, int32_t device,
-                          void* stream) {
+int raster_projection_f64(const int32_t* coords2, const int32_t* lvl,
+                          const uint8_t* ok, const double* val, int64_t n,
+                          int32_t res, int32_t n_levels, void* zero_scratch,
+                          void* offsets_scratch, void* row_scratch,
+                          double* img, int32_t device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t npix = (int64_t)res * res;
-  projection_kernel<<<ceil_div(npix, kThreads), kThreads, 0, s>>>(
-      val, order, offsets, nullptr, res, k, n_levels, img);
-  return cudaGetLastError();
+  return projection(coords2, lvl, ok, val, n, res, n_levels, zero_scratch,
+                    offsets_scratch, row_scratch, nullptr, img,
+                    static_cast<cudaStream_t>(stream));
 }
 
-int raster_projection_carry_f64(const double* val, const int32_t* order,
-                                const int64_t* offsets, const double* img0,
-                                int32_t res, int32_t k, int32_t n_levels,
+int raster_projection_carry_f64(const int32_t* coords2, const int32_t* lvl,
+                                const uint8_t* ok, const double* val,
+                                int64_t n, int32_t res, int32_t n_levels,
+                                void* zero_scratch, void* offsets_scratch,
+                                void* row_scratch, const double* img0,
                                 double* img, int32_t device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t npix = (int64_t)res * res;
-  projection_kernel<<<ceil_div(npix, kThreads), kThreads, 0, s>>>(
-      val, order, offsets, img0, res, k, n_levels, img);
-  return cudaGetLastError();
+  return projection(coords2, lvl, ok, val, n, res, n_levels, zero_scratch,
+                    offsets_scratch, row_scratch, img0, img,
+                    static_cast<cudaStream_t>(stream));
 }
 
 int raster_level_hist_f64(const double* val, const int32_t* lvl,

@@ -43,13 +43,14 @@ SIGNATURES = {
     # csrc/raster.cu
     "raster_slice_f64": [_p, _p, _p, _p, _p, _p, _i64, _i32, _p, _p, _i32,
                          _p],
-    "raster_projection_f64": [_p, _p, _p, _i32, _i32, _i32, _p, _i32, _p],
+    "raster_projection_f64": [_p, _p, _p, _p, _i64, _i32, _i32, _p, _p, _p,
+                              _p, _i32, _p],
     "raster_level_hist_f64": [_p, _p, _p, _p, _i64, _i32, _i32, _p, _i32,
                               _p],
     "raster_slice_carry_f64": [_p, _p, _i64, _p, _p, _p, _i64, _i32, _i32,
                                _f64, _p, _p, _p, _p, _p, _i32, _p],
-    "raster_projection_carry_f64": [_p, _p, _p, _p, _i32, _i32, _i32, _p,
-                                    _i32, _p],
+    "raster_projection_carry_f64": [_p, _p, _p, _p, _i64, _i32, _i32, _p,
+                                    _p, _p, _p, _p, _i32, _p],
     # csrc/codec.cu
     "codec_encode_groups": [_p, _p, _p, _p, _i32, _i64, _i32, _i32, _p, _p,
                             _p, _i32, _p],
@@ -141,7 +142,8 @@ def lib() -> ctypes.CDLL:
             if _lib is None:
                 # PyDLL: each call holds the interpreter lock, so its
                 # launches reach the stream as one group (raster.py's B4
-                # key scratch relies on it); a call lasts microseconds
+                # and B2/B5 scratch relies on it); a call lasts
+                # microseconds
                 loaded = ctypes.PyDLL(str(build()))
                 for name, argtypes in SIGNATURES.items():
                     fn = getattr(loaded, name)

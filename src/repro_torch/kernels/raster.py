@@ -25,6 +25,17 @@ LAUNCHES = {"slice_raster": 0, "projection_raster": 0, "level_hist": 0,
 #: stream with no other call's launches between them.
 _SLICE_KEYS: dict = {}
 
+#: B2/B5's CSR scratch per (device, raw stream, R, n_levels), shared by
+#: the two on the same terms as ``_SLICE_KEYS``: ``[zeros, offsets,
+#: rows]`` — the int32 cell counts and their per-chunk counts (all zero
+#: between calls: the place step counts every cell back down), the int64
+#: offsets, and three int32 rows per table row (grown with N).
+_PROJ_SCRATCH: dict = {}
+
+#: cells per scan block of the CSR (``kScanChunk`` in csrc/raster.cu); the
+#: count and offsets scratch are padded to a multiple of it
+SCAN_CHUNK = 4096
+
 
 def reset_launches() -> None:
     for name in LAUNCHES:
@@ -61,10 +72,6 @@ def plane_hit(c_axis: torch.Tensor, levels: torch.Tensor, position: float,
     return (lo <= position) & (position < lo + size)
 
 
-def _in_range(levels: torch.Tensor, n_levels: int) -> torch.Tensor:
-    return (levels >= 0) & (levels < n_levels)
-
-
 # ----------------------------------------------------------------- kernels
 
 def _slice_table(coords2, c_axis, levels, ok, *, position: float,
@@ -74,7 +81,7 @@ def _slice_table(coords2, c_axis, levels, ok, *, position: float,
     u0, v0, px = (t.contiguous() for t in
                   leaf_table(coords2, levels, resolution=resolution))
     lvl = levels.to(torch.int32).contiguous()
-    good = (ok & _in_range(lvl, n_levels)
+    good = (ok & (lvl >= 0) & (lvl < n_levels)
             & plane_hit(c_axis, lvl, position, n_levels)
             ).to(torch.uint8).contiguous()
     return u0, v0, px, lvl, good
@@ -170,42 +177,83 @@ def slice_raster_carry(coords2, c_axis, levels, values, ok, *,
     return img, depth
 
 
-def projection_csr(coords2, levels, ok, *, resolution: int, n_levels: int):
-    """Valid leaves grouped by (level, cell) in row order: ``(order,
-    offsets)`` with ``order`` int32 rows and ``offsets`` the int64 CSR
-    over the pyramid cells of :func:`.ref.level_cells`."""
-    k = resolution.bit_length() - 1
-    total = ref.level_bases(n_levels, k)[-1]
-    lvl = levels.to(torch.int64)
-    valid = ok & _in_range(lvl, n_levels)
-    key = torch.where(valid, ref.level_cells(coords2, levels,
-                                             resolution=resolution,
-                                             n_levels=n_levels),
-                      torch.full_like(lvl, total))
-    sorted_key, perm = torch.sort(key, stable=True)
-    offsets = torch.searchsorted(
-        sorted_key, torch.arange(total + 1, dtype=torch.int64,
-                                 device=key.device))
-    return perm.to(torch.int32), offsets
+def _projection_scratch(device: torch.device, resolution: int,
+                        n_levels: int, n: int):
+    """``(key, [zeros, offsets, rows])``: B2/B5's scratch for a call on
+    CUDA ``device``, made on the first call per key and its rows grown to
+    ``n``."""
+    key = (device.index, current_stream(device.index), resolution, n_levels)
+    scratch = _PROJ_SCRATCH.get(key)
+    if scratch is None:
+        total = ref.level_bases(n_levels, resolution.bit_length() - 1)[-1]
+        cells = (total // SCAN_CHUNK + 1) * SCAN_CHUNK
+        if cells >= 2 ** 31:
+            raise ValueError(f"projection pyramid of {total} cells (R="
+                             f"{resolution}, {n_levels} levels) exceeds "
+                             f"the kernels' int32 cell index")
+        scratch = _PROJ_SCRATCH[key] = [
+            torch.zeros(cells + cells // SCAN_CHUNK, dtype=torch.int32,
+                        device=device),
+            torch.empty(cells, dtype=torch.int64, device=device), None]
+    if scratch[2] is None or scratch[2].numel() < 3 * n:
+        scratch[2] = torch.empty(3 * max(n, 1), dtype=torch.int32,
+                                 device=device)
+    return key, scratch
+
+
+def _as(t: torch.Tensor, dtype) -> torch.Tensor:
+    """``t`` as a contiguous ``dtype`` tensor, cast or copied only when it
+    is not one already."""
+    return dense(t) if t.dtype == dtype else t.to(dtype).contiguous()
+
+
+def _projection(entry: str, dev: int, coords2, levels, values, ok,
+                resolution: int, n_levels: int, *seed) -> torch.Tensor:
+    """One C call of B2 (``seed`` empty) or B5 (``seed`` the (R, R)
+    float64 ``img0``): the CSR is built on the card from the raw columns
+    — int32 coords2 (N, 2) and levels, float64 values, bool or uint8 ok —
+    then projected; only the output is allocated."""
+    n = values.shape[0]
+    if coords2.shape != (n, 2) or not \
+            (levels.shape == ok.shape == values.shape == (n,)):
+        got = [tuple(t.shape) for t in (coords2, levels, values, ok)]
+        raise ValueError(f"projection takes coords2 (N, 2) and levels, "
+                         f"values, ok (N,); got {got}")
+    if n >= 2 ** 31:
+        raise ValueError(f"projection of {n} rows exceeds the kernels' "
+                         f"int32 row index")
+    # the casts' results stay referenced until the call has returned
+    c2, lvl, val = (_as(coords2, torch.int32), _as(levels, torch.int32),
+                    _as(values, torch.float64))
+    okb = dense(ok) if ok.dtype in (torch.bool, torch.uint8) else \
+        ok.to(torch.uint8).contiguous()
+    key, (zeros, offsets, rows) = _projection_scratch(
+        values.device, resolution, n_levels, n)
+    img = torch.empty((resolution, resolution), dtype=torch.float64,
+                      device=values.device)
+    try:
+        launch(entry, dev, c2.data_ptr(), lvl.data_ptr(), okb.data_ptr(),
+               val.data_ptr(), n, resolution, n_levels, zeros.data_ptr(),
+               offsets.data_ptr(), rows.data_ptr(),
+               *(t.data_ptr() for t in seed), img.data_ptr())
+    except RuntimeError:
+        _PROJ_SCRATCH.pop(key, None)       # its counts may not be zero
+        raise
+    return img
 
 
 def projection_raster(coords2, levels, values, ok, *, resolution: int,
                       n_levels: int) -> torch.Tensor:
     """B2: (R, R) float64 column density; same contract as
-    :func:`.ref.projection_raster_ref`."""
+    :func:`.ref.projection_raster_ref`. On the card one C call builds
+    the (level, cell) CSR from the raw columns and projects."""
     dev = device_index(coords2, levels, values, ok)
     if dev < 0:
         return ref.projection_raster_ref(coords2, levels, values, ok,
                                          resolution=resolution,
                                          n_levels=n_levels)
-    order, offsets = projection_csr(coords2, levels, ok,
-                                    resolution=resolution, n_levels=n_levels)
-    val = values.to(torch.float64).contiguous()
-    img = torch.empty((resolution, resolution), dtype=torch.float64,
-                      device=values.device)
-    launch("raster_projection_f64", dev, val.data_ptr(), order.data_ptr(),
-           offsets.data_ptr(), resolution, resolution.bit_length() - 1,
-           n_levels, img.data_ptr())
+    img = _projection("raster_projection_f64", dev, coords2, levels, values,
+                      ok, resolution, n_levels)
     LAUNCHES["projection_raster"] += 1
     return img
 
@@ -214,7 +262,8 @@ def projection_raster_carry(coords2, levels, values, ok, *, resolution: int,
                             n_levels: int, init=None) -> torch.Tensor:
     """B5: one tile's column density added over the seed ``init``
     (float64, zeros if None); same contract as
-    :func:`.ref.projection_raster_ref` with ``init``."""
+    :func:`.ref.projection_raster_ref` with ``init``, and B2's one C
+    call on the card."""
     if init is None:
         init = torch.zeros((resolution, resolution), dtype=torch.float64,
                            device=values.device)
@@ -224,13 +273,8 @@ def projection_raster_carry(coords2, levels, values, ok, *, resolution: int,
                                          resolution=resolution,
                                          n_levels=n_levels, init=init)
     (img0,) = _seed((init,), resolution, (torch.float64,))
-    order, offsets = projection_csr(coords2, levels, ok,
-                                    resolution=resolution, n_levels=n_levels)
-    val = values.to(torch.float64).contiguous()
-    img = torch.empty_like(img0)
-    launch("raster_projection_carry_f64", dev, val.data_ptr(),
-           order.data_ptr(), offsets.data_ptr(), img0.data_ptr(), resolution,
-           resolution.bit_length() - 1, n_levels, img.data_ptr())
+    img = _projection("raster_projection_carry_f64", dev, coords2, levels,
+                      values, ok, resolution, n_levels, img0)
     LAUNCHES["projection_raster_carry"] += 1
     return img
 

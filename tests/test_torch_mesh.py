@@ -42,6 +42,7 @@ from repro_torch.insitu.mesh_reduce import (MESH_TILE, MeshDAGRunner,
 from repro_torch.insitu.staging import Snapshot
 from repro_torch.kernels import ops, raster, ref
 from repro_torch.launch import insitu as cli
+from test_torch_raster import TABLE_GEOMETRY, projection_table, reference_ok
 
 R = 32
 CPU = torch.device("cpu")
@@ -210,6 +211,44 @@ def test_projection_twin_is_exact_for_any_seed(arrays):
         rect = want[u0[row]:u0[row] + px[row], v0[row]:v0[row] + px[row]]
         rect += t["values"][row] * (2.0 ** -lv)
     assert_bits(got.numpy(), want.numpy(), "seeded projection")
+
+
+def chained_projection(x: dict, *, resolution: int, tile_n: int,
+                       backend=None, device=CPU) -> torch.Tensor:
+    """``ops.raster_projection_partial`` over ``x`` (a
+    :func:`projection_table`), chained over ``tile_n``-row tiles."""
+    t = {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in x.items()
+         if k != "n_levels"}
+    return ops.raster_projection_partial(
+        t["coords"], t["levels"], t["values"], t["ok"], axis=2,
+        resolution=resolution, n_levels=x["n_levels"], backend=backend,
+        tile_n=tile_n)
+
+
+@pytest.mark.parametrize("tile_n", [512, 1024])
+@pytest.mark.parametrize("resolution,n_levels", TABLE_GEOMETRY)
+def test_projection_carry_twin_on_adversarial_tables(resolution, n_levels,
+                                                     tile_n):
+    """B5's semantics on tables the CSR must get right, chained over BFS
+    tiles: deep columns, sub-pixel levels, n_levels > k + 1, rows of
+    out-of-range level, an all-invalid tile (2,100 ok=False rows) and
+    the last tile's padding rows — bit-equal to the reference's Pallas
+    carry kernel (interpret mode) and to the untiled twin."""
+    x = projection_table(5, resolution=resolution, n_levels=n_levels,
+                         invalid_run=2100)
+    n = x["values"].shape[0]
+    assert n % tile_n and n > 2 * tile_n        # padded, several tiles
+    got = chained_projection(x, resolution=resolution, tile_n=tile_n)
+    with jax.enable_x64(True):
+        j = {k: jnp.asarray(v) for k, v in x.items() if k != "n_levels"}
+        want = ops_ref.raster_projection_partial(
+            j["coords"], j["levels"], j["values"],
+            jnp.asarray(reference_ok(x)), axis=2, resolution=resolution,
+            n_levels=n_levels, backend="pallas_interpret", tile_n=tile_n)
+    assert_bits(got.numpy(), np.asarray(want),
+                f"chained projection R={resolution} tile_n={tile_n}")
+    whole = chained_projection(x, resolution=resolution, tile_n=None)
+    assert_bits(got.numpy(), whole.numpy(), "chained vs whole")
 
 
 def test_carry_wrappers_on_cpu_run_the_twin_and_count_nothing(arrays):
@@ -555,3 +594,21 @@ def test_cuda_carry_kernels_bit_equal_to_twins(cuda_device, arrays, tile_n,
         before["slice_raster_carry"] == tiles
     assert raster.LAUNCHES["projection_raster_carry"] - \
         before["projection_raster_carry"] == tiles
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile_n", [512, 1024])
+@pytest.mark.parametrize("resolution,n_levels", TABLE_GEOMETRY)
+def test_cuda_projection_carry_bit_equal_to_twin_on_adversarial_tables(
+        cuda_device, resolution, n_levels, tile_n):
+    x = projection_table(5, resolution=resolution, n_levels=n_levels,
+                         invalid_run=2100)
+    before = raster.LAUNCHES["projection_raster_carry"]
+    got = chained_projection(x, resolution=resolution, tile_n=tile_n,
+                             backend="cuda", device=cuda_device)
+    want = chained_projection(x, resolution=resolution, tile_n=tile_n,
+                              backend="ref", device=cuda_device)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+    assert raster.LAUNCHES["projection_raster_carry"] - before == \
+        -(-x["values"].shape[0] // tile_n)

@@ -149,6 +149,69 @@ def test_twins_bit_equal_owner_masked(part, kind):
     check_all(parts[part], kind, 32, (-8.0, 8.0), domain=part, n_domains=3)
 
 
+#: (resolution, n_levels) of the projection tables: sub-pixel levels
+#: above k = log2 R, and n_levels > k + 1
+TABLE_GEOMETRY = [(16, 8), (64, 8)]
+
+
+def projection_table(seed: int, *, resolution: int, n_levels: int,
+                     invalid_run: int = 0) -> dict:
+    """A level-major leaf table (numpy) the projection's (level, cell) CSR
+    must get right: random leaves on every level, each level's rows
+    shuffled; a deep column (every leaf of one (x, y) along the axis) at
+    level 3 and at the finest level, where it and its sub-pixel
+    neighbours share one pixel; ~15 % rows not ok; every 11th ok row
+    given a level outside [0, n_levels); and ``invalid_run`` rows with
+    ok False after level 3 (an all-invalid tile when chained)."""
+    rng = np.random.default_rng(seed)
+    coords, levels = [], []
+    for lvl in range(n_levels):
+        side = 1 << lvl
+        c = rng.integers(0, side, size=(int(rng.integers(8, 48)), 3))
+        if lvl in (3, n_levels - 1):
+            x, y = rng.integers(0, side, size=2)
+            z = np.arange(side)
+            cols = [np.stack([np.full(side, min(x + dx, side - 1)),
+                              np.full(side, y), z], 1) for dx in (0, 1)]
+            c = np.concatenate([c, *cols])
+        c = c[rng.permutation(c.shape[0])]
+        coords.append(c)
+        levels.append(np.full(c.shape[0], lvl))
+        if lvl == 3 and invalid_run:
+            coords.append(rng.integers(0, side, size=(invalid_run, 3)))
+            levels.append(np.full(invalid_run, -7))
+    coords = np.concatenate(coords).astype(np.int32)
+    levels = np.concatenate(levels).astype(np.int32)
+    ok = (rng.random(levels.shape[0]) < 0.85) & (levels != -7)
+    levels[levels == -7] = 3
+    bad = np.flatnonzero(ok)[::11]
+    levels[bad] = np.resize([n_levels, n_levels + 3, -1], bad.size)
+    values = rng.standard_normal(levels.shape[0]) * 4.0 + 1.0
+    return {"coords": coords, "levels": levels, "values": values, "ok": ok,
+            "n_levels": n_levels}
+
+
+def reference_ok(x: dict) -> np.ndarray:
+    """The rows the projection keeps: ok and of a level in [0, n_levels).
+    The reference's Pallas kernel has no level range, so it is fed this
+    mask (its geometry is meaningless for the dropped rows)."""
+    return x["ok"] & (x["levels"] >= 0) & (x["levels"] < x["n_levels"])
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("resolution,n_levels", TABLE_GEOMETRY)
+def test_projection_twin_on_adversarial_tables(seed, resolution, n_levels):
+    """B2's semantics on tables the CSR must get right (see
+    :func:`projection_table`): the port's twin bit-equal to the
+    reference's Pallas projection kernel in interpret mode."""
+    x = projection_table(seed, resolution=resolution, n_levels=n_levels)
+    got = run_port(x, "projection", resolution, None)
+    want = run_jax({**x, "ok": reference_ok(x)}, "projection", resolution,
+                   None, "pallas_interpret")
+    assert_bits(want, got, f"projection R={resolution} L={n_levels}")
+    assert np.count_nonzero(got) > 0
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_leaf_table_and_plane_hit_match_reference(seed):
     x = node_inputs(random_tree(seed).to_arrays())
@@ -203,6 +266,36 @@ def test_backend_selection_errors():
                               n_levels=x["n_levels"])
     with pytest.raises(ValueError, match="one CUDA device or all on the"):
         cudalib.on_cuda(t["values"], torch.empty(0, device="meta"))
+
+
+def test_scan_chunk_matches_the_kernel_source():
+    """The wrapper pads B2/B5's count scratch to the kernel's scan chunk."""
+    src = (cudalib.CSRC / "raster.cu").read_text()
+    assert f"constexpr int kScanChunk = {raster.SCAN_CHUNK};" in src
+    assert raster.SCAN_CHUNK % 1024 == 0    # whole int4 loads per thread
+
+
+def test_projection_scratch_sizes_and_reuse(monkeypatch):
+    """B2/B5's scratch: counts and offsets cover every pyramid cell plus
+    the end cell in whole scan chunks, counts start zero, rows grow with
+    N and are kept otherwise; a pyramid past int32 cell indices raises."""
+    monkeypatch.setattr(raster, "current_stream", lambda dev: 0)
+    monkeypatch.setattr(raster, "_PROJ_SCRATCH", {})
+    cpu = torch.device("cpu")
+    total = ref.level_bases(10, 9)[-1]
+    _, (zeros, offsets, rows) = raster._projection_scratch(cpu, 512, 10, 100)
+    cells = offsets.numel()
+    assert cells % raster.SCAN_CHUNK == 0
+    assert total + 1 <= cells < total + 1 + raster.SCAN_CHUNK
+    assert zeros.numel() == cells + cells // raster.SCAN_CHUNK
+    assert not zeros.any() and zeros.dtype == torch.int32
+    assert offsets.dtype == torch.int64 and rows.numel() == 300
+    assert raster._projection_scratch(cpu, 512, 10, 50)[1][2] is rows
+    assert raster._projection_scratch(cpu, 512, 10, 1000)[1][2].numel() \
+        == 3000
+    assert len(raster._PROJ_SCRATCH) == 1
+    with pytest.raises(ValueError, match="int32 cell index"):
+        raster._projection_scratch(cpu, 2 ** 15, 20, 1)
 
 
 @pytest.mark.parametrize("where", ["env", "checkout", "installed"])
@@ -283,3 +376,24 @@ def test_cuda_kernels_bit_equal_to_twins(cuda_device, seed, resolution):
         if a.dtype == torch.float64:
             a, b = a.view(torch.int64), b.view(torch.int64)
         assert torch.equal(a, b), kern.__name__
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("resolution,n_levels", TABLE_GEOMETRY)
+def test_cuda_projection_bit_equal_to_twin_on_adversarial_tables(
+        cuda_device, seed, resolution, n_levels):
+    x = projection_table(seed, resolution=resolution, n_levels=n_levels)
+    t = {k: torch.from_numpy(np.asarray(v)).to(cuda_device)
+         for k, v in x.items() if k != "n_levels"}
+    c2 = ops.plane_coords(t["coords"], 2)
+    before = raster.LAUNCHES["projection_raster"]
+    args = (c2, t["levels"], t["values"], t["ok"])
+    geo = dict(resolution=resolution, n_levels=n_levels)
+    got = raster.projection_raster(*args, **geo)
+    again = raster.projection_raster(*args, **geo)   # scratch reused
+    want = ref.projection_raster_ref(*args, **geo)
+    torch.cuda.synchronize()
+    assert raster.LAUNCHES["projection_raster"] - before == 2
+    for g in (got, again):
+        assert torch.equal(g.view(torch.int64), want.view(torch.int64))
