@@ -24,7 +24,13 @@ non-zero (and prints no result) otherwise, or on any failure.
      their (level, cell) CSR on the card) also on adversarial tables —
      deep columns of up to 2,048 leaves, sub-pixel levels, n_levels >
      k + 1, rows of out-of-range level, all-invalid and padded tiles —
-     at R = 16, 64 and 512, each call twice on the kept scratch;
+     at R = 16, 64 and 512, each call twice on the kept scratch; the
+     float32 instantiations B3-f32, B4-f32 and B5-f32 (the mesh path's
+     float32 tables) on the same Sedov, partition and Orion tables with
+     their values cast to float32, B4-f32 at the boundary positions, B5-f32
+     on the adversarial tables, and B4 and B4-f32 on a level-26 table
+     whose float32 plane test rounds, each bitwise against its float32
+     twin (float32 bits compared as int32);
   3. main path: ``InTransitEngine(device_reduce=True, device="cuda")``
      over the Orion tree with the 512-res slice/projection/histogram DAG,
      then the CLI's default DAG (LOD cut, slice, slice-of-LOD,
@@ -39,7 +45,15 @@ non-zero (and prints no result) otherwise, or on any failure.
      reductions and within rtol 1e-12 of the host), then
      ``python -m repro_torch.launch.insitu --device-mesh 4 --device
      cuda:0`` on Sedov steps under the same contract; B4/B5 must launch
-     once per tile per step and B3 once per shard per step;
+     once per tile per step and B3 once per shard per step; then
+     ``MeshDAGRunner(dtype="float32")`` over Orion at one and four shards,
+     in turns with the same runner at float64: every float32 output
+     bitwise the float32 twins' run on the card, the slice within rtol
+     1e-6 and the projection within 1e-4 of the float64 host reducers,
+     the histogram and edges equal to the host's over the cast field,
+     only the float32 kernels launched (B4-f32/B5-f32 once per tile,
+     B3-f32 once per shard, per step), and half the field bytes up and
+     half the image bytes down;
   5. codec path: ``kernels.ops.compress_bits`` (B6 and the stream
      packing) over the five Orion fields at width 64, from the host
      codec's level-fused father/son groups; the code and payload words
@@ -53,10 +67,12 @@ non-zero (and prints no result) otherwise, or on any failure.
   6. times at the full size: the device-reduce and mesh walls per step
      and bytes to the host per step, where a device-reduce step's time
      goes (the engine's spans and the device's busy time from
-     ``torch.profiler``), and, with CUDA events, each kernel (B4/B5 per
-     tile call; B6-B9 at the Orion codec shapes), its plain twin, B7's
+     ``torch.profiler``), and, with CUDA events, each kernel (B4/B5 and
+     B4-f32/B5-f32 per tile call, B3-f32 on the one-shard float32 table;
+     B6-B9 at the Orion codec shapes), its plain twin, B7's
      library yardstick (one ``torch.bitwise_xor``) and its bound; for
-     B2, B4, B5 and B7 also the host's own time per wrapper call (a loop
+     B2, B4, B5, B7 and the float32 kernels also the host's own time per
+     wrapper call (a loop
      with no sync), its split by step, and the kernels' device time by
      kernel (``torch.profiler``), for B2/B5 the longest (level, cell)
      segment of the Orion table and tiles; and the host cost of the two
@@ -80,9 +96,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: NVIDIA H100 SXM data sheet: HBM3 bandwidth and FP64 (non-tensor) peak
+#: NVIDIA H100 SXM data sheet: HBM3 bandwidth and FP64 / FP32 (non-tensor)
+#: peaks
 MEM_BYTES_PER_S = 3.35e12
 F64_OPS_PER_S = 34e12
+F32_OPS_PER_S = 67e12
 #: H100 SXM int32 rate of the CUDA cores (Hopper white paper: 64 INT32
 #: lanes per SM, 132 SMs, 1.98 GHz boost clock)
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -99,6 +117,12 @@ KERNELS = {
                            RASTER_SRC),
     "projection_raster_carry": ("src/repro/kernels/raster_kernel.py:267",
                                 RASTER_SRC),
+    # the float32 instantiations of B3-B5 (the mesh path's float32 tables)
+    "level_hist_f32": ("src/repro/kernels/raster_kernel.py:320", RASTER_SRC),
+    "slice_raster_carry_f32": ("src/repro/kernels/raster_kernel.py:166",
+                               RASTER_SRC),
+    "projection_raster_carry_f32": ("src/repro/kernels/raster_kernel.py:267",
+                                    RASTER_SRC),
     "encode_groups": ("src/repro/kernels/fpdelta_kernel.py:60", CODEC_SRC),
     "decode_groups": ("src/repro/kernels/fpdelta_kernel.py:96", CODEC_SRC),
     "bitpack": ("src/repro/kernels/bitpack_kernel.py:26", CODEC_SRC),
@@ -166,8 +190,41 @@ def kernel_inputs(arrays: dict, device, *, n_domains: int = 1, axis: int = 2):
 # ------------------------------------------------------------- parity
 
 def _bits(t):
+    """A float tensor's bit patterns (int64 / int32), else the tensor."""
     import torch
-    return t.view(torch.int64) if t.dtype == torch.float64 else t
+    view = {torch.float64: torch.int64, torch.float32: torch.int32}.get(
+        t.dtype)
+    return t if view is None else t.view(view)
+
+
+def _same_bits(label: str, got, twin) -> float:
+    """Raise unless each tensor of ``got`` has its ``twin``'s dtype, shape
+    and bits; returns the max abs error (0.0)."""
+    import torch
+    for g, t in zip(got, twin):
+        if g.dtype != t.dtype or g.shape != t.shape or \
+                not torch.equal(_bits(g), _bits(t)):
+            raise AssertionError(f"{label} differs from its twin (max abs "
+                                 f"err {_max_abs_err(g, t)})")
+    return max(_max_abs_err(g, t) for g, t in zip(got, twin))
+
+
+def _check_launched(before: dict, want: dict, label: str) -> None:
+    """Raise unless the raster launch counters moved by ``want`` since
+    ``before``, and every other counter not at all."""
+    from repro_torch.kernels import raster
+    moved = {k: raster.LAUNCHES[k] - before.get(k, 0)
+             for k in raster.LAUNCHES}
+    expect = {k: want.get(k, 0) for k in raster.LAUNCHES}
+    if moved != expect:
+        raise AssertionError(f"{label}: launches {moved}, expected {expect}")
+
+
+def f32_inputs(x: dict) -> dict:
+    """``x`` with its values cast to float32, as a float32 mesh table
+    holds them."""
+    import torch
+    return {**x, "values": x["values"].to(torch.float32)}
 
 
 def _max_abs_err(a, b) -> float:
@@ -289,15 +346,20 @@ def check_parity(label: str, arrays: dict, device, *, resolution: int,
 
 
 def check_carry_boundaries(label: str, arrays: dict, device, *,
-                           resolution: int = 64, tile_n: int = 512) -> None:
-    """B4 chained over ``tile_n``-row tiles against its seeded twin,
-    bitwise (image and depth), at slice positions on exact cell
-    boundaries, with the tree's levels and with every 7th valid row
-    given a level outside [0, n_levels) (rows B4 must drop)."""
+                           resolution: int = 64, tile_n: int = 512,
+                           f32: bool = False) -> None:
+    """B4 (``f32``: B4-f32 on the values cast to float32) chained over
+    ``tile_n``-row tiles against its seeded twin, bitwise (image and
+    depth), at slice positions on exact cell boundaries, with the tree's
+    levels and with every 7th valid row given a level outside [0,
+    n_levels) (rows B4 must drop)."""
     import torch
 
     from repro_torch.kernels import ops, raster
     x = kernel_inputs(arrays, device)
+    if f32:
+        x = f32_inputs(x)
+    name = "slice_raster_carry_f32" if f32 else "slice_raster_carry"
     L = x["n_levels"]
     rows = torch.nonzero(x["ok"]).flatten()[::7]
     bad = x["levels"].clone()
@@ -310,26 +372,21 @@ def check_carry_boundaries(label: str, arrays: dict, device, *,
         for pos in positions:
             kw = dict(axis=2, position=pos, resolution=resolution,
                       n_levels=L, tile_n=tile_n)
-            before = raster.LAUNCHES["slice_raster_carry"]
+            before = raster.LAUNCHES[name]
             got = ops.raster_slice_partial(x["coords"], levels, x["values"],
                                            x["ok"], **kw)
-            launched = raster.LAUNCHES["slice_raster_carry"] - before
+            launched = raster.LAUNCHES[name] - before
             twin = ops.raster_slice_partial(x["coords"], levels,
                                             x["values"], x["ok"],
                                             backend="ref", **kw)
             torch.cuda.synchronize()
             if launched != n_tiles:
-                raise AssertionError(f"{label}: B4 launched {launched} "
+                raise AssertionError(f"{label}: {name} launched {launched} "
                                      f"times for {n_tiles} tiles")
-            for g, t in zip(got, twin):
-                if g.dtype != t.dtype or not torch.equal(_bits(g), _bits(t)):
-                    raise AssertionError(f"{label}: B4 at position {pos} "
-                                         f"differs from its seeded twin "
-                                         f"(max abs err "
-                                         f"{_max_abs_err(g, t)})")
-    print(f"parity {label}: B4 over {n_tiles} tiles bit-equal to its seeded "
-          f"twin at positions {positions}, with and without {rows.numel()} "
-          f"rows of out-of-range level (R={resolution})")
+            _same_bits(f"{label}: {name} at position {pos}", got, twin)
+    print(f"parity {label}: {name} over {n_tiles} tiles bit-equal to its "
+          f"seeded twin at positions {positions}, with and without "
+          f"{rows.numel()} rows of out-of-range level (R={resolution})")
 
 
 def projection_table(seed: int, *, resolution: int, n_levels: int,
@@ -384,14 +441,15 @@ def longest_segment(coords2, levels, ok, *, resolution: int,
     return int(torch.bincount(cells).max())
 
 
-def check_projection_tables(device) -> int:
+def check_projection_tables(device, f32: bool = False) -> int:
     """B2 whole and B5 chained against their twins on the card, bitwise,
     on :func:`projection_table` tables: sub-pixel levels with n_levels >
     k + 1 at R = 16 and 64, and at R = 512 (12 levels) deep columns of
     512 leaves at level 9 and of 2,048 at sub-pixel level 11; B5 chained
     over 512-row and ``MESH_TILE``-row tiles (all-invalid and padded
     tiles). Each call pair runs twice, the second on the kept scratch.
-    Returns the longest cell segment of the tables."""
+    ``f32``: the values cast to float32 through B5-f32 (B2 has no float32
+    kernel). Returns the longest cell segment of the tables."""
     import torch
 
     from repro_torch.insitu.mesh_reduce import MESH_TILE
@@ -406,12 +464,16 @@ def check_projection_tables(device) -> int:
                              invalid_run=run)
         t = {k: torch.from_numpy(v).to(device) for k, v in x.items()
              if k != "n_levels"}
+        if f32:
+            t["values"] = t["values"].to(torch.float32)
+        name = "projection_raster_carry_f32" if f32 else \
+            "projection_raster_carry"
         c2 = ops.plane_coords(t["coords"], 2)
         args = (c2, t["levels"], t["values"], t["ok"])
         geo = dict(resolution=res, n_levels=L)
         longest = max(longest, longest_segment(*args[:2], t["ok"], **geo))
         want = ref.projection_raster_ref(*args, **geo)
-        for _ in range(2):
+        for _ in range(0 if f32 else 2):
             got = raster.projection_raster(*args, **geo)
             torch.cuda.synchronize()
             if not torch.equal(_bits(got), _bits(want)):
@@ -425,25 +487,110 @@ def check_projection_tables(device) -> int:
                 backend="ref", **kw)
             n_tiles = -(-x["values"].shape[0] // tn)
             for _ in range(2):
-                before = raster.LAUNCHES["projection_raster_carry"]
+                before = raster.LAUNCHES[name]
                 got = ops.raster_projection_partial(
                     t["coords"], t["levels"], t["values"], t["ok"], **kw)
                 torch.cuda.synchronize()
-                launched = raster.LAUNCHES["projection_raster_carry"] - before
+                launched = raster.LAUNCHES[name] - before
                 if launched != n_tiles:
-                    raise AssertionError(f"projection table R={res}: B5 "
+                    raise AssertionError(f"projection table R={res}: {name} "
                                          f"launched {launched} times for "
                                          f"{n_tiles} tiles")
-                if not torch.equal(_bits(got), _bits(want)):
-                    raise AssertionError(
-                        f"projection table R={res} L={L} tile_n={tn}: B5 "
-                        f"differs from its seeded twin (max abs err "
-                        f"{_max_abs_err(got, want)})")
+                _same_bits(f"projection table R={res} L={L} tile_n={tn}: "
+                           f"{name}", (got,), (want,))
+        what = "B5-f32" if f32 else "B2 and B5"
         print(f"parity projection table R={res} L={L}: "
-              f"{x['values'].shape[0]} rows, B2 and B5 (tiles of 512 and "
+              f"{x['values'].shape[0]} rows, {what} (tiles of 512 and "
               f"{tile_n}) bit-equal to their twins, twice each")
     print(f"parity projection tables: longest cell segment {longest} rows")
     return longest
+
+
+def check_parity_f32(label: str, x: dict, edges, n_hist: int, *,
+                     resolution: int, tile_n: int) -> dict:
+    """B4-f32 and B5-f32 chained over ``tile_n``-row tiles and B3-f32 on
+    ``x``'s table with its values cast to float32, against their float32
+    twins on the card, bitwise (float32 bits compared as int32); only the
+    float32 counters move, once per tile and once per histogram."""
+    import torch
+
+    from repro_torch.kernels import raster, ref
+    x = f32_inputs(x)
+    n_tiles = -(-x["values"].shape[0] // tile_n)
+    errs = {}
+    for kind, name in (("slice", "slice_raster_carry_f32"),
+                       ("projection", "projection_raster_carry_f32")):
+        before = dict(raster.LAUNCHES)
+        got = carry_chain(x, kind, None, resolution=resolution,
+                          tile_n=tile_n)
+        torch.cuda.synchronize()
+        _check_launched(before, {name: n_tiles}, f"{label}: {name}")
+        twin = carry_chain(x, kind, "ref", resolution=resolution,
+                           tile_n=tile_n)
+        torch.cuda.synchronize()
+        errs[name] = _same_bits(f"{label}: {name}", got, twin)
+    args = (x["values"], x["levels"], x["ok"], edges)
+    before = dict(raster.LAUNCHES)
+    got = raster.level_hist(*args, n_levels=n_hist)
+    torch.cuda.synchronize()
+    _check_launched(before, {"level_hist_f32": 1}, f"{label}: B3-f32")
+    errs["level_hist_f32"] = _same_bits(
+        f"{label}: level_hist_f32", (got,),
+        (ref.level_hist_ref(*args, n_levels=n_hist),))
+    print(f"parity {label} float32: B4-f32 and B5-f32 over {n_tiles} tiles "
+          f"of {tile_n} rows and B3-f32 ({edges.numel() - 1} bins) "
+          f"bit-equal to their float32 twins (R={resolution})")
+    return errs
+
+
+def level26_table(device) -> dict:
+    """Leaves at level 26 of 27 whose float32 plane test at position 0.3
+    differs from the float64 one (``tests/test_torch_mesh_f32.py``'s
+    table): ``c * 2^-26`` and ``lo + 2^-26`` round in float32, so the
+    pair 20132659/20132660 paints nothing there; plus level-2 leaves."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(26)
+    c_axis = np.arange(20132656, 20132663)
+    fine = np.stack([rng.integers(0, 1 << 26, c_axis.size),
+                     rng.integers(0, 1 << 26, c_axis.size), c_axis], 1)
+    coarse = rng.integers(0, 4, size=(9, 3))
+    coarse[:, 2] = 1
+    levels = np.concatenate([np.full(9, 2), np.full(c_axis.size, 26)])
+    x = {"coords": np.concatenate([coarse, fine]).astype(np.int32),
+         "levels": levels.astype(np.int32),
+         "values": rng.standard_normal(levels.size).astype(np.float32),
+         "ok": np.ones(levels.size, bool)}
+    return {k: torch.from_numpy(v).to(device) for k, v in x.items()}
+
+
+def check_level26(device) -> None:
+    """B4-f32 and B4 on :func:`level26_table` at position 0.3 (R = 4)
+    against their twins, bitwise: in float32 no level-26 leaf paints, in
+    float64 the pair's first leaf does."""
+    import torch
+
+    from repro_torch.kernels import ops, raster
+    t = level26_table(device)
+    for dtype, name, deepest in ((torch.float32, "slice_raster_carry_f32",
+                                  2),
+                                 (torch.float64, "slice_raster_carry", 26)):
+        kw = dict(axis=2, position=0.3, resolution=4, n_levels=27)
+        vals = t["values"].to(dtype)
+        before = dict(raster.LAUNCHES)
+        got = ops.raster_slice_partial(t["coords"], t["levels"], vals,
+                                       t["ok"], **kw)
+        torch.cuda.synchronize()
+        _check_launched(before, {name: 1}, f"level-26 {name}")
+        twin = ops.raster_slice_partial(t["coords"], t["levels"], vals,
+                                        t["ok"], backend="ref", **kw)
+        _same_bits(f"level-26 plane case: {name}", got, twin)
+        if int(got[1].max()) != deepest:
+            raise AssertionError(f"level-26 plane case: {name} painted "
+                                 f"level {int(got[1].max())}, expected "
+                                 f"{deepest}")
+    print("parity level-26 plane case (position 0.3, R=4): B4-f32 paints no "
+          "level-26 leaf, B4 paints one; both bit-equal to their twins")
 
 
 # ----------------------------------------------------------- main path
@@ -700,11 +847,15 @@ def mesh_tiles(arrays: dict, n_shards: int) -> int:
 
 
 def check_mesh_launches(counts: dict, label: str, *, tiles: int,
-                        n_shards: int, steps: int) -> None:
-    want = {"slice_raster_carry": tiles * steps,
-            "projection_raster_carry": tiles * steps,
-            "level_hist": n_shards * steps,
-            "slice_raster": 0, "projection_raster": 0}
+                        n_shards: int, steps: int, suffix: str = "") -> None:
+    """B4 and B5 once per tile, B3 once per shard, every step, in the
+    kernels of ``suffix`` ("" float64, "_f32" float32); every other raster
+    kernel never."""
+    from repro_torch.kernels import raster
+    want = dict.fromkeys(raster.LAUNCHES, 0)
+    want.update({f"slice_raster_carry{suffix}": tiles * steps,
+                 f"projection_raster_carry{suffix}": tiles * steps,
+                 f"level_hist{suffix}": n_shards * steps})
     got = {k: counts.get(k, 0) for k in want}
     if got != want:
         raise AssertionError(f"{label}: launches {got}, expected {want}")
@@ -773,6 +924,126 @@ def main_path_mesh(tree, tmp: Path, device, host_root: str) -> tuple:
             f"mesh S={n_shards}", device_reduce="mesh",
             mesh_devices=[device] * n_shards)
     return first, out
+
+
+def main_path_mesh_f32(tree, device, mesh64: dict) -> dict:
+    """``MeshDAGRunner(dtype="float32")`` over Orion with one shard and
+    with ``MESH_SHARDS`` on the one card, each beside the same runner at
+    float64 (``dtype=None``) in the same call: every output bitwise the
+    float32 runner's with ``backend="ref"`` (the float32 twins, on the
+    card), the slice within rtol 1e-6 and the projection within 1e-4 of
+    the float64 host reducers, the histogram and its edges equal to the
+    host's over the float32-cast field; launches, walls and bytes per
+    step. ``mesh64`` is :func:`main_path_mesh`'s (engine) result."""
+    import numpy as np
+    import torch
+
+    from repro_torch.insitu import ReducerDAG
+    from repro_torch.insitu.mesh_reduce import MeshDAGRunner, MeshTable
+    from repro_torch.insitu.staging import Snapshot
+    from repro_torch.kernels import raster
+    arrays = tree.to_arrays()
+    cast = {**arrays, "field:density": arrays["field:density"]
+            .astype(np.float32).astype(np.float64)}
+    host, cast_host = (ReducerDAG(live_reducers()).run(
+        Snapshot(step=0, kind="amr", arrays=a)) for a in (arrays, cast))
+    names = {k.split("-")[0]: k for k in host}
+    steps = range(1, ORION_STEPS + 2)      # first step warms the allocator
+    out = {}
+    for n_shards in (1, MESH_SHARDS):
+        devices = [device] * n_shards
+        tiles = mesh_tiles(arrays, n_shards)
+        runs = {"float64": [], "float32": []}
+        # in turns, so the host's drift falls on both alike
+        for dtype in (None, "float32", "float32", None):
+            runner = MeshDAGRunner(ReducerDAG(live_reducers()),
+                                   devices=devices, dtype=dtype)
+            walls = []
+            raster.reset_launches()
+            for s in steps:
+                t0 = time.perf_counter()
+                got = runner.run(Snapshot(step=s, kind="amr", arrays=arrays))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            launches = dict(raster.LAUNCHES)
+            if dtype:
+                last = got          # a float32 run's, compared below
+            st = runner.stats.as_dict()
+            check_mesh_launches(
+                launches, f"mesh {dtype or 'float64'} S={n_shards}",
+                tiles=tiles, n_shards=n_shards, steps=len(walls),
+                suffix="_f32" if dtype else "")
+            if st["fallback_snapshots"] or st["fallback_runs"]:
+                raise AssertionError(f"mesh float32 S={n_shards} fell back "
+                                     f"to the host: {st}")
+            runs[dtype or "float64"].append({
+                "wall_ms_per_step": 1e3 * sum(walls[1:]) / len(walls[1:]),
+                "wall_ms_steps": [1e3 * w for w in walls],
+                "launches": launches,
+                "bytes_tables_to_device_per_step":
+                    st["bytes_tables_to_device"] / len(walls),
+                "bytes_to_host_per_step": st["bytes_to_host"] / len(walls)})
+        f32, f64 = runs["float32"][0], runs["float64"][0]
+        twin = MeshDAGRunner(ReducerDAG(live_reducers()), devices=devices,
+                             backend="ref", dtype="float32").run(
+            Snapshot(step=0, kind="amr", arrays=arrays))
+        got, n = last, 0
+        for name, o in twin.items():
+            for k, v in o.items():
+                g = got[name][k]
+                if g.dtype != v.dtype or g.tobytes() != v.tobytes():
+                    raise AssertionError(f"mesh float32 S={n_shards} "
+                                         f"{name}/{k} differs from the "
+                                         f"float32 twins' run")
+                n += 1
+        sl, pr = got[names["slice"]]["image"], got[names["proj"]]["image"]
+        if sl.dtype != np.float32 or pr.dtype != np.float32:
+            raise AssertionError(f"mesh float32 images are {sl.dtype}, "
+                                 f"{pr.dtype}")
+        np.testing.assert_allclose(sl.astype(np.float64),
+                                   host[names["slice"]]["image"], rtol=1e-6)
+        np.testing.assert_allclose(pr.astype(np.float64),
+                                   host[names["proj"]]["image"], rtol=1e-4)
+        for k in ("hist", "edges"):
+            if not np.array_equal(got[names["hist"]][k],
+                                  cast_host[names["hist"]][k]):
+                raise AssertionError(f"mesh float32 S={n_shards} hist/{k} "
+                                     f"differs from the host's over the "
+                                     f"cast field")
+        rows = MeshTable(arrays, 1, ["cpu"] * n_shards).rows_padded
+        half = n_shards * rows * 4
+        res = LIVE_RESOLUTION
+        if f64["bytes_tables_to_device_per_step"] - \
+                f32["bytes_tables_to_device_per_step"] != half or \
+                f64["bytes_to_host_per_step"] - \
+                f32["bytes_to_host_per_step"] != 2 * res * res * 4:
+            raise AssertionError(f"mesh float32 S={n_shards} bytes: "
+                                 f"{f32} against float64 {f64}")
+        walls = {k: [r["wall_ms_per_step"] for r in v]
+                 for k, v in runs.items()}
+        out[n_shards] = {"float32": f32, "float64_runner": f64,
+                         "wall_ms_per_step_runs": walls,
+                         "tiles_per_step": tiles, "arrays_checked": n}
+        print(f"main path mesh float32 S={n_shards} on {device}: "
+              f"MeshDAGRunner(dtype='float32'), {len(steps)} Orion steps, "
+              f"{n} outputs bit-equal to the float32 twins' run on the card, "
+              f"slice within rtol 1e-6 and projection within 1e-4 of the "
+              f"float64 host reducers, histogram and edges equal to the "
+              f"host's over the cast field; {tiles} tiles per step, "
+              f"launches {f32['launches']}")
+        print(f"time mesh_f32_wall_ms_per_step S={n_shards}: runs 2 and 3 "
+              f"{walls['float32']!r} (steps 2-{len(steps)}; all steps of "
+              f"run 2 {f32['wall_ms_steps']!r}); the same runner at float64, "
+              f"runs 1 and 4, {walls['float64']!r} (all steps of run 1 "
+              f"{f64['wall_ms_steps']!r}); the float64 engine "
+              f"{mesh64[n_shards]['wall_ms_per_step']!r}")
+        print(f"bytes mesh S={n_shards} per step: bytes_tables_to_device "
+              f"float32 {f32['bytes_tables_to_device_per_step']!r}, float64 "
+              f"{f64['bytes_tables_to_device_per_step']!r} (engine "
+              f"{mesh64[n_shards]['bytes_tables_to_device_per_step']!r}); "
+              f"bytes_to_host float32 {f32['bytes_to_host_per_step']!r}, "
+              f"float64 {f64['bytes_to_host_per_step']!r}")
+    return out
 
 
 def main_path_mesh_cli(tmp: Path, device) -> dict:
@@ -1098,30 +1369,46 @@ def _row_bytes(t) -> int:
 
 def _bound(nbytes: int, ops: int, kind: str = "f64") -> dict:
     """The least time for ``nbytes`` moved and ``ops`` operations of
-    ``kind`` (f64 or int32): the larger of bytes over the memory rate and
-    ops over the card's peak for that type."""
-    rate = F64_OPS_PER_S if kind == "f64" else INT32_OPS_PER_S
+    ``kind`` (f64, f32 or int32): the larger of bytes over the memory
+    rate and ops over the card's peak for that type."""
+    rate = {"f64": F64_OPS_PER_S, "f32": F32_OPS_PER_S,
+            "int32": INT32_OPS_PER_S}[kind]
     tb, to = nbytes / MEM_BYTES_PER_S, ops / rate
     return {"bound_ms": 1e3 * max(tb, to),
             "bound_by": "bytes" if tb >= to else "operations",
             "bytes": nbytes, "ops": ops, "ops_type": kind}
 
 
+def plane_hits(x: dict, position: float = 0.5):
+    """The rows of ``x`` whose level-``l`` cell holds the slice plane,
+    tested in the values' dtype as B4 and its twin test it."""
+    import torch
+
+    from repro_torch.kernels import ref
+    dt, L = x["values"].dtype, x["n_levels"]
+    size = ref.level_scale(L, x["levels"].device).to(dt)[
+        x["levels"].to(torch.int64).clamp(0, L - 1)]
+    lo = x["c_axis"].to(dt) * size
+    pos = torch.tensor(position, dtype=dt, device=lo.device)
+    return (lo <= pos) & (pos < lo + size)
+
+
 def raster_work(x: dict, resolution: int) -> dict:
-    """Bytes and f64 operations the slice and the projection must spend
-    on ``x``'s table, each (R, R) float64 output written once. Every
-    row's ``ok`` (and, for the slice, its plane test) must be read; the
-    other columns only for the rows this data selects: the valid leaves,
-    or the valid leaves the slice plane hits."""
+    """Bytes and operations (in the values' float type) the slice and the
+    projection must spend on ``x``'s table, each (R, R) output in the
+    values' dtype written once. Every row's ``ok`` (and, for the slice,
+    its plane test) must be read; the other columns only for the rows
+    this data selects: the valid leaves, or the valid leaves the slice
+    plane hits."""
     import torch
 
     from repro_torch.kernels import raster
     L = x["n_levels"]
-    img = resolution * resolution * 8
+    img = resolution * resolution * x["values"].element_size()
     valid = x["ok"] & (x["levels"] >= 0) & (x["levels"] < L)
     _, _, px = raster.leaf_table(x["coords2"], x["levels"],
                                  resolution=resolution)
-    hit = raster.plane_hit(x["c_axis"], x["levels"], 0.5, L) & valid
+    hit = plane_hits(x) & valid
     n_rows, n_valid, n_hit = x["ok"].numel(), int(valid.sum()), int(hit.sum())
     leaf_row = sum(_row_bytes(x[k]) for k in ("coords2", "levels", "values"))
     return {
@@ -1146,33 +1433,48 @@ def bounds(x: dict, edges, n_hist: int, resolution: int) -> dict:
     values and levels of the valid leaves, and does one f64 compare per
     binary-search step per valid row."""
     w = raster_work(x, resolution)
-    n_valid = w["projection"][2]
     out = {"slice_raster": _bound(*w["slice"][:2]),
            "projection_raster": _bound(*w["projection"][:2]),
-           "level_hist": _bound(
-               _nbytes(x["ok"], edges)
-               + n_valid * (_row_bytes(x["values"]) + _row_bytes(x["levels"]))
-               + n_hist * (edges.numel() - 1) * 4,
-               n_valid * (3 + math.ceil(math.log2(edges.numel()))))}
+           "level_hist": hist_bound(x, edges, n_hist)}
     out["slice_raster"]["plane_hits"] = w["slice"][2]
-    out["projection_raster"]["valid_rows"] = n_valid
+    out["projection_raster"]["valid_rows"] = w["projection"][2]
     return out
 
 
+def hist_bound(x: dict, edges, n_hist: int) -> dict:
+    """Least time of B3 (or B3-f32) on ``x``'s table: ``ok`` and the edges
+    read, the values and levels of the valid leaves, the (L, B) counts
+    written; one f64 compare per binary-search step per valid row (a
+    float32 value is compared widened)."""
+    L = x["n_levels"]
+    n_valid = int((x["ok"] & (x["levels"] >= 0) & (x["levels"] < L)).sum())
+    return _bound(_nbytes(x["ok"], edges)
+                  + n_valid * (_row_bytes(x["values"])
+                               + _row_bytes(x["levels"]))
+                  + n_hist * (edges.numel() - 1) * 4,
+                  n_valid * (3 + math.ceil(math.log2(edges.numel()))))
+
+
 def carry_bounds(tiles: list, resolution: int) -> dict:
-    """Least time of one B4/B5 call, the mean over the main path's tiles:
-    each tile's :func:`raster_work` plus its seed, read once — B4's
-    (image, depth) seed and outputs are 24·R² bytes, B5's 16·R²."""
+    """Least time of one B4/B5 call (float64 or, for float32 tiles,
+    B4-f32/B5-f32), the mean over the main path's tiles: each tile's
+    :func:`raster_work` plus its seed, read once — B4's (image, depth)
+    seed and outputs are (2v + 8)·R² bytes, B5's 2v·R², for v-byte
+    values."""
     px2 = resolution * resolution
-    sums = {"slice_raster_carry": [0, 0], "projection_raster_carry": [0, 0]}
+    vb = tiles[0]["values"].element_size()
+    fx, kind = ("", "f64") if vb == 8 else ("_f32", "f32")
+    sums = {"slice_raster_carry" + fx: [0, 0],
+            "projection_raster_carry" + fx: [0, 0]}
     for x in tiles:
         w = raster_work(x, resolution)
-        for name, kind, seed in (("slice_raster_carry", "slice", 16 * px2),
+        for name, work, seed in (("slice_raster_carry", "slice",
+                                  (vb + 8) * px2),
                                  ("projection_raster_carry", "projection",
-                                  8 * px2)):
-            sums[name][0] += w[kind][0] + seed
-            sums[name][1] += w[kind][1]
-    return {name: dict(_bound(nb // len(tiles), ops // len(tiles)),
+                                  vb * px2)):
+            sums[name + fx][0] += w[work][0] + seed
+            sums[name + fx][1] += w[work][1]
+    return {name: dict(_bound(nb // len(tiles), ops // len(tiles), kind),
                        tiles=len(tiles))
             for name, (nb, ops) in sums.items()}
 
@@ -1202,13 +1504,15 @@ def time_kernels(x: dict, edges, n_hist: int, resolution: int) -> dict:
     return out
 
 
-def time_carries(arrays: dict, device) -> tuple:
-    """B4/B5 per tile call at the mesh path's shapes: the one-shard Orion
-    table's tile chain timed whole (wrapper, then plain twin) over its
-    tile count, and the bound as the mean over the same tiles."""
+def time_carries(arrays: dict, device, dtype=None) -> tuple:
+    """B4/B5 per tile call at the mesh path's shapes (``dtype="float32"``:
+    B4-f32/B5-f32 on the float32 table): the one-shard Orion table's tile
+    chain timed whole (wrapper, then plain twin) over its tile count, and
+    the bound as the mean over the same tiles."""
     from repro_torch.insitu.mesh_reduce import MESH_TILE, MeshTable
     from repro_torch.kernels import ops
-    mt = MeshTable(arrays, 1, [device])
+    mt = MeshTable(arrays, 1, [device], dtype=dtype)
+    fx = "_f32" if dtype else ""
     coords, levels, values, ok = next(mt.shards("density"))
     x = {"coords": coords, "levels": levels, "values": values, "ok": ok,
          "n_levels": mt.n_levels}
@@ -1220,17 +1524,47 @@ def time_carries(arrays: dict, device) -> tuple:
              for a in range(0, values.shape[0], MESH_TILE)]
     geo = dict(resolution=LIVE_RESOLUTION, tile_n=MESH_TILE)
     out = {}
-    for kind, name in (("slice", "slice_raster_carry"),
-                       ("projection", "projection_raster_carry")):
+    for kind, name in (("slice", "slice_raster_carry" + fx),
+                       ("projection", "projection_raster_carry" + fx)):
         chain = time_ms(lambda: carry_chain(x, kind, None, **geo), reps=5)
         plain = time_ms(lambda: carry_chain(x, kind, "ref", **geo), reps=1,
                         warm=1)
         out[name] = {"ms": chain / len(tiles), "plain_ms": plain / len(tiles),
                      "chain_ms": chain, "plain_chain_ms": plain}
-    out["slice_raster_carry"].update(slice_carry_calls(tiles, device))
-    out["projection_raster_carry"].update(
+    out["slice_raster_carry" + fx].update(slice_carry_calls(tiles, device))
+    out["projection_raster_carry" + fx].update(
         projection_calls(tiles, device, carry=True))
     return out, carry_bounds(tiles, LIVE_RESOLUTION)
+
+
+def time_hist_f32(arrays: dict, device) -> tuple:
+    """B3-f32 at the float32 mesh path's shapes: the one-shard Orion
+    table's float32 values, levels and ``ok`` (569,344 padded rows) and
+    the live DAG's 64 edges; the wrapper (CUDA events, host ms, device ms
+    from ``torch.profiler``), its plain twin, and the bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.insitu import LevelHistogramReducer
+    from repro_torch.insitu.mesh_reduce import MeshTable
+    from repro_torch.kernels import raster, ref
+    mt = MeshTable(arrays, 1, [device], dtype="float32")
+    _, levels, values, ok = next(mt.shards("density"))
+    r = next(r for r in live_reducers()
+             if isinstance(r, LevelHistogramReducer))
+    edges = torch.from_numpy(np.linspace(r.lo, r.hi, r.bins + 1)).to(device)
+    n_hist = min(mt.n_levels, r.max_levels)
+
+    def call(f):
+        return f(values, levels, ok, edges, n_levels=n_hist)
+
+    out = {"ms": time_ms(lambda: call(raster.level_hist), reps=20),
+           "plain_ms": time_ms(lambda: call(ref.level_hist_ref), reps=3,
+                               warm=1),
+           **wrapper_calls(lambda: call(raster.level_hist), 1)}
+    x = {"values": values, "levels": levels, "ok": ok,
+         "n_levels": mt.n_levels}
+    return out, hist_bound(x, edges, n_hist)
 
 
 def wrapper_calls(chain, n_calls: int, reps: int = 20) -> dict:
@@ -1254,7 +1588,7 @@ def slice_carry_calls(tiles: list, device, reps: int = 20) -> dict:
 
     from repro_torch.kernels import raster
     r = LIVE_RESOLUTION
-    seed = (torch.full((r, r), float("nan"), dtype=torch.float64,
+    seed = (torch.full((r, r), float("nan"), dtype=tiles[0]["values"].dtype,
                        device=device),
             torch.full((r, r), -1, dtype=torch.int32, device=device))
 
@@ -1281,7 +1615,7 @@ def projection_calls(tiles: list, device, *, carry: bool,
 
     from repro_torch.kernels import raster
     r = LIVE_RESOLUTION
-    seed = torch.zeros((r, r), dtype=torch.float64, device=device)
+    seed = torch.zeros((r, r), dtype=tiles[0]["values"].dtype, device=device)
 
     def cols(t):
         return t["coords2"], t["levels"], t["values"], t["ok"]
@@ -1315,33 +1649,31 @@ def projection_steps(t: dict, seed) -> dict:
     r, L = LIVE_RESOLUTION, t["n_levels"]
     cols = (t["coords2"], t["levels"], t["values"], t["ok"])
     seeds = () if seed is None else (seed,)
-    dev = t["values"].device
+    dev, vd = t["values"].device, t["values"].dtype
     n = t["values"].shape[0]
     i = cudalib.device_index(*cols, *seeds)
     _, (zeros, offsets, rows) = raster._projection_scratch(dev, r, L, n)
-    img = torch.empty((r, r), dtype=torch.float64, device=dev)
+    img = torch.empty((r, r), dtype=vd, device=dev)
     args = (*(c.data_ptr() for c in cols[:2]), cols[3].data_ptr(),
             cols[2].data_ptr(), n, r, L, zeros.data_ptr(),
             offsets.data_ptr(), rows.data_ptr(),
             *(s.data_ptr() for s in seeds), img.data_ptr())
     cudalib.lib()
-    entry = cudalib._FNS["raster_projection_carry_f64" if seeds
-                         else "raster_projection_f64"]
+    entry = cudalib._FNS["raster_projection_carry" + raster._SUFFIX[vd]
+                         if seeds else "raster_projection_f64"]
     stream = cudalib.current_stream(i)
     wrapper = (lambda: raster.projection_raster_carry(
         *cols, resolution=r, n_levels=L, init=seed)) if seeds else \
         (lambda: raster.projection_raster(*cols, resolution=r, n_levels=L))
     steps = {
         "checks": lambda: (cudalib.device_index(*cols, *seeds),
-                           seeds and raster._seed(seeds, r,
-                                                  (torch.float64,))),
+                           seeds and raster._seed(seeds, r, (vd,))),
         "casts": lambda: (raster._as(cols[0], torch.int32),
                           raster._as(cols[1], torch.int32),
-                          raster._as(cols[2], torch.float64),
+                          raster._as(cols[2], vd),
                           cudalib.dense(cols[3])),
         "scratch lookup": lambda: raster._projection_scratch(dev, r, L, n),
-        "one allocation": lambda: torch.empty((r, r), dtype=torch.float64,
-                                              device=dev),
+        "one allocation": lambda: torch.empty((r, r), dtype=vd, device=dev),
         "ctypes call and five launches": lambda: entry(*args, i, stream),
         "whole wrapper": wrapper,
     }
@@ -1367,13 +1699,13 @@ def slice_carry_steps(t: dict, seed) -> dict:
             seed[0].data_ptr(), seed[1].data_ptr(), img.data_ptr(),
             depth.data_ptr())
     cudalib.lib()
-    entry = cudalib._FNS["raster_slice_carry_f64"]
+    vd = t["values"].dtype
+    entry = cudalib._FNS["raster_slice_carry" + raster._SUFFIX[vd]]
     stream = cudalib.current_stream(i)
     whole = torch.cat(cols[3:4] * 35)
     steps = {
         "checks": lambda: (cudalib.device_index(*cols, *seed),
-                           raster._seed(seed, r, (torch.float64,
-                                                  torch.int32))),
+                           raster._seed(seed, r, (vd, torch.int32))),
         "one allocation": lambda: torch.empty_like(seed[0]),
         "ctypes call and launches": lambda: entry(*args, i, stream),
         "whole wrapper": lambda: raster.slice_raster_carry(
@@ -1537,16 +1869,27 @@ def main() -> int:
     for seed in (0, 7):
         tree = random_sedov_tree(seed)
         for res in (16, 64):
-            check_parity(f"sedov seed={seed} R={res}", tree.to_arrays(),
-                         device, resolution=res, bins=32, lo=None, hi=None)
+            label = f"sedov seed={seed} R={res}"
+            _, sx, s_edges, s_hist = check_parity(
+                label, tree.to_arrays(), device, resolution=res, bins=32,
+                lo=None, hi=None)
+            check_parity_f32(label, sx, s_edges, s_hist, resolution=res,
+                             tile_n=512)
         check_codec_parity(f"sedov seed={seed}", tree, device)
-        check_carry_boundaries(f"sedov seed={seed}", tree.to_arrays(),
-                               device)
+        for f32 in (False, True):
+            check_carry_boundaries(f"sedov seed={seed}", tree.to_arrays(),
+                                   device, f32=f32)
     parts = partition_snapshot(random_sedov_tree(3).to_arrays(), "amr", 3)
     for g, part in enumerate(parts):
-        check_parity(f"owner-masked part {g}/3", part, device, resolution=32,
-                     bins=16, lo=-8.0, hi=8.0, n_domains=3, domain=g)
+        label = f"owner-masked part {g}/3"
+        _, px, p_edges, p_hist = check_parity(
+            label, part, device, resolution=32, bins=16, lo=-8.0, hi=8.0,
+            n_domains=3, domain=g)
+        check_parity_f32(label, px, p_edges, p_hist, resolution=32,
+                         tile_n=512)
     table_segment = check_projection_tables(device)
+    check_projection_tables(device, f32=True)
+    check_level26(device)
     t0 = time.perf_counter()
     tree = orion_tree()
     print(f"orion tree: {tree.n_nodes} nodes, {tree.n_levels} levels, "
@@ -1558,6 +1901,9 @@ def main() -> int:
         "orion full size", tree.to_arrays(), device,
         resolution=LIVE_RESOLUTION, bins=64, lo=0.0, hi=50.0,
         tile_n=MESH_TILE)
+    errs.update(check_parity_f32("orion full size", x, edges, n_hist,
+                                 resolution=LIVE_RESOLUTION,
+                                 tile_n=MESH_TILE))
     errs.update(check_codec_parity("orion full size", tree, device))
 
     # -- 3. main path
@@ -1575,6 +1921,8 @@ def main() -> int:
             tree, tmp, device, str(tmp / "orion_host"))
         main_path_mesh_cli(tmp, device)
         shutil.rmtree(tmp, ignore_errors=True)
+    # -- 4b. the mesh path's float32 tables
+    wall["mesh_f32"] = main_path_mesh_f32(tree, device, wall["mesh"])
     # -- 5. codec path
     wall["codec"] = codec_path_orion(tree, device)
     print(f"time walls per Orion step: device_reduce "
@@ -1589,6 +1937,12 @@ def main() -> int:
     carry_times, carry_bnd = time_carries(tree.to_arrays(), device)
     times.update(carry_times)
     bnd.update(carry_bnd)
+    carry_times, carry_bnd = time_carries(tree.to_arrays(), device,
+                                          "float32")
+    times.update(carry_times)
+    bnd.update(carry_bnd)
+    times["level_hist_f32"], bnd["level_hist_f32"] = time_hist_f32(
+        tree.to_arrays(), device)
     times["projection_raster"].update(
         projection_calls([x], device, carry=False, reps=50))
     codec_times, codec_bnd = time_codec(tree, device)
@@ -1626,12 +1980,26 @@ def main() -> int:
           f"{b4['host_steps_us']!r}; projection_raster "
           f"{b2['host_steps_us']!r}; projection_raster_carry "
           f"{b5['host_steps_us']!r}; decode_groups {b7['host_steps_us']!r}")
+    f32 = {name: times[name] for name in ("slice_raster_carry_f32",
+                                          "projection_raster_carry_f32",
+                                          "level_hist_f32")}
+    for name, t in f32.items():
+        per = f"over {bnd[name]['tiles']} pre-cut tiles" \
+            if "tiles" in bnd[name] else "on the one-shard float32 table"
+        print(f"time {name} wrapper alone {per}: {t['wrapper_ms']!r} ms a "
+              f"call (CUDA events), host {t['host_ms']!r} ms a call, device "
+              f"{t['device_ms']!r} ms a call {t['device_split_ms']!r}"
+              + (f"; host us per call of each step {t['host_steps_us']!r}"
+                 if "host_steps_us" in t else ""))
     wall["wrapper_calls"] = {"slice_raster_carry": b4,
                              "projection_raster": b2,
                              "projection_raster_carry": b5,
-                             "decode_groups": b7}
+                             "decode_groups": b7, **f32}
     for name in ("slice_raster_carry", "projection_raster_carry"):
         launches[name] = mesh_launches[name]     # the mesh path's (S=1)
+    launches.update({k: v for k, v in               # the float32 path's
+                     wall["mesh_f32"][1]["float32"]["launches"].items()
+                     if k.endswith("_f32")})
     launches.update(wall["codec"]["launches"])   # one Orion snapshot's
     records = []
     for name, (replaces, source) in KERNELS.items():

@@ -9,7 +9,7 @@ Reproduces RAMSES' data layout that the paper prunes:
     of the whole box down to ``coarse_level`` (multigrid requirement);
   * coarse ownership: a coarse cell is owned iff any descendant leaf is.
 
-The redundancy introduced by (b)+(c) is what :mod:`repro.core.prune`
+The redundancy introduced by (b)+(c) is what :mod:`repro_torch.core.prune`
 removes for the post-processing (HDep) flow.
 """
 from __future__ import annotations

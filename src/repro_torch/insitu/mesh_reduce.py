@@ -40,8 +40,13 @@ outputs; slice (at ``resolution >= 2**max_level``, where painting is
 collision-free), histogram and LOD cut are bit-identical to the host
 reducers, and the projection is bit-identical to the read-side
 ascending-domain fold (within 1e-12 of the single-writer host image).
-Tables are float64 only: the reference's float32 tolerance-parity
-tables are not ported yet (``dtype="float32"`` raises).
+
+``MeshDAGRunner(dtype="float32")`` is the reference's tolerance-parity
+variant: the field tables are cast to float32 at build (half the field
+upload) and B3-B5 run their float32 kernels, so the images are float32,
+bit-equal to the reference's float32 mesh runner; against the float64
+host reducers the slice holds to rtol 1e-6 and the projection to 1e-4,
+and the histogram is exact on the cast values (DESIGN.md "f32 policy").
 
 A shard longer than ``tile_n`` rows streams through the carry kernels in
 BFS-ordered tiles without changing a single output bit.
@@ -105,15 +110,17 @@ class MeshTable:
     shard's rows keep ascending BFS order and are padded to the common
     bucket multiple, and shard ``g``'s table is uploaded to
     ``devices[g]`` only. Padding rows carry ``ok=False``. Fields upload
-    lazily per reducer; ``on_upload`` counts the host→device bytes.
+    lazily per reducer; ``dtype`` casts them at table build (float32
+    halves their upload); ``on_upload`` counts the host→device bytes.
     """
 
     def __init__(self, arrays: dict, n_domains: int, devices, *,
-                 backend: str | None = None, tile_n: int = MESH_TILE,
-                 on_upload=None):
+                 backend: str | None = None, dtype=None,
+                 tile_n: int = MESH_TILE, on_upload=None):
         self.arrays = arrays
         self.devices = list(devices)
         self.backend = backend
+        self.dtype = None if dtype is None else np.dtype(dtype)
         self.tile_n = tile_n
         self.on_upload = on_upload or (lambda nbytes: None)
         self.n_shards = len(self.devices)
@@ -172,9 +179,14 @@ class MeshTable:
         """Per-shard valid-row masks: padding rows carry ``ok=False``."""
         return self._prep()[2]
 
+    def _values(self, name: str) -> np.ndarray:
+        """Field ``name``'s host values, cast to ``dtype`` if one is set."""
+        v = np.asarray(self.arrays[f"field:{name}"])
+        return v if self.dtype is None else v.astype(self.dtype)
+
     def field(self, name: str):
         if name not in self._fields:
-            v = np.asarray(self.arrays[f"field:{name}"])
+            v = self._values(name)
             self._fields[name] = self._shard(lambda rows: v[rows], v.dtype, 0)
         return self._fields[name]
 
@@ -183,9 +195,10 @@ class MeshTable:
 
         min/max are order-free, so this is bitwise the host reducer's
         auto bounds, and it costs no device pull (mesh snapshots stage
-        on the host).
+        on the host). Float32 tables bound the cast values, so the edges
+        match what the kernel bins.
         """
-        v = np.asarray(self.arrays[f"field:{name}"])
+        v = self._values(name)
         vals = [v[rows] for rows in self._rows if rows.size]
         if not vals:
             return 0.0, 1.0
@@ -363,6 +376,15 @@ class MeshRunStats(DeviceRunStats):
         return d
 
 
+def _float_dtype(dtype):
+    """``dtype`` as numpy float64 or float32, else None."""
+    try:
+        dt = np.dtype(dtype)
+    except TypeError:
+        return None
+    return dt if dt in (np.float64, np.float32) else None
+
+
 class MeshDAGRunner(DeviceDAGRunner):
     """DeviceDAGRunner whose impls shard every snapshot over devices.
 
@@ -370,16 +392,18 @@ class MeshDAGRunner(DeviceDAGRunner):
     order, per-reducer fallback and output contract as the single-device
     runner, but snapshots stage on the *host*, each leaf table is
     Hilbert-sharded over ``devices`` (see :func:`mesh_devices`), and
-    host fallbacks cost no device traffic.
+    host fallbacks cost no device traffic. ``dtype="float32"`` selects
+    the tolerance-parity table variant (None or "float64": the fields'
+    own dtype).
     """
 
     def __init__(self, dag: ReducerDAG, *, devices=None,
                  backend: str | None = None, dtype=None,
                  tile_n: int = MESH_TILE):
-        if dtype is not None and np.dtype(dtype) != np.float64:
-            raise NotImplementedError(
-                f"dtype={dtype!r} mesh tables are not ported yet: the "
-                f"raster kernels are float64 only")
+        if dtype is not None and _float_dtype(dtype) is None:
+            raise ValueError(f"mesh tables are float64 or float32, got "
+                             f"dtype={dtype!r}")
+        self.dtype = dtype
         self.devices = mesh_devices(devices)
         self.tile_n = tile_n
         super().__init__(dag, backend=backend)
@@ -396,8 +420,8 @@ class MeshDAGRunner(DeviceDAGRunner):
 
     def _make_view(self, snap: Snapshot):
         mt = MeshTable(snap.arrays, snap.n_domains, self.devices,
-                       backend=self.backend, tile_n=self.tile_n,
-                       on_upload=self._note_upload)
+                       backend=self.backend, dtype=self.dtype,
+                       tile_n=self.tile_n, on_upload=self._note_upload)
         with self._lock:
             self.stats.leaf_rows += mt.total_rows
             self.stats.peak_leaf_frac = max(self.stats.peak_leaf_frac,

@@ -1,4 +1,5 @@
-// In-transit AMR rasterization kernels for Hopper (sm_90a), float64.
+// In-transit AMR rasterization kernels for Hopper (sm_90a), float64, and
+// float32 instantiations of B3-B5 for the mesh path's float32 tables.
 //
 // Replaces the Pallas TPU kernels of repro/kernels/raster_kernel.py:
 //   B1 slice_raster       (raster_kernel.py:136)  -> slice_key_kernel + slice_resolve_kernel
@@ -8,6 +9,18 @@
 //   B3 level_hist         (raster_kernel.py:320)  -> level_hist_kernel
 //   B4 slice_raster_carry (raster_kernel.py:166)  -> slice_carry_paint_kernel + slice_carry_resolve_kernel
 //   B5 projection_raster_carry (raster_kernel.py:267) -> B2's five, seeded from img0
+//
+// B3, B4 and B5 are templates over the value type T (double, float): the
+// Pallas kernels take their value dtype from their input, and the JAX
+// package's MeshDAGRunner(dtype="float32") runs them at float32. Only the
+// reads of the values, the arithmetic on them and the image type change;
+// the int32 geometry, B4's key scratch and B2/B5's (level, cell) CSR are
+// shared by both types. In float32 every step rounds as the reference's
+// float32 XLA ops do (Arith<float>): B4's plane test c * 2^-l and
+// lo + 2^-l, B5's value * 2^-l and each add, all round-to-nearest-even
+// with no FMA contraction and subnormals kept (no -ftz); B3 widens the
+// value to double (exact) and bins it against the float64 edges, as the
+// reference's float64 edge compare promotes it.
 //
 // The TPU kernels keep the whole (R, R) image in VMEM and test every leaf
 // against every pixel (O(N * R^2) mask work). Here the work is
@@ -62,6 +75,28 @@
 
 namespace {
 
+// The value type's IEEE arithmetic, each op rounded to nearest even on its
+// own: the _rn intrinsics keep nvcc from contracting a multiply into an add.
+template <typename T> struct Arith;
+
+template <> struct Arith<double> {
+  static __device__ double mul(double a, double b) { return __dmul_rn(a, b); }
+  static __device__ double add(double a, double b) { return __dadd_rn(a, b); }
+  static __device__ double pow2(int e) { return ldexp(1.0, e); }       // exact
+  static __device__ double of_int(int32_t c) { return (double)c; }     // exact
+  static __device__ double nan() {
+    return __longlong_as_double(0x7ff8000000000000ll);
+  }
+};
+
+template <> struct Arith<float> {
+  static __device__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ float add(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ float pow2(int e) { return ldexpf(1.0f, e); }      // exact
+  // |c| > 2^24 rounds, to nearest even, as the reference's int32 -> float32
+  static __device__ float of_int(int32_t c) { return __int2float_rn(c); }
+};
+
 constexpr int kWarp = 32;
 constexpr int kSliceWarpsPerBlock = 8;
 constexpr int kThreads = 256;
@@ -98,23 +133,25 @@ __global__ void slice_resolve_kernel(const unsigned long long* __restrict__ keys
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= npix) return;
   const unsigned long long key = keys[p];
-  img[p] = key == 0ull ? __longlong_as_double(0x7ff8000000000000ll)
-                       : val[key & 0xffffffffull];
+  img[p] = key == 0ull ? Arith<double>::nan() : val[key & 0xffffffffull];
 }
 
 // B4 pass 1: B1's paint with the leaf table made per leaf from the raw
 // columns, exactly as raster.py's _slice_table makes it: leaf_table's
-// integer geometry, the level range 0 <= lvl < n_levels, and plane_hit's
-// float64 test lo <= position < lo + size with size = 2^-lvl and
-// lo = c * size (exact dyadic rationals; __dmul_rn/__dadd_rn keep nvcc
-// from contracting the add). ``c_axis`` is read with its element stride.
+// integer geometry, the level range 0 <= lvl < n_levels, and the
+// reference's plane test lo <= position < lo + size in the value type T
+// (ref.slice_raster_depth_ref): size = 2^-lvl and lo = T(c) * size, then
+// lo + size rounded to T; ``position`` comes already rounded to T. In
+// float64 both bounds are exact dyadic rationals; in float32 a c above
+// 2^24 and lo + size may round. ``c_axis`` is read with its element stride.
+template <typename T>
 __global__ void slice_carry_paint_kernel(const int32_t* __restrict__ coords2,
                                          const int32_t* __restrict__ c_axis,
                                          int64_t c_stride,
                                          const int32_t* __restrict__ lvl,
                                          const uint8_t* __restrict__ ok,
                                          int64_t n, int32_t res,
-                                         int32_t n_levels, double position,
+                                         int32_t n_levels, T position,
                                          unsigned long long* __restrict__ keys) {
   const int64_t leaf = (int64_t)blockIdx.x * kSliceWarpsPerBlock
                        + threadIdx.x / kWarp;
@@ -122,9 +159,9 @@ __global__ void slice_carry_paint_kernel(const int32_t* __restrict__ coords2,
   if (leaf >= n || !ok[leaf]) return;
   const int32_t l = lvl[leaf];
   if (l < 0 || l >= n_levels) return;
-  const double size = ldexp(1.0, -l);
-  const double lo = __dmul_rn((double)c_axis[leaf * c_stride], size);
-  if (!(lo <= position && position < __dadd_rn(lo, size))) return;
+  const T size = Arith<T>::pow2(-l);
+  const T lo = Arith<T>::mul(Arith<T>::of_int(c_axis[leaf * c_stride]), size);
+  if (!(lo <= position && position < Arith<T>::add(lo, size))) return;
   const int32_t k = 31 - __clz(res);
   const int32_t up = max(k - l, 0), dn = max(l - k, 0);
   // int32 shifts as torch's: left as unsigned (no overflow), right arithmetic
@@ -142,11 +179,12 @@ __global__ void slice_carry_paint_kernel(const int32_t* __restrict__ coords2,
 
 // B4 pass 2: the tile's winner against the carried (img0, depth0) seed;
 // clears the key, so the scratch is all zero again for the next call.
+template <typename T>
 __global__ void slice_carry_resolve_kernel(
     unsigned long long* __restrict__ keys,
-    const double* __restrict__ val, const double* __restrict__ img0,
+    const T* __restrict__ val, const T* __restrict__ img0,
     const int32_t* __restrict__ depth0, int64_t npix,
-    double* __restrict__ img, int32_t* __restrict__ depth) {
+    T* __restrict__ img, int32_t* __restrict__ depth) {
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= npix) return;
   const unsigned long long key = keys[p];
@@ -313,30 +351,34 @@ __global__ void proj_order_kernel(const int32_t* __restrict__ key, int64_t n,
   order[lo + rank] = (int32_t)row;
 }
 
-// Step 5, one thread per pixel; the sum starts at ``img0[p]`` (B5) or 0.0
-// (B2, ``img0`` null). ``offsets`` is the CSR over buckets base[l] + cell,
+// Step 5, one thread per pixel; the sum starts at ``img0[p]`` (B5) or 0
+// (B2, ``img0`` null) and runs in T: in float32 each contribution
+// value * 2^-l and each add round to float32, as the reference's float32
+// ``contrib`` and adds do (no double accumulator, no float atomics).
+// ``offsets`` is the CSR over buckets base[l] + cell,
 // cell = (i >> sh) * g + (j >> sh), sh = k - min(l, k), g = res >> sh;
 // ``order`` lists the rows of each bucket in row order.
-__global__ void projection_kernel(const double* __restrict__ val,
+template <typename T>
+__global__ void projection_kernel(const T* __restrict__ val,
                                   const int32_t* __restrict__ order,
                                   const int64_t* __restrict__ offsets,
-                                  const double* __restrict__ img0,
+                                  const T* __restrict__ img0,
                                   int32_t res, int32_t k, int32_t n_levels,
-                                  double* __restrict__ img) {
+                                  T* __restrict__ img) {
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t npix = (int64_t)res * res;
   if (p >= npix) return;
   const int64_t i = p / res, j = p % res;
-  double acc = img0 ? img0[p] : 0.0;
+  T acc = img0 ? img0[p] : T(0);
   int64_t base = 0;
   for (int l = 0; l < n_levels; ++l) {
     const int sh = k - (l < k ? l : k);
     const int64_t g = (int64_t)res >> sh;
     const int64_t cell = base + (i >> sh) * g + (j >> sh);
-    const double scale = ldexp(1.0, -l);      // exact path length 2^-l
+    const T scale = Arith<T>::pow2(-l);       // exact path length 2^-l
     const int64_t end = offsets[cell + 1];
     for (int64_t e = offsets[cell]; e < end; ++e)
-      acc = __dadd_rn(acc, __dmul_rn(val[order[e]], scale));
+      acc = Arith<T>::add(acc, Arith<T>::mul(val[order[e]], scale));
     base += g * g;
   }
   img[p] = acc;
@@ -345,8 +387,10 @@ __global__ void projection_kernel(const double* __restrict__ val,
 // ------------------------------------------------------------ B3 histogram
 
 // Grid-stride over rows; np.histogram bins: right-open, top edge inclusive,
-// out-of-range / NaN / invalid / bad-level rows dropped.
-__global__ void level_hist_kernel(const double* __restrict__ val,
+// out-of-range / NaN / invalid / bad-level rows dropped. A float32 value
+// widens to double exactly and is binned against the float64 edges.
+template <typename T>
+__global__ void level_hist_kernel(const T* __restrict__ val,
                                   const int32_t* __restrict__ lvl,
                                   const uint8_t* __restrict__ ok,
                                   const double* __restrict__ edges,
@@ -367,7 +411,7 @@ __global__ void level_hist_kernel(const double* __restrict__ val,
   const double lo = e[0], hi = e[bins];
   for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < n;
        r += (int64_t)gridDim.x * blockDim.x) {
-    const double v = val[r];
+    const double v = (double)val[r];
     const int l = lvl[r];
     if (!ok[r] || !(v >= lo) || !(v <= hi) || l < 0 || l >= n_levels) continue;
     int b;
@@ -410,12 +454,14 @@ cudaError_t paint_keys(const int32_t* u0, const int32_t* v0,
 // B2/B5: the five steps on ``s``. ``zero_scratch`` holds scan_cells()
 // int32 counts then their chunk counts, all zero on entry and on return;
 // ``offsets_scratch`` scan_cells() int64; ``row_scratch`` three int32 rows
-// per table row (key, placed row, ordered row).
+// per table row (key, placed row, ordered row). Only the last step reads
+// the values of type T.
+template <typename T>
 cudaError_t projection(const int32_t* coords2, const int32_t* lvl,
-                       const uint8_t* ok, const double* val, int64_t n,
+                       const uint8_t* ok, const T* val, int64_t n,
                        int32_t res, int32_t n_levels, void* zero_scratch,
                        void* offsets_scratch, void* row_scratch,
-                       const double* img0, double* img, cudaStream_t s) {
+                       const T* img0, T* img, cudaStream_t s) {
   const int k = 31 - __builtin_clz(res);
   const int64_t total = level_base(n_levels, k);
   const int64_t cells = scan_cells(total);
@@ -447,8 +493,51 @@ cudaError_t projection(const int32_t* coords2, const int32_t* lvl,
     if (err != cudaSuccess) return err;
   }
   const int64_t npix = (int64_t)res * res;
-  projection_kernel<<<ceil_div(npix, kThreads), kThreads, 0, s>>>(
+  projection_kernel<T><<<ceil_div(npix, kThreads), kThreads, 0, s>>>(
       val, order, offsets, img0, res, k, n_levels, img);
+  return cudaGetLastError();
+}
+
+// B4: one tile painted over (img0, depth0). ``keys_scratch`` is all zero on
+// entry and on return (see slice_carry_resolve_kernel).
+template <typename T>
+cudaError_t slice_carry(const int32_t* coords2, const int32_t* c_axis,
+                        int64_t c_stride, const int32_t* lvl,
+                        const uint8_t* ok, const T* val, int64_t n,
+                        int32_t res, int32_t n_levels, T position,
+                        void* keys_scratch, const T* img0,
+                        const int32_t* depth0, T* img, int32_t* depth,
+                        cudaStream_t s) {
+  const int64_t npix = (int64_t)res * res;
+  auto* keys = static_cast<unsigned long long*>(keys_scratch);
+  if (n > 0) {
+    slice_carry_paint_kernel<T><<<ceil_div(n, kSliceWarpsPerBlock),
+                                  kSliceWarpsPerBlock * kWarp, 0, s>>>(
+        coords2, c_axis, c_stride, lvl, ok, n, res, n_levels, position, keys);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  slice_carry_resolve_kernel<T><<<ceil_div(npix, kThreads), kThreads, 0, s>>>(
+      keys, val, img0, depth0, npix, img, depth);
+  return cudaGetLastError();
+}
+
+// B3: the (L, B) counts zeroed, then one grid-stride pass over the rows.
+template <typename T>
+cudaError_t level_hist(const T* val, const int32_t* lvl, const uint8_t* ok,
+                       const double* edges, int64_t n, int32_t n_levels,
+                       int32_t bins, int32_t* hist, cudaStream_t s) {
+  cudaError_t err = cudaMemsetAsync(
+      hist, 0, (size_t)n_levels * bins * sizeof(int32_t), s);
+  if (err != cudaSuccess) return err;
+  if (n == 0) return cudaGetLastError();
+  const size_t smem = (size_t)(bins + 1) * sizeof(double)
+                      + (size_t)n_levels * bins * sizeof(int32_t);
+  const int use_smem = smem <= kSmemNoOptIn;
+  int64_t blocks = ceil_div(n, kThreads);
+  if (blocks > 1056) blocks = 1056;           // 8 blocks per SM on 132 SMs
+  level_hist_kernel<T><<<blocks, kThreads, use_smem ? smem : 0, s>>>(
+      val, lvl, ok, edges, n, n_levels, bins, use_smem, hist);
   return cudaGetLastError();
 }
 
@@ -481,20 +570,26 @@ int raster_slice_carry_f64(const int32_t* coords2, const int32_t* c_axis,
                            int32_t device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t npix = (int64_t)res * res;
-  // all zero on entry (see slice_carry_resolve_kernel)
-  auto* keys = static_cast<unsigned long long*>(keys_scratch);
-  if (n > 0) {
-    slice_carry_paint_kernel<<<ceil_div(n, kSliceWarpsPerBlock),
-                               kSliceWarpsPerBlock * kWarp, 0, s>>>(
-        coords2, c_axis, c_stride, lvl, ok, n, res, n_levels, position, keys);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  slice_carry_resolve_kernel<<<ceil_div(npix, kThreads), kThreads, 0, s>>>(
-      keys, val, img0, depth0, npix, img, depth);
-  return cudaGetLastError();
+  return slice_carry<double>(coords2, c_axis, c_stride, lvl, ok, val, n,
+                            res, n_levels, position, keys_scratch, img0,
+                            depth0, img, depth,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// ``position`` is the slice position rounded to float32 by the caller.
+int raster_slice_carry_f32(const int32_t* coords2, const int32_t* c_axis,
+                           int64_t c_stride, const int32_t* lvl,
+                           const uint8_t* ok, const float* val, int64_t n,
+                           int32_t res, int32_t n_levels, float position,
+                           void* keys_scratch, const float* img0,
+                           const int32_t* depth0, float* img, int32_t* depth,
+                           int32_t device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
+  return slice_carry<float>(coords2, c_axis, c_stride, lvl, ok, val, n,
+                            res, n_levels, position, keys_scratch, img0,
+                            depth0, img, depth,
+                            static_cast<cudaStream_t>(stream));
 }
 
 int raster_projection_f64(const int32_t* coords2, const int32_t* lvl,
@@ -504,9 +599,9 @@ int raster_projection_f64(const int32_t* coords2, const int32_t* lvl,
                           double* img, int32_t device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
-  return projection(coords2, lvl, ok, val, n, res, n_levels, zero_scratch,
-                    offsets_scratch, row_scratch, nullptr, img,
-                    static_cast<cudaStream_t>(stream));
+  return projection<double>(coords2, lvl, ok, val, n, res, n_levels,
+                           zero_scratch, offsets_scratch, row_scratch, nullptr,
+                           img, static_cast<cudaStream_t>(stream));
 }
 
 int raster_projection_carry_f64(const int32_t* coords2, const int32_t* lvl,
@@ -517,9 +612,22 @@ int raster_projection_carry_f64(const int32_t* coords2, const int32_t* lvl,
                                 double* img, int32_t device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
-  return projection(coords2, lvl, ok, val, n, res, n_levels, zero_scratch,
-                    offsets_scratch, row_scratch, img0, img,
-                    static_cast<cudaStream_t>(stream));
+  return projection<double>(coords2, lvl, ok, val, n, res, n_levels,
+                           zero_scratch, offsets_scratch, row_scratch, img0,
+                           img, static_cast<cudaStream_t>(stream));
+}
+
+int raster_projection_carry_f32(const int32_t* coords2, const int32_t* lvl,
+                                const uint8_t* ok, const float* val,
+                                int64_t n, int32_t res, int32_t n_levels,
+                                void* zero_scratch, void* offsets_scratch,
+                                void* row_scratch, const float* img0,
+                                float* img, int32_t device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
+  return projection<float>(coords2, lvl, ok, val, n, res, n_levels,
+                           zero_scratch, offsets_scratch, row_scratch, img0,
+                           img, static_cast<cudaStream_t>(stream));
 }
 
 int raster_level_hist_f64(const double* val, const int32_t* lvl,
@@ -528,19 +636,18 @@ int raster_level_hist_f64(const double* val, const int32_t* lvl,
                           int32_t device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(
-      hist, 0, (size_t)n_levels * bins * sizeof(int32_t), s);
-  if (err != cudaSuccess) return err;
-  if (n == 0) return cudaGetLastError();
-  const size_t smem = (size_t)(bins + 1) * sizeof(double)
-                      + (size_t)n_levels * bins * sizeof(int32_t);
-  const int use_smem = smem <= kSmemNoOptIn;
-  int64_t blocks = ceil_div(n, kThreads);
-  if (blocks > 1056) blocks = 1056;           // 8 blocks per SM on 132 SMs
-  level_hist_kernel<<<blocks, kThreads, use_smem ? smem : 0, s>>>(
-      val, lvl, ok, edges, n, n_levels, bins, use_smem, hist);
-  return cudaGetLastError();
+  return level_hist<double>(val, lvl, ok, edges, n, n_levels, bins, hist,
+                           static_cast<cudaStream_t>(stream));
+}
+
+int raster_level_hist_f32(const float* val, const int32_t* lvl,
+                          const uint8_t* ok, const double* edges, int64_t n,
+                          int32_t n_levels, int32_t bins, int32_t* hist,
+                          int32_t device, void* stream) {
+  const DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) return guard.error();
+  return level_hist<float>(val, lvl, ok, edges, n, n_levels, bins, hist,
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

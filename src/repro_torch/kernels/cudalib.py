@@ -34,8 +34,8 @@ CHECKOUT = Path(__file__).resolve().parents[3]
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
-_p, _i32, _i64, _f64 = (ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,
-                      ctypes.c_double)
+_p, _i32, _i64, _f32, _f64 = (ctypes.c_void_p, ctypes.c_int32,
+                             ctypes.c_int64, ctypes.c_float, ctypes.c_double)
 #: the library's C functions and their argument types; every entry ends
 #: with the device index and the stream and returns the launch's
 #: cudaError_t as an int
@@ -51,6 +51,12 @@ SIGNATURES = {
                                _f64, _p, _p, _p, _p, _p, _i32, _p],
     "raster_projection_carry_f64": [_p, _p, _p, _p, _i64, _i32, _i32, _p,
                                     _p, _p, _p, _p, _i32, _p],
+    "raster_slice_carry_f32": [_p, _p, _i64, _p, _p, _p, _i64, _i32, _i32,
+                               _f32, _p, _p, _p, _p, _p, _i32, _p],
+    "raster_projection_carry_f32": [_p, _p, _p, _p, _i64, _i32, _i32, _p,
+                                    _p, _p, _p, _p, _i32, _p],
+    "raster_level_hist_f32": [_p, _p, _p, _p, _i64, _i32, _i32, _p, _i32,
+                              _p],
     # csrc/codec.cu
     "codec_encode_groups": [_p, _p, _p, _p, _i32, _i64, _i32, _i32, _p, _p,
                             _p, _i32, _p],

@@ -5,7 +5,10 @@ Same names and signatures as ``repro.kernels.ops``' entry points.
 Raster (device reduction): each takes flat BFS node arrays — coords
 (N, 3) int, levels (N,) int, values (N,) float64, ok (N,) bool (leaf ∧
 owner ∧ not-padding) — plus the reducer parameters, and returns the
-reduced object with bits identical to the host numpy reducers.
+reduced object with bits identical to the host numpy reducers. The
+partial entry points also take float32 values (the mesh path's float32
+tables) and keep them float32 throughout, bit-equal to the reference's
+float32 partials.
 ``resolution`` must be a power of two (integer pixel geometry;
 ``insitu.device`` takes the host reducer otherwise).
 

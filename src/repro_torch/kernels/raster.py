@@ -6,8 +6,15 @@ the launch counters. Each wrapper takes the same arguments as its plain
 twin in :mod:`.ref`: a CPU tensor runs the twin, a CUDA tensor launches
 the kernel or raises — there is no fallback. The kernels are built at
 first use by :mod:`.cudalib`.
+
+Value dtypes on the card: B1 and B2 take float64 values (the device path
+is float64 only, as the reference's); B3, B4 and B5 take float64 or
+float32 values and launch that dtype's kernel (the mesh path's float32
+tables), counted apart under ``<name>_f32``. Any other dtype raises.
 """
 from __future__ import annotations
+
+import struct
 
 import torch
 
@@ -16,7 +23,12 @@ from .cudalib import current_stream, dense, device_index, launch
 
 #: kernel launches per wrapper; each wrapper adds one where it launches
 LAUNCHES = {"slice_raster": 0, "projection_raster": 0, "level_hist": 0,
-            "slice_raster_carry": 0, "projection_raster_carry": 0}
+            "slice_raster_carry": 0, "projection_raster_carry": 0,
+            "level_hist_f32": 0, "slice_raster_carry_f32": 0,
+            "projection_raster_carry_f32": 0}
+
+#: B3-B5's value dtypes on the card -> the C entries' suffix
+_SUFFIX = {torch.float64: "_f64", torch.float32: "_f32"}
 
 #: B4's (R, R) int64 key scratch per (device, raw stream, R), all zero
 #: between calls: the kernel's resolve clears every key it reads. Only
@@ -40,6 +52,27 @@ SCAN_CHUNK = 4096
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _suffix(name: str, values: torch.Tensor, dtypes=_SUFFIX) -> str:
+    """The C entry suffix of ``values``' dtype for kernel ``name``; raises
+    for a dtype the kernel has no instantiation of."""
+    try:
+        return dtypes[values.dtype]
+    except KeyError:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{name} on the card takes {names} values, got "
+                        f"{values.dtype}") from None
+
+
+def _count(name: str, suffix: str) -> None:
+    LAUNCHES[name if suffix == "_f64" else name + "_f32"] += 1
+
+
+def round_f32(x: float) -> float:
+    """``x`` rounded to the nearest float32 (ties to even), as a float:
+    B4-f32's slice position, which then crosses to C exactly."""
+    return struct.unpack("f", struct.pack("f", x))[0]
 
 
 # ----------------------------------------------------------- leaf tables
@@ -106,10 +139,11 @@ def slice_raster(coords2, c_axis, levels, values, ok, *, position: float,
         return ref.slice_raster_ref(coords2, c_axis, levels, values, ok,
                                     position=position, resolution=resolution,
                                     n_levels=n_levels)
+    _suffix("slice_raster", values, {torch.float64: "_f64"})
     u0, v0, px, lvl, good = _slice_table(
         coords2, c_axis, levels, ok, position=position,
         resolution=resolution, n_levels=n_levels)
-    val = values.to(torch.float64).contiguous()
+    val = dense(values)
     keys = torch.empty((resolution, resolution), dtype=torch.int64,
                        device=values.device)
     img = torch.empty((resolution, resolution), dtype=torch.float64,
@@ -125,17 +159,19 @@ def slice_raster_carry(coords2, c_axis, levels, values, ok, *,
                        position: float, resolution: int, n_levels: int,
                        init=None):
     """B4: one tile painted over ``init=(img0, depth0)``; returns the
-    ``(image, depth)`` pair (float64, int32). Same contract as
+    ``(image, depth)`` pair (the values' dtype, int32). Same contract as
     :func:`.ref.slice_raster_depth_ref`; ``init=None`` seeds NaN / -1.
 
     On the card the kernel reads the raw columns — int32 ``coords2`` (N,
-    2), ``c_axis`` (any stride) and ``levels``, float64 ``values``, bool
-    or uint8 ``ok`` — and makes the leaf table itself, so the tile sees
-    no torch op but the two output allocations.
+    2), ``c_axis`` (any stride) and ``levels``, float64 or float32
+    ``values``, bool or uint8 ``ok`` — and makes the leaf table itself,
+    so the tile sees no torch op but the two output allocations. The
+    float32 kernel tests the slice plane in float32, ``position``
+    rounded to float32 here.
     """
     if init is None:
         init = (torch.full((resolution, resolution), float("nan"),
-                           dtype=torch.float64, device=values.device),
+                           dtype=values.dtype, device=values.device),
                 torch.full((resolution, resolution), -1, dtype=torch.int32,
                            device=values.device))
     dev = device_index(coords2, c_axis, levels, values, ok, *init)
@@ -143,10 +179,10 @@ def slice_raster_carry(coords2, c_axis, levels, values, ok, *,
         return ref.slice_raster_depth_ref(
             coords2, c_axis, levels, values, ok, position=position,
             resolution=resolution, n_levels=n_levels, init=init)
-    img0, depth0 = _seed(init, resolution, (torch.float64, torch.int32))
+    fx = _suffix("slice_raster_carry", values)
+    img0, depth0 = _seed(init, resolution, (values.dtype, torch.int32))
     n = values.shape[0]
     if not (coords2.dtype == c_axis.dtype == levels.dtype == torch.int32
-            and values.dtype == torch.float64
             and ok.dtype in (torch.bool, torch.uint8)
             and coords2.shape == (n, 2)
             and c_axis.shape == levels.shape == ok.shape == values.shape):
@@ -154,7 +190,7 @@ def slice_raster_carry(coords2, c_axis, levels, values, ok, *,
                for t in (coords2, c_axis, levels, values, ok)]
         raise TypeError(f"slice_raster_carry on the card takes int32 "
                         f"coords2 (N, 2), int32 c_axis and levels (N,), "
-                        f"float64 values (N,) and bool ok (N,); got {got}")
+                        f"float values (N,) and bool ok (N,); got {got}")
     c2, lvl, val, okb = dense(coords2), dense(levels), dense(values), \
         dense(ok)
     scratch = (dev, current_stream(dev), resolution)
@@ -165,15 +201,16 @@ def slice_raster_carry(coords2, c_axis, levels, values, ok, *,
     img = torch.empty_like(img0)
     depth = torch.empty_like(depth0)
     try:
-        launch("raster_slice_carry_f64", dev, c2.data_ptr(),
+        launch("raster_slice_carry" + fx, dev, c2.data_ptr(),
                c_axis.data_ptr(), c_axis.stride(0), lvl.data_ptr(),
                okb.data_ptr(), val.data_ptr(), n, resolution, n_levels,
-               position, keys.data_ptr(), img0.data_ptr(),
-               depth0.data_ptr(), img.data_ptr(), depth.data_ptr())
+               position if fx == "_f64" else round_f32(position),
+               keys.data_ptr(), img0.data_ptr(), depth0.data_ptr(),
+               img.data_ptr(), depth.data_ptr())
     except RuntimeError:
         _SLICE_KEYS.pop(scratch, None)    # may hold a paint, unresolved
         raise
-    LAUNCHES["slice_raster_carry"] += 1
+    _count("slice_raster_carry", fx)
     return img, depth
 
 
@@ -210,9 +247,10 @@ def _as(t: torch.Tensor, dtype) -> torch.Tensor:
 def _projection(entry: str, dev: int, coords2, levels, values, ok,
                 resolution: int, n_levels: int, *seed) -> torch.Tensor:
     """One C call of B2 (``seed`` empty) or B5 (``seed`` the (R, R)
-    float64 ``img0``): the CSR is built on the card from the raw columns
-    — int32 coords2 (N, 2) and levels, float64 values, bool or uint8 ok —
-    then projected; only the output is allocated."""
+    ``img0`` in the values' dtype): the CSR is built on the card from the
+    raw columns — int32 coords2 (N, 2) and levels, the values in the
+    entry's dtype, bool or uint8 ok — then projected; only the output is
+    allocated, in the values' dtype."""
     n = values.shape[0]
     if coords2.shape != (n, 2) or not \
             (levels.shape == ok.shape == values.shape == (n,)):
@@ -224,12 +262,12 @@ def _projection(entry: str, dev: int, coords2, levels, values, ok,
                          f"int32 row index")
     # the casts' results stay referenced until the call has returned
     c2, lvl, val = (_as(coords2, torch.int32), _as(levels, torch.int32),
-                    _as(values, torch.float64))
+                    dense(values))
     okb = dense(ok) if ok.dtype in (torch.bool, torch.uint8) else \
         ok.to(torch.uint8).contiguous()
     key, (zeros, offsets, rows) = _projection_scratch(
         values.device, resolution, n_levels, n)
-    img = torch.empty((resolution, resolution), dtype=torch.float64,
+    img = torch.empty((resolution, resolution), dtype=values.dtype,
                       device=values.device)
     try:
         launch(entry, dev, c2.data_ptr(), lvl.data_ptr(), okb.data_ptr(),
@@ -252,6 +290,7 @@ def projection_raster(coords2, levels, values, ok, *, resolution: int,
         return ref.projection_raster_ref(coords2, levels, values, ok,
                                          resolution=resolution,
                                          n_levels=n_levels)
+    _suffix("projection_raster", values, {torch.float64: "_f64"})
     img = _projection("raster_projection_f64", dev, coords2, levels, values,
                       ok, resolution, n_levels)
     LAUNCHES["projection_raster"] += 1
@@ -260,41 +299,45 @@ def projection_raster(coords2, levels, values, ok, *, resolution: int,
 
 def projection_raster_carry(coords2, levels, values, ok, *, resolution: int,
                             n_levels: int, init=None) -> torch.Tensor:
-    """B5: one tile's column density added over the seed ``init``
-    (float64, zeros if None); same contract as
+    """B5: one tile's column density added over the seed ``init`` (in
+    the values' dtype, zeros if None); same contract as
     :func:`.ref.projection_raster_ref` with ``init``, and B2's one C
-    call on the card."""
+    call on the card, in float64 or float32."""
     if init is None:
-        init = torch.zeros((resolution, resolution), dtype=torch.float64,
+        init = torch.zeros((resolution, resolution), dtype=values.dtype,
                            device=values.device)
     dev = device_index(coords2, levels, values, ok, init)
     if dev < 0:
         return ref.projection_raster_ref(coords2, levels, values, ok,
                                          resolution=resolution,
                                          n_levels=n_levels, init=init)
-    (img0,) = _seed((init,), resolution, (torch.float64,))
-    img = _projection("raster_projection_carry_f64", dev, coords2, levels,
+    fx = _suffix("projection_raster_carry", values)
+    (img0,) = _seed((init,), resolution, (values.dtype,))
+    img = _projection("raster_projection_carry" + fx, dev, coords2, levels,
                       values, ok, resolution, n_levels, img0)
-    LAUNCHES["projection_raster_carry"] += 1
+    _count("projection_raster_carry", fx)
     return img
 
 
 def level_hist(values, levels, ok, edges, *, n_levels: int) -> torch.Tensor:
     """B3: (L, B) int32 per-level histogram; same contract as
-    :func:`.ref.level_hist_ref`."""
+    :func:`.ref.level_hist_ref`. On the card float64 or float32 values,
+    binned against float64 edges."""
     dev = device_index(values, levels, ok, edges)
     if dev < 0:
         return ref.level_hist_ref(values, levels, ok, edges,
                                   n_levels=n_levels)
+    fx = _suffix("level_hist", values)
     bins = edges.shape[-1] - 1
-    val = values.to(torch.float64).contiguous()
-    lvl = levels.to(torch.int32).contiguous()
-    okb = ok.to(torch.uint8).contiguous()
-    edg = edges.to(torch.float64).contiguous()
+    # bool ``ok`` is read as its uint8 bytes: no cast kernel
+    val, lvl, edg = (dense(values), _as(levels, torch.int32),
+                     _as(edges, torch.float64))
+    okb = dense(ok) if ok.dtype in (torch.bool, torch.uint8) else \
+        ok.to(torch.uint8).contiguous()
     hist = torch.empty((n_levels, bins), dtype=torch.int32,
                        device=values.device)
-    launch("raster_level_hist_f64", dev, val.data_ptr(), lvl.data_ptr(),
+    launch("raster_level_hist" + fx, dev, val.data_ptr(), lvl.data_ptr(),
            okb.data_ptr(), edg.data_ptr(), val.shape[0], n_levels, bins,
            hist.data_ptr())
-    LAUNCHES["level_hist"] += 1
+    _count("level_hist", fx)
     return hist

@@ -102,9 +102,14 @@ def slice_raster_depth_ref(coords2, c_axis, levels, values, ok, *,
     dev = values.device
     lvl = levels.to(torch.int64)
     in_range = (lvl >= 0) & (lvl < n_levels)
-    size = level_scale(n_levels, dev)[lvl.clamp(0, n_levels - 1)]
-    lo = c_axis.to(torch.float64) * size
-    sel = ok & in_range & (lo <= position) & (position < lo + size)
+    # the plane test in the values' dtype, as the reference's: 2^-l is
+    # exact; c, lo + size and ``position`` round to that dtype (in
+    # float32 once c > 2^24 or lo + size needs more bits)
+    vdt = values.dtype
+    size = level_scale(n_levels, dev).to(vdt)[lvl.clamp(0, n_levels - 1)]
+    lo = c_axis.to(vdt) * size
+    pos = torch.tensor(position, dtype=vdt, device=dev)
+    sel = ok & in_range & (lo <= pos) & (pos < lo + size)
     bases = level_bases(n_levels, k)
     total = bases[-1]
     idx = torch.where(sel, level_cells(coords2, levels, resolution=r,
@@ -145,7 +150,7 @@ def projection_raster_ref(coords2, levels, values, ok, *,
     k = r.bit_length() - 1
     dev = values.device
     lvl = levels.to(torch.int64)
-    scale = level_scale(n_levels, dev)
+    scale = level_scale(n_levels, dev).to(values.dtype)   # exact
     cells = level_cells(coords2, levels, resolution=r, n_levels=n_levels)
     bases = level_bases(n_levels, k)
     img = torch.zeros((r, r), dtype=values.dtype, device=dev) \
@@ -173,9 +178,14 @@ def projection_raster_ref(coords2, levels, values, ok, *,
 
 
 def level_hist_ref(values, levels, ok, edges, *, n_levels: int):
-    """(L, B) int32 per-level histogram with ``np.histogram`` bins."""
+    """(L, B) int32 per-level histogram with ``np.histogram`` bins; the
+    bins are decided in the wider of the values' and edges' dtypes."""
     bins = edges.shape[-1] - 1
     lvl = levels.to(torch.int64)
+    # compare in the wider dtype, as the reference's promotion does: a
+    # 0-dim float64 edge would otherwise round to float32 values' dtype
+    common = torch.promote_types(values.dtype, edges.dtype)
+    values, edges = values.to(common), edges.to(common)
     idx = torch.searchsorted(edges, values, right=True) - 1
     b = torch.where(values == edges[-1], bins - 1, idx)
     good = (ok & (values >= edges[0]) & (values <= edges[-1])

@@ -294,7 +294,8 @@ def test_library_named_by_every_source(tmp_path, monkeypatch):
 #: C argument types of the library's entries -> their ctypes; a pointer is
 #: c_void_p (an int argtype would cut it to 32 bits)
 C_TYPES = {"int32_t": ctypes.c_int32, "int": ctypes.c_int32,
-           "int64_t": ctypes.c_int64, "double": ctypes.c_double}
+           "int64_t": ctypes.c_int64, "float": ctypes.c_float,
+           "double": ctypes.c_double}
 
 
 def c_prototypes(src) -> dict:
@@ -321,6 +322,16 @@ def test_c_prototypes_match_signatures(source):
     for name, types in protos.items():
         assert cudalib.SIGNATURES.get(name) == types, name
         assert types[-2:] == [ctypes.c_int32, ctypes.c_void_p], name
+    if source == "raster.cu":
+        # B3-B5's float32 entries; B4's slice position crosses in the
+        # value type: a C float (rounded by the caller) or a double
+        for name in ("raster_slice_carry_f32", "raster_projection_carry_f32",
+                     "raster_level_hist_f32"):
+            assert name in protos, name
+            assert protos[name] == protos[name.replace("_f32", "_f64")] \
+                or name == "raster_slice_carry_f32", name
+        assert protos["raster_slice_carry_f32"][9] == ctypes.c_float
+        assert protos["raster_slice_carry_f64"][9] == ctypes.c_double
 
 
 def test_every_signature_has_a_c_entry():

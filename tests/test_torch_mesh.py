@@ -477,8 +477,13 @@ def test_mesh_runner_config_errors(case):
             with pytest.raises(ValueError, match="0 CUDA device"):
                 MeshDAGRunner(d)
     elif case == "f32":
-        with pytest.raises(NotImplementedError, match="float64 only"):
-            MeshDAGRunner(d, devices=[CPU], dtype="float32")
+        # float32 tables run (tests/test_torch_mesh_f32.py); any dtype
+        # but float32 and float64 is refused
+        assert MeshDAGRunner(d, devices=[CPU], dtype="float32").dtype == \
+            "float32"
+        for dtype in ("float16", "int32", "f32"):
+            with pytest.raises(ValueError, match="float64 or float32"):
+                MeshDAGRunner(d, devices=[CPU], dtype=dtype)
     else:
         with pytest.raises(ValueError, match="at least one"):
             MeshDAGRunner(d, devices=[])
