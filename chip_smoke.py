@@ -18,9 +18,14 @@ non-zero (and prints no result) otherwise, or on any failure.
      kernels B6-B9 (father–son encode at widths 64/32/16 and zbits
      2/4/8, decode, bitfield pack and unpack) against their twins,
      bitwise, on the density groups and ``refine`` flags of the Sedov
-     trees and of the Orion tree; B4 (which builds its leaf table in the
-     kernel) also at slice positions on exact cell boundaries and with
-     rows of out-of-range level on the Sedov trees; B2 and B5 (which build
+     trees and of the Orion tree, B6's three outputs views of one buffer;
+     B1 and B4 (which build their leaf table in the paint kernel they
+     share) also at slice positions on exact cell boundaries and with
+     rows of out-of-range level on the Sedov trees, and on coarse-leaf
+     tables (levels 0-3 at R = 512: rectangles of 64²-512² pixels, each
+     keyed into its level's cell, among finer ones each thread paints
+     pixel by pixel), B1
+     twice on the kept key scratch, left all zero; B2 and B5 (which build
      their (level, cell) CSR on the card) also on adversarial tables —
      deep columns of up to 2,048 leaves, sub-pixel levels, n_levels >
      k + 1, rows of out-of-range level, all-invalid and padded tiles —
@@ -69,13 +74,14 @@ non-zero (and prints no result) otherwise, or on any failure.
      goes (the engine's spans and the device's busy time from
      ``torch.profiler``), and, with CUDA events, each kernel (B4/B5 and
      B4-f32/B5-f32 per tile call, B3-f32 on the one-shard float32 table;
-     B6-B9 at the Orion codec shapes), its plain twin, B7's
-     library yardstick (one ``torch.bitwise_xor``) and its bound; for
-     B2, B4, B5, B7 and the float32 kernels also the host's own time per
-     wrapper call (a loop
-     with no sync), its split by step, and the kernels' device time by
-     kernel (``torch.profiler``), for B2/B5 the longest (level, cell)
-     segment of the Orion table and tiles; and the host cost of the two
+     B6-B9 at the Orion codec shapes, B7 on contiguous residues), its
+     plain twin, B7's library yardstick (one ``torch.bitwise_xor``) and
+     its bound; for B1, B2, B4-B7 and the float32 kernels also the
+     host's own time per wrapper call (a loop with no sync), its split by
+     step, and the kernels' device time by kernel (``torch.profiler``);
+     B1's call must record no torch op but its output's ``aten::empty``
+     and launch no memset; for B2/B5 the longest (level, cell) segment
+     of the Orion table and tiles; and the host cost of the two
      spellings of the current stream's handle.
 
 The line before the last is the per-kernel JSON record, the last line
@@ -384,9 +390,121 @@ def check_carry_boundaries(label: str, arrays: dict, device, *,
                 raise AssertionError(f"{label}: {name} launched {launched} "
                                      f"times for {n_tiles} tiles")
             _same_bits(f"{label}: {name} at position {pos}", got, twin)
+            if not f32:
+                check_slice_twice(f"{label}: slice_raster at position {pos}",
+                                  {**x, "levels": levels}, position=pos,
+                                  resolution=resolution)
+    b1 = "" if f32 else ", and B1 twice a position on the kept scratch,"
     print(f"parity {label}: {name} over {n_tiles} tiles bit-equal to its "
-          f"seeded twin at positions {positions}, with and without "
+          f"seeded twin{b1} at positions {positions}, with and without "
           f"{rows.numel()} rows of out-of-range level (R={resolution})")
+
+
+def check_slice_twice(label: str, x: dict, *, position: float,
+                      resolution: int) -> float:
+    """B1 on ``x``'s columns twice on the current stream against its
+    twin, bitwise: one launch a call, and the kept key scratch all zero
+    after them. Returns the max abs error (0.0)."""
+    import torch
+
+    from repro_torch.kernels import cudalib, raster, ref
+    args = (x["coords2"], x["c_axis"], x["levels"], x["values"], x["ok"])
+    geo = dict(position=position, resolution=resolution,
+               n_levels=x["n_levels"])
+    before = dict(raster.LAUNCHES)
+    got = [raster.slice_raster(*args, **geo) for _ in range(2)]
+    torch.cuda.synchronize()
+    _check_launched(before, {"slice_raster": 2}, label)
+    twin = ref.slice_raster_ref(*args, **geo)
+    err = max(_same_bits(label, (g,), (twin,)) for g in got)
+    dev = x["values"].get_device()
+    keys = raster._SLICE_KEYS[(dev, cudalib.current_stream(dev), resolution)]
+    if bool(keys.any()):
+        raise AssertionError(f"{label}: the key scratch is not all zero "
+                             f"after the call")
+    return err
+
+
+def coarse_table(seed: int, *, resolution: int, n_levels: int,
+                 fine: int) -> dict:
+    """A level-major leaf table (numpy) whose slice at 0.5 paints coarse
+    leaves (``tests/test_torch_raster.py``'s, with up to ``fine`` rows on
+    each level >= 4): 4-11 leaves on each of levels 0-3, overlapping;
+    half the rows of a level on the plane's cell (c = 2^(l-1)); ~10 % not
+    ok; every 13th ok row of a level outside [0, n_levels)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    coords, levels = [], []
+    for lvl in range(n_levels):
+        side = 1 << lvl
+        n = int(rng.integers(4, 12 if lvl < 4 else fine))
+        c = rng.integers(0, side, size=(n, 3))
+        on_plane = rng.random(n) < 0.5
+        c[on_plane, 2] = side >> 1
+        coords.append(c)
+        levels.append(np.full(n, lvl))
+    coords = np.concatenate(coords).astype(np.int32)
+    levels = np.concatenate(levels).astype(np.int32)
+    ok = rng.random(levels.shape[0]) < 0.9
+    bad = np.flatnonzero(ok)[::13]
+    levels[bad] = np.resize([n_levels, n_levels + 3, -1], bad.size)
+    values = rng.standard_normal(levels.shape[0]) * 4.0 + 1.0
+    return {"coords": coords, "levels": levels, "values": values, "ok": ok}
+
+
+def check_coarse_tables(device) -> float:
+    """B1 (twice on the kept scratch), B4 and B4-f32 (chained over
+    512-row tiles) against their twins, bitwise, on
+    :func:`coarse_table` tables at R = 512 and 64, where the paint
+    kernel's two branches run in one warp: coarse leaves (rectangles
+    above ``raster.SLICE_OWN_AREA`` pixels, up to the whole image) keyed
+    into their level's cell, the others painted pixel by pixel. Returns
+    B1's max abs error (0.0)."""
+    import torch
+
+    from repro_torch.kernels import ops, raster
+    err = 0.0
+    for seed, (res, L, fine) in enumerate(((512, 11, 3000), (64, 8, 600),
+                                           (512, 11, 40))):
+        tbl = coarse_table(seed, resolution=res, n_levels=L, fine=fine)
+        t = {k: torch.from_numpy(v).to(device) for k, v in tbl.items()}
+        x = {"coords2": ops.plane_coords(t["coords"], 2),
+             "c_axis": t["coords"][:, 2], "levels": t["levels"],
+             "values": t["values"], "ok": t["ok"], "n_levels": L}
+        label = f"coarse table R={res} L={L}"
+        err = max(err, check_slice_twice(f"{label}: slice_raster", x,
+                                          position=0.5, resolution=res))
+        _, _, px = raster.leaf_table(x["coords2"], x["levels"],
+                                     resolution=res)
+        hit = raster._slice_table(x["coords2"], x["c_axis"], x["levels"],
+                                  x["ok"], position=0.5, resolution=res,
+                                  n_levels=L)[4].bool()
+        coarse = int((hit & (px.to(torch.int64) ** 2 >
+                             raster.SLICE_OWN_AREA)).sum())
+        if not 0 < coarse < int(hit.sum()):
+            raise AssertionError(f"{label}: {coarse} of {int(hit.sum())} "
+                                 f"hit rows keyed into cells; the table "
+                                 f"must run both branches")
+        n_tiles = -(-tbl["levels"].shape[0] // 512)
+        for dtype, name in ((torch.float64, "slice_raster_carry"),
+                            (torch.float32, "slice_raster_carry_f32")):
+            kw = dict(axis=2, position=0.5, resolution=res, n_levels=L,
+                      tile_n=512)
+            vals = t["values"].to(dtype)
+            before = dict(raster.LAUNCHES)
+            got = ops.raster_slice_partial(t["coords"], t["levels"], vals,
+                                           t["ok"], **kw)
+            torch.cuda.synchronize()
+            _check_launched(before, {name: n_tiles}, f"{label}: {name}")
+            twin = ops.raster_slice_partial(t["coords"], t["levels"], vals,
+                                            t["ok"], backend="ref", **kw)
+            _same_bits(f"{label}: {name}", got, twin)
+        print(f"parity {label}: {tbl['levels'].shape[0]} rows, "
+              f"{int(hit.sum())} hit the plane, {coarse} of them coarse "
+              f"(keyed into cells); B1 twice on the kept scratch, B4 and "
+              f"B4-f32 over {n_tiles} tiles of 512 rows, bit-equal to their "
+              f"twins")
+    return err
 
 
 def projection_table(seed: int, *, resolution: int, n_levels: int,
@@ -1501,6 +1619,14 @@ def time_kernels(x: dict, edges, n_hist: int, resolution: int) -> dict:
         out[name] = {"ms": time_ms(lambda: call(kern), reps=20),
                      "plain_ms": time_ms(lambda: call(plain), reps=3,
                                          warm=1)}
+    b1 = out["slice_raster"]
+    b1.update(wrapper_calls(lambda: calls["slice_raster"](raster.slice_raster),
+                            1, reps=50))
+    memsets = [k for k in b1["device_split_ms"] if "emset" in k]
+    if memsets:
+        raise AssertionError(f"slice_raster launched {memsets} on the kept "
+                             f"scratch")
+    b1["host_steps_us"] = slice_steps(x)
     return out
 
 
@@ -1691,7 +1817,7 @@ def slice_carry_steps(t: dict, seed) -> dict:
     r = LIVE_RESOLUTION
     cols = (t["coords2"], t["c_axis"], t["levels"], t["values"], t["ok"])
     i = cudalib.device_index(*cols, *seed)
-    keys = torch.zeros((r, r), dtype=torch.int64, device=t["values"].device)
+    _, keys = raster._slice_keys(i, t["values"].device, r)
     img, depth = torch.empty_like(seed[0]), torch.empty_like(seed[1])
     args = (cols[0].data_ptr(), cols[1].data_ptr(), cols[1].stride(0),
             cols[2].data_ptr(), cols[4].data_ptr(), cols[3].data_ptr(),
@@ -1714,6 +1840,94 @@ def slice_carry_steps(t: dict, seed) -> dict:
         "tile cut (5 slices)": lambda: [whole[:16384] for _ in range(5)],
     }
     return {name: host_us(fn, 500) for name, fn in steps.items()}
+
+
+def slice_steps(x: dict) -> dict:
+    """Host µs per call of each step of B1's wrapper, alone, on the Orion
+    table: the device and column checks, the key scratch lookup, the one
+    output allocation, the ctypes call with its two launches, and the
+    whole wrapper; and the torch ops one call records
+    (``torch.profiler``, CPU activity), which must be the output's
+    ``aten::empty`` alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import cudalib, raster
+    r, L = LIVE_RESOLUTION, x["n_levels"]
+    cols = (x["coords2"], x["c_axis"], x["levels"], x["values"], x["ok"])
+    dev = x["values"].device
+    i = cudalib.device_index(*cols)
+    _, keys = raster._slice_keys(i, dev, r)
+    img = torch.empty((r, r), dtype=torch.float64, device=dev)
+    args = (cols[0].data_ptr(), cols[1].data_ptr(), cols[1].stride(0),
+            cols[2].data_ptr(), cols[4].data_ptr(), cols[3].data_ptr(),
+            cols[3].shape[0], r, L, 0.5, keys.data_ptr(), img.data_ptr())
+    cudalib.lib()
+    entry = cudalib._FNS["raster_slice_f64"]
+    stream = cudalib.current_stream(i)
+
+    def wrapper():
+        return raster.slice_raster(*cols, position=0.5, resolution=r,
+                                   n_levels=L)
+
+    steps = {
+        "checks": lambda: (cudalib.device_index(*cols),
+                           raster._suffix("slice_raster", cols[3],
+                                          {torch.float64: "_f64"}),
+                           raster._slice_columns("slice_raster", *cols)),
+        "scratch lookup": lambda: raster._slice_keys(i, dev, r),
+        "one allocation": lambda: torch.empty((r, r), dtype=torch.float64,
+                                              device=dev),
+        "ctypes call and launches": lambda: entry(*args, i, stream),
+        "whole wrapper": wrapper,
+    }
+    out = {name: host_us(fn, 500) for name, fn in steps.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        wrapper()
+    ops_seen = {e.key: e.count for e in prof.key_averages()
+                if e.key.startswith("aten::")}
+    if ops_seen != {"aten::empty": 1}:
+        raise AssertionError(f"slice_raster's call ran torch ops {ops_seen}"
+                             f", expected only its output's aten::empty")
+    out["torch ops a call"] = ops_seen
+    return out
+
+
+def encode_steps(words) -> dict:
+    """Host µs per call of each step of B6's wrapper, alone, at the Orion
+    codec shapes: the checks, the one output buffer, its three views, the
+    ctypes call with its launch, and the whole wrapper; and the torch ops
+    one call records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import codec, cudalib
+    s, g = words[0].shape
+    i = words[0].get_device()
+    block = codec.encode_block(*words, 4, 64)
+    ptrs = [t.data_ptr() for t in words]
+    out_ptr = block.data_ptr()
+    entry = cudalib._FNS["codec_encode_groups"]
+    stream = cudalib.current_stream(i)
+    steps = {
+        "checks": lambda: (codec._same_words(*words),
+                           cudalib.device_index(*words),
+                           [cudalib.dense(t) for t in words]),
+        "one buffer": lambda: torch.empty(2 * s * g + g, dtype=torch.int32,
+                                          device=words[0].device),
+        "its three views": lambda: codec.block_views(block, s, g, 64),
+        "ctypes call and launch": lambda: entry(*ptrs, s, g, 64, 15,
+                                                out_ptr, i, stream),
+        "whole wrapper": lambda: codec.encode_groups(*words, 4, 64),
+    }
+    out = {name: host_us(fn) for name, fn in steps.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        codec.encode_groups(*words, 4, 64)
+    out["torch ops a call"] = {e.key: e.count for e in prof.key_averages()
+                               if e.key.startswith("aten::")}
+    return out
 
 
 def codec_bounds(words, res, nlz, flags, packed) -> dict:
@@ -1744,7 +1958,9 @@ def time_codec(tree, device) -> tuple:
 
     from repro_torch.kernels import codec, ref
     words = field_words(tree, "density", device)
-    res_hi, res_lo, nlz = codec.encode_groups(*words, 4, 64)
+    # B7 on contiguous residues, copied once here: B6 gives strided views
+    res_hi, res_lo, nlz = (t.contiguous() for t in
+                           codec.encode_groups(*words, 4, 64))
     flags = torch.from_numpy(tree.refine).to(device)
     packed = codec.bitpack(flags)
     n = flags.shape[0]
@@ -1767,8 +1983,8 @@ def time_codec(tree, device) -> tuple:
                   "plain_ms": time_ms(plain, reps=20),
                   "library_ms": time_ms(lib, reps=200) if lib else None}
            for name, (kern, plain, lib) in calls.items()}
-    out["decode_groups"]["host_ms"] = \
-        host_us(calls["decode_groups"][0]) / 1e3
+    for name in ("encode_groups", "decode_groups"):
+        out[name]["host_ms"] = host_us(calls[name][0]) / 1e3
     # the kernels' own device time, apart from the wrappers' host work
     reps = 50
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1782,6 +1998,7 @@ def time_codec(tree, device) -> tuple:
         out[name]["device_ms"] = sum(us) / reps / 1e3 if us else None
     out["decode_groups"]["host_steps_us"] = decode_steps(
         (res_hi, res_lo, *words[:2]))
+    out["encode_groups"]["host_steps_us"] = encode_steps(words)
     return out, codec_bounds(words, res_hi, nlz, flags, packed)
 
 
@@ -1890,6 +2107,7 @@ def main() -> int:
     table_segment = check_projection_tables(device)
     check_projection_tables(device, f32=True)
     check_level26(device)
+    coarse_err = check_coarse_tables(device)
     t0 = time.perf_counter()
     tree = orion_tree()
     print(f"orion tree: {tree.n_nodes} nodes, {tree.n_levels} levels, "
@@ -1905,6 +2123,7 @@ def main() -> int:
                                  resolution=LIVE_RESOLUTION,
                                  tile_n=MESH_TILE))
     errs.update(check_codec_parity("orion full size", tree, device))
+    errs["slice_raster"] = max(errs["slice_raster"], coarse_err)
 
     # -- 3. main path
     with tempfile.TemporaryDirectory(prefix="chip_smoke_",
@@ -1949,7 +2168,19 @@ def main() -> int:
     times.update(codec_times)
     bnd.update(codec_bnd)
     wall["stream_handle_us"] = time_stream_handles(device)
-    b4, b7 = times["slice_raster_carry"], times["decode_groups"]
+    b1, b4, b6, b7 = (times[k] for k in ("slice_raster",
+                                         "slice_raster_carry",
+                                         "encode_groups", "decode_groups"))
+    print(f"time slice_raster wrapper alone on the Orion table: "
+          f"{b1['wrapper_ms']!r} ms a call (CUDA events), host "
+          f"{b1['host_ms']!r} ms a call, device {b1['device_ms']!r} ms a "
+          f"call {b1['device_split_ms']!r}; host us per call of each step "
+          f"{b1['host_steps_us']!r}")
+    print(f"time encode_groups: wrapper {b6['ms']!r} ms a call (CUDA "
+          f"events), host {b6['host_ms']!r} ms a call, device "
+          f"{b6['device_ms']!r} ms; host us per call of each step "
+          f"{b6['host_steps_us']!r}; compress_bits stage per Orion snapshot "
+          f"{wall['codec']['encode_split_ms'].get('compress_bits')!r} ms")
     print(f"time slice_raster_carry wrapper alone over "
           f"{bnd['slice_raster_carry']['tiles']} pre-cut tiles: "
           f"{b4['wrapper_ms']!r} ms a call (CUDA events), host "
@@ -1991,7 +2222,8 @@ def main() -> int:
               f"{t['device_ms']!r} ms a call {t['device_split_ms']!r}"
               + (f"; host us per call of each step {t['host_steps_us']!r}"
                  if "host_steps_us" in t else ""))
-    wall["wrapper_calls"] = {"slice_raster_carry": b4,
+    wall["wrapper_calls"] = {"slice_raster": b1, "encode_groups": b6,
+                             "slice_raster_carry": b4,
                              "projection_raster": b2,
                              "projection_raster_carry": b5,
                              "decode_groups": b7, **f32}

@@ -40,9 +40,15 @@ def _same_words(*ts: torch.Tensor) -> None:
                      f"{[tuple(t.shape) for t in ts]}")
 
 
-def encode_groups(pred_hi, pred_lo, son_hi, son_lo, zbits: int, width: int):
-    """B6: (S, G) words -> residues (S, G) and clamped nlz (G,), int32;
-    same contract as :func:`.ref.group_residues_ref`."""
+def encode_block(pred_hi, pred_lo, son_hi, son_lo, zbits: int,
+                 width: int) -> torch.Tensor:
+    """B6 into one int32 buffer of ``2·S·G + G`` words: the residues in
+    the order ``ops.compress_bits`` packs them — at width 64 the (G, S,
+    2) block, each son's lo word before its hi word; at widths 32 and 16
+    the lo words (G, S), then the hi words (G, S) — then the clamped nlz
+    (G,). :func:`block_views` gives the (S, G) residues back. On the CPU
+    the twin's result in the same layout
+    (:func:`.ref.group_residues_block_ref`)."""
     _same_words(pred_hi, pred_lo, son_hi, son_lo)
     if son_hi.dim() != 2:
         raise ValueError(f"encode_groups takes (S, G) words, got "
@@ -52,18 +58,43 @@ def encode_groups(pred_hi, pred_lo, son_hi, son_lo, zbits: int, width: int):
                          f"[1, 31]; got width={width}, zbits={zbits}")
     dev = device_index(pred_hi, pred_lo, son_hi, son_lo)
     if dev < 0:
-        return ref.group_residues_ref(pred_hi, pred_lo, son_hi, son_lo,
-                                      zbits, width)
+        return ref.group_residues_block_ref(pred_hi, pred_lo, son_hi, son_lo,
+                                            zbits, width)
     s, g = son_hi.shape
-    ins = [dense(t) for t in (pred_hi, pred_lo, son_hi, son_lo)]
-    res_hi, res_lo = torch.empty_like(ins[2]), torch.empty_like(ins[3])
-    nlz = son_hi.new_empty(g)
+    # held in locals: a copy freed before the launch could be handed to
+    # the next copy by the caching allocator
+    ph, pl, sh, sl = dense(pred_hi), dense(pred_lo), dense(son_hi), \
+        dense(son_lo)
+    block = torch.empty(2 * s * g + g, dtype=torch.int32,
+                        device=son_hi.device)
     if g:
-        launch("codec_encode_groups", dev, *(t.data_ptr() for t in ins), s, g,
-               width, (1 << zbits) - 1, res_hi.data_ptr(), res_lo.data_ptr(),
-               nlz.data_ptr())
+        launch("codec_encode_groups", dev, ph.data_ptr(), pl.data_ptr(),
+               sh.data_ptr(), sl.data_ptr(), s, g, width, (1 << zbits) - 1,
+               block.data_ptr())
         LAUNCHES["encode_groups"] += 1
-    return res_hi, res_lo, nlz
+    return block
+
+
+def block_views(block: torch.Tensor, s: int, g: int, width: int):
+    """``(res_hi, res_lo, nlz)`` of an :func:`encode_block` buffer: the
+    (S, G) residues and the (G,) nlz, as views of it (one ``as_strided``
+    each: the cheapest view on the host)."""
+    at = block.storage_offset()
+    if width == 64:        # son i of group j: lo at 2(jS + i), hi after it
+        shape, strides, hi = (s, g), (2, 2 * s), 1
+    else:                  # lo at jS + i, hi S·G words further on
+        shape, strides, hi = (s, g), (1, s), s * g
+    return (block.as_strided(shape, strides, at + hi),
+            block.as_strided(shape, strides, at),
+            block.as_strided((g,), (1,), at + 2 * s * g))
+
+
+def encode_groups(pred_hi, pred_lo, son_hi, son_lo, zbits: int, width: int):
+    """B6: (S, G) words -> residues (S, G) and clamped nlz (G,), int32;
+    same contract as :func:`.ref.group_residues_ref`. The three are views
+    of one :func:`encode_block` buffer."""
+    block = encode_block(pred_hi, pred_lo, son_hi, son_lo, zbits, width)
+    return block_views(block, *son_hi.shape, width)
 
 
 def decode_groups(res_hi, res_lo, pred_hi, pred_lo):

@@ -2,20 +2,20 @@
 // float32 instantiations of B3-B5 for the mesh path's float32 tables.
 //
 // Replaces the Pallas TPU kernels of repro/kernels/raster_kernel.py:
-//   B1 slice_raster       (raster_kernel.py:136)  -> slice_key_kernel + slice_resolve_kernel
+//   B1 slice_raster       (raster_kernel.py:136)  -> slice_paint_kernel<double> + slice_resolve_kernel
 //   B2 projection_raster  (raster_kernel.py:240)  -> proj_key_kernel, proj_scan_kernel,
 //                                                    proj_place_kernel, proj_order_kernel,
 //                                                    projection_kernel
 //   B3 level_hist         (raster_kernel.py:320)  -> level_hist_kernel
-//   B4 slice_raster_carry (raster_kernel.py:166)  -> slice_carry_paint_kernel + slice_carry_resolve_kernel
+//   B4 slice_raster_carry (raster_kernel.py:166)  -> slice_paint_kernel<T> + slice_carry_resolve_kernel
 //   B5 projection_raster_carry (raster_kernel.py:267) -> B2's five, seeded from img0
 //
 // B3, B4 and B5 are templates over the value type T (double, float): the
 // Pallas kernels take their value dtype from their input, and the JAX
 // package's MeshDAGRunner(dtype="float32") runs them at float32. Only the
 // reads of the values, the arithmetic on them and the image type change;
-// the int32 geometry, B4's key scratch and B2/B5's (level, cell) CSR are
-// shared by both types. In float32 every step rounds as the reference's
+// the int32 geometry, the slice key scratch and B2/B5's (level, cell) CSR
+// are shared by both types. In float32 every step rounds as the reference's
 // float32 XLA ops do (Arith<float>): B4's plane test c * 2^-l and
 // lo + 2^-l, B5's value * 2^-l and each add, all round-to-nearest-even
 // with no FMA contraction and subnormals kept (no -ftz); B3 widens the
@@ -31,7 +31,21 @@
 //   * slice: order-free. The host painter leaves at each pixel the covering
 //     valid leaf with the largest (level, row); pass 1 atomicMax-es the
 //     64-bit key ((level + 1) << 32 | row) over each rectangle, pass 2 reads
-//     the winner's value. No float arithmetic touches the values.
+//     the winner's value. No float arithmetic touches the values. Pass 1 is
+//     one thread per row: a warp reads 32 consecutive rows' columns
+//     coalesced, and most rows leave after the plane test (only the leaves
+//     the plane hits paint). A hit rectangle of at most kSliceOwnArea
+//     pixels (px <= 4, every leaf of level >= k - 2) is painted by its own
+//     thread. A larger one (a coarse leaf: level l < k - 2) is not painted
+//     pixel by pixel: its thread atomicMax-es the key into the leaf's cell
+//     of a per-level grid (4^l cells at level l, 5,461 in all at R = 512),
+//     and pass 2 takes each pixel's key as the max of its own and of its
+//     coarse ancestors' cells, on the levels the paint marked as keyed (a
+//     tile with no coarse leaf reads no cell). Painting coarse leaves per pixel put the
+//     work where the rows are: on the Orion table 49 level-3 leaves cover
+//     77 % of the image and sit in a few warps, which painted up to 49,152
+//     pixels each, one leaf after another. B1 and B4 share this paint and
+//     the key resolve; the last block of pass 2 clears the cell grid.
 //   * projection: order matters (f64 adds in BFS leaf order per pixel), so
 //     no float atomics. The valid leaves are grouped by (level, cell) in a
 //     CSR; one thread per pixel walks the levels in ascending order and
@@ -46,15 +60,16 @@
 //     iff its level >= depth0. B5 starts each pixel's sum at img0 instead of
 //     0.0; the tile's CSR keeps the adds in row order after it. Both read
 //     the seed once and write the outputs once (24 resp. 16 bytes a pixel).
-//   * B4's leaf table and B2/B5's CSR are built on the card from the raw
-//     columns (coords, levels, ok; B4 also the strided slice-axis column):
-//     a tile's device work is a few us, so the ~15 torch ops that built
-//     them on the host (for B2/B5 a radix sort and a searchsorted over
-//     every pyramid cell) cost far more than the kernels did. One C
-//     call launches every step on the stream; the scratch is kept by the
-//     wrapper and left all zero where the next call needs zeros (B4's
-//     resolve clears every key it finds set; B2/B5's place step counts
-//     each cell back down to zero), so no call allocates scratch or memsets.
+//   * B1/B4's leaf table and B2/B5's CSR are built on the card from the
+//     raw columns (coords, levels, ok; B1/B4 also the strided slice-axis
+//     column): a call's device work is a few us, so the ~10-15 torch ops
+//     that built them on the host (for B2/B5 a radix sort and a
+//     searchsorted over every pyramid cell) cost far more than the kernels
+//     did. One C call launches every step on the stream; the scratch is
+//     kept by the wrapper and left all zero where the next call needs zeros
+//     (B1/B4's resolve clears every key it finds set; B2/B5's place step
+//     counts each cell back down to zero), so no call allocates scratch or
+//     memsets.
 //   * B2/B5's CSR in five launches: key/count (one thread per row, the
 //     cell base[l] + (c0 >> dn) * g + (c1 >> dn) with base[l] in closed
 //     form, integer atomics, warp-aggregated counts per 4096-cell chunk);
@@ -98,106 +113,204 @@ template <> struct Arith<float> {
 };
 
 constexpr int kWarp = 32;
-constexpr int kSliceWarpsPerBlock = 8;
 constexpr int kThreads = 256;
 // largest dynamic shared-memory request that needs no opt-in attribute
 constexpr size_t kSmemNoOptIn = 48 * 1024;
+// slice rectangles of at most this many pixels are painted by their row's
+// own thread, larger ones keyed into their level's cell grid (raster.py's
+// SLICE_OWN_AREA)
+constexpr int kSliceOwnArea = 16;
 
-// ---------------------------------------------------------------- B1 slice
+int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-// One warp per leaf; its lanes stride over the leaf's px * px rectangle.
-__global__ void slice_key_kernel(const int32_t* __restrict__ u0,
-                                 const int32_t* __restrict__ v0,
-                                 const int32_t* __restrict__ px,
-                                 const int32_t* __restrict__ lvl,
-                                 const uint8_t* __restrict__ good,
-                                 int64_t n, int32_t res,
-                                 unsigned long long* __restrict__ keys) {
-  const int64_t leaf = (int64_t)blockIdx.x * kSliceWarpsPerBlock
-                       + threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (leaf >= n || !good[leaf]) return;
-  const int64_t u = u0[leaf], v = v0[leaf], p = px[leaf];
-  const unsigned long long key =
-      ((unsigned long long)(lvl[leaf] + 1) << 32) | (unsigned long long)leaf;
-  const int64_t area = p * p;
-  for (int64_t t = lane; t < area; t += kWarp) {
-    const int64_t i = u + t / p, j = v + t % p;
-    if (i < res && j < res) atomicMax(&keys[i * res + j], key);
-  }
+// ------------------------------------------------------------- B1/B4 slice
+
+// The slice key scratch (raster.py's _slice_keys): the (R, R) pixel keys,
+// then the coarse cell grids of levels 0 .. coarse_levels(res) - 1 (level l
+// at offset (4^l - 1) / 3 of the grids, row-major), then one 64-bit slot
+// holding the counter of the resolve's finished blocks and the mask of
+// the coarse levels the paint keyed a cell of. All zero between calls.
+struct SliceScratch {
+  unsigned long long* pixel;
+  unsigned long long* coarse;
+  unsigned int* done;
+  unsigned int* hit_levels;
+  int32_t levels;    // coarse levels: (res >> l)^2 > kSliceOwnArea
+  int64_t cells;     // their cells, (4^levels - 1) / 3
+};
+
+// First cell of coarse level l's grid: (4^l - 1) / 3.
+__host__ __device__ int64_t coarse_base(int32_t l) {
+  return ((1ll << (2 * l)) - 1) / 3;
 }
 
-__global__ void slice_resolve_kernel(const unsigned long long* __restrict__ keys,
-                                     const double* __restrict__ val,
-                                     int64_t npix, double* __restrict__ img) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= npix) return;
-  const unsigned long long key = keys[p];
-  img[p] = key == 0ull ? Arith<double>::nan() : val[key & 0xffffffffull];
+// Levels whose px * px rectangle exceeds kSliceOwnArea at resolution res.
+int32_t coarse_levels(int32_t res) {
+  int32_t l = 0;
+  while ((int64_t)(res >> l) * (res >> l) > kSliceOwnArea) ++l;
+  return l;
 }
 
-// B4 pass 1: B1's paint with the leaf table made per leaf from the raw
-// columns, exactly as raster.py's _slice_table makes it: leaf_table's
-// integer geometry, the level range 0 <= lvl < n_levels, and the
-// reference's plane test lo <= position < lo + size in the value type T
+SliceScratch slice_scratch(void* keys_scratch, int32_t res) {
+  SliceScratch sc;
+  sc.pixel = static_cast<unsigned long long*>(keys_scratch);
+  sc.coarse = sc.pixel + (int64_t)res * res;
+  sc.levels = coarse_levels(res);
+  sc.cells = coarse_base(sc.levels);
+  sc.done = reinterpret_cast<unsigned int*>(sc.coarse + sc.cells);
+  sc.hit_levels = sc.done + 1;
+  return sc;
+}
+
+// Pass 1 of B1 and B4, one thread per row: the leaf table made per row from
+// the raw columns, exactly as raster.py's _slice_table makes it: leaf_table's
+// integer geometry, the level range 0 <= lvl < n_levels, and the reference's
+// plane test lo <= position < lo + size in the value type T
 // (ref.slice_raster_depth_ref): size = 2^-lvl and lo = T(c) * size, then
 // lo + size rounded to T; ``position`` comes already rounded to T. In
-// float64 both bounds are exact dyadic rationals; in float32 a c above
-// 2^24 and lo + size may round. ``c_axis`` is read with its element stride.
+// float64 both bounds are exact dyadic rationals; in float32 a c above 2^24
+// and lo + size may round. ``c_axis`` is read with its element stride. A
+// coarse leaf's rectangle is its own cell (c0, c1) of the level grid, inside
+// the image iff 0 <= c0, c1 < 2^l; the pixel paint keeps only pixels inside
+// (a leaf outside the domain paints nothing). Returns the bit of the coarse
+// level whose cell it keyed, else 0.
 template <typename T>
-__global__ void slice_carry_paint_kernel(const int32_t* __restrict__ coords2,
-                                         const int32_t* __restrict__ c_axis,
-                                         int64_t c_stride,
-                                         const int32_t* __restrict__ lvl,
-                                         const uint8_t* __restrict__ ok,
-                                         int64_t n, int32_t res,
-                                         int32_t n_levels, T position,
-                                         unsigned long long* __restrict__ keys) {
-  const int64_t leaf = (int64_t)blockIdx.x * kSliceWarpsPerBlock
-                       + threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (leaf >= n || !ok[leaf]) return;
-  const int32_t l = lvl[leaf];
-  if (l < 0 || l >= n_levels) return;
+__device__ __forceinline__ unsigned paint_row(
+    const int32_t* __restrict__ coords2, const int32_t* __restrict__ c_axis,
+    int64_t c_stride, const int32_t* __restrict__ lvl, int64_t row,
+    int32_t res, int32_t n_levels, T position, const SliceScratch& sc) {
+  const int32_t l = lvl[row];
+  if (l < 0 || l >= n_levels) return 0u;
   const T size = Arith<T>::pow2(-l);
-  const T lo = Arith<T>::mul(Arith<T>::of_int(c_axis[leaf * c_stride]), size);
-  if (!(lo <= position && position < Arith<T>::add(lo, size))) return;
+  const T lo = Arith<T>::mul(Arith<T>::of_int(c_axis[row * c_stride]), size);
+  if (!(lo <= position && position < Arith<T>::add(lo, size))) return 0u;
+  const unsigned long long key =
+      ((unsigned long long)(l + 1) << 32) | (unsigned long long)row;
+  const int32_t c0 = coords2[2 * row], c1 = coords2[2 * row + 1];
+  if (l < sc.levels) {
+    const int32_t side = 1 << l;
+    if (c0 < 0 || c0 >= side || c1 < 0 || c1 >= side) return 0u;
+    atomicMax(&sc.coarse[coarse_base(l) + (int64_t)c0 * side + c1], key);
+    return 1u << l;
+  }
   const int32_t k = 31 - __clz(res);
   const int32_t up = max(k - l, 0), dn = max(l - k, 0);
   // int32 shifts as torch's: left as unsigned (no overflow), right arithmetic
-  const int64_t u = (int32_t)((uint32_t)coords2[2 * leaf] << up) >> dn;
-  const int64_t v = (int32_t)((uint32_t)coords2[2 * leaf + 1] << up) >> dn;
-  const int64_t p = max(res >> min(l, 30), 1);
-  const unsigned long long key =
-      ((unsigned long long)(l + 1) << 32) | (unsigned long long)leaf;
-  const int64_t area = p * p;
-  for (int64_t t = lane; t < area; t += kWarp) {
-    const int64_t i = u + t / p, j = v + t % p;
-    if (i < res && j < res) atomicMax(&keys[i * res + j], key);
+  const int64_t u = (int32_t)((uint32_t)c0 << up) >> dn;
+  const int64_t v = (int32_t)((uint32_t)c1 << up) >> dn;
+  const int32_t p = max(res >> min(l, 30), 1);      // at most 4 here
+  if (u < 0 || v < 0) return 0u;                     // outside the image
+  for (int32_t di = 0; di < p; ++di)
+    for (int32_t dj = 0; dj < p; ++dj)
+      if (u + di < res && v + dj < res)
+        atomicMax(&sc.pixel[(u + di) * res + v + dj], key);
+  return 0u;
+}
+
+// Every lane reaches the warp's OR of the coarse levels its rows keyed (rows
+// past n and misses bring 0); one lane sets them in the scratch's mask.
+template <typename T>
+__global__ void slice_paint_kernel(const int32_t* __restrict__ coords2,
+                                   const int32_t* __restrict__ c_axis,
+                                   int64_t c_stride,
+                                   const int32_t* __restrict__ lvl,
+                                   const uint8_t* __restrict__ ok,
+                                   int64_t n, int32_t res, int32_t n_levels,
+                                   T position, SliceScratch sc) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned keyed = row < n && ok[row]
+      ? paint_row<T>(coords2, c_axis, c_stride, lvl, row, res, n_levels,
+                     position, sc)
+      : 0u;
+  const unsigned levels = __reduce_or_sync(0xffffffffu, keyed);
+  if (levels != 0u && threadIdx.x % kWarp == 0) atomicOr(sc.hit_levels, levels);
+}
+
+// Pass 2's key of pixel p = (i, j): the max of its own key, which it
+// clears, and of its coarse ancestors' cells on the levels of ``hit``
+// (level l's cell (i >> (k - l), j >> (k - l)); 32-bit index arithmetic:
+// the coarse grids hold (4^levels - 1) / 3 < 2^31 cells for R < 2^16).
+__device__ __forceinline__ unsigned long long resolve_key(
+    const SliceScratch& sc, unsigned hit, int64_t p, int32_t res) {
+  unsigned long long key = sc.pixel[p];
+  if (key != 0ull) sc.pixel[p] = 0ull;
+  const int32_t k = 31 - __clz(res);                  // res = 2^k
+  const uint32_t i = (uint32_t)(p >> k), j = (uint32_t)p & (res - 1);
+  for (unsigned m = hit; m; m &= m - 1) {
+    const int32_t l = __ffs(m) - 1;
+    const uint32_t cell = ((1u << (2 * l)) - 1u) / 3u
+                          + ((i >> (k - l)) << l) + (j >> (k - l));
+    const unsigned long long c = sc.coarse[cell];
+    key = c > key ? c : key;
+  }
+  return key;
+}
+
+// Pass 2's blocks: 1,024 threads, one pixel each (coalesced), so a quarter
+// as many blocks meet at clear_coarse's counter as at kThreads.
+constexpr int kResolveThreads = 1024;
+
+int64_t resolve_blocks(int32_t res) {
+  return ceil_div((int64_t)res * res, kResolveThreads);
+}
+
+// The end of pass 2, reached by every thread of every block. With no coarse
+// level hit there is nothing to clear; else the last block to finish (every
+// other block has read its cells) clears the hit levels' cells, the mask
+// and the counter, so the scratch is all zero for the next call.
+__device__ __forceinline__ void clear_coarse(const SliceScratch& sc,
+                                             unsigned hit) {
+  if (hit == 0u) return;
+  __shared__ bool last;
+  __syncthreads();        // the block's cell reads have all returned
+  if (threadIdx.x == 0) last = atomicAdd(sc.done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  for (unsigned m = hit; m; m &= m - 1) {
+    const int32_t l = __ffs(m) - 1;
+    for (int64_t c = threadIdx.x; c < (1ll << (2 * l)); c += blockDim.x)
+      sc.coarse[coarse_base(l) + c] = 0ull;
+  }
+  if (threadIdx.x == 0) {
+    *sc.hit_levels = 0u;
+    *sc.done = 0u;
   }
 }
 
-// B4 pass 2: the tile's winner against the carried (img0, depth0) seed;
-// clears the key, so the scratch is all zero again for the next call.
+// Pass 2 of B1: the winner's value, NaN where no leaf painted.
+__global__ void slice_resolve_kernel(SliceScratch sc,
+                                     const double* __restrict__ val,
+                                     int32_t res, double* __restrict__ img) {
+  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned hit = *sc.hit_levels;
+  if (p < (int64_t)res * res) {
+    const unsigned long long key = resolve_key(sc, hit, p, res);
+    img[p] = key == 0ull ? Arith<double>::nan() : val[key & 0xffffffffull];
+  }
+  clear_coarse(sc, hit);
+}
+
+// B4 pass 2: the tile's winner against the carried (img0, depth0) seed.
 template <typename T>
 __global__ void slice_carry_resolve_kernel(
-    unsigned long long* __restrict__ keys,
-    const T* __restrict__ val, const T* __restrict__ img0,
-    const int32_t* __restrict__ depth0, int64_t npix,
-    T* __restrict__ img, int32_t* __restrict__ depth) {
+    SliceScratch sc, const T* __restrict__ val, const T* __restrict__ img0,
+    const int32_t* __restrict__ depth0, int32_t res, T* __restrict__ img,
+    int32_t* __restrict__ depth) {
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= npix) return;
-  const unsigned long long key = keys[p];
-  if (key != 0ull) keys[p] = 0ull;
-  const int32_t d0 = depth0[p];
-  const int32_t lvl = (int32_t)(key >> 32) - 1;
-  if (key != 0ull && lvl >= d0) {
-    img[p] = val[key & 0xffffffffull];
-    depth[p] = lvl;
-  } else {
-    img[p] = img0[p];
-    depth[p] = d0;
+  const unsigned hit = *sc.hit_levels;
+  if (p < (int64_t)res * res) {
+    const unsigned long long key = resolve_key(sc, hit, p, res);
+    const int32_t d0 = depth0[p];
+    const int32_t lvl = (int32_t)(key >> 32) - 1;
+    if (key != 0ull && lvl >= d0) {
+      img[p] = val[key & 0xffffffffull];
+      depth[p] = lvl;
+    } else {
+      img[p] = img0[p];
+      depth[p] = d0;
+    }
   }
+  clear_coarse(sc, hit);
 }
 
 // ------------------------------------------------------ B2/B5 projection
@@ -434,20 +547,17 @@ __global__ void level_hist_kernel(const T* __restrict__ val,
   }
 }
 
-int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
-
-// Pass 1 of B1: zero the (R, R) keys, then atomicMax each valid leaf's key
-// over its rectangle.
-cudaError_t paint_keys(const int32_t* u0, const int32_t* v0,
-                       const int32_t* px, const int32_t* lvl,
-                       const uint8_t* good, int64_t n, int32_t res,
-                       unsigned long long* keys, cudaStream_t s) {
-  const int64_t npix = (int64_t)res * res;
-  cudaError_t err = cudaMemsetAsync(keys, 0, npix * sizeof(unsigned long long), s);
-  if (err != cudaSuccess || n == 0) return err;
-  slice_key_kernel<<<ceil_div(n, kSliceWarpsPerBlock),
-                     kSliceWarpsPerBlock * kWarp, 0, s>>>(
-      u0, v0, px, lvl, good, n, res, keys);
+// Pass 1 of B1 and B4: every row's plane test, and the hit leaves' keys
+// over their pixels or into their cells. The scratch is all zero on entry.
+template <typename T>
+cudaError_t paint_slice(const int32_t* coords2, const int32_t* c_axis,
+                        int64_t c_stride, const int32_t* lvl,
+                        const uint8_t* ok, int64_t n, int32_t res,
+                        int32_t n_levels, T position, const SliceScratch& sc,
+                        cudaStream_t s) {
+  if (n > 0)
+    slice_paint_kernel<T><<<ceil_div(n, kThreads), kThreads, 0, s>>>(
+        coords2, c_axis, c_stride, lvl, ok, n, res, n_levels, position, sc);
   return cudaGetLastError();
 }
 
@@ -498,8 +608,8 @@ cudaError_t projection(const int32_t* coords2, const int32_t* lvl,
   return cudaGetLastError();
 }
 
-// B4: one tile painted over (img0, depth0). ``keys_scratch`` is all zero on
-// entry and on return (see slice_carry_resolve_kernel).
+// B4: one tile painted over (img0, depth0). ``keys_scratch`` (see
+// SliceScratch) is all zero on entry and on return.
 template <typename T>
 cudaError_t slice_carry(const int32_t* coords2, const int32_t* c_axis,
                         int64_t c_stride, const int32_t* lvl,
@@ -508,17 +618,12 @@ cudaError_t slice_carry(const int32_t* coords2, const int32_t* c_axis,
                         void* keys_scratch, const T* img0,
                         const int32_t* depth0, T* img, int32_t* depth,
                         cudaStream_t s) {
-  const int64_t npix = (int64_t)res * res;
-  auto* keys = static_cast<unsigned long long*>(keys_scratch);
-  if (n > 0) {
-    slice_carry_paint_kernel<T><<<ceil_div(n, kSliceWarpsPerBlock),
-                                  kSliceWarpsPerBlock * kWarp, 0, s>>>(
-        coords2, c_axis, c_stride, lvl, ok, n, res, n_levels, position, keys);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  slice_carry_resolve_kernel<T><<<ceil_div(npix, kThreads), kThreads, 0, s>>>(
-      keys, val, img0, depth0, npix, img, depth);
+  const SliceScratch sc = slice_scratch(keys_scratch, res);
+  const cudaError_t err = paint_slice<T>(coords2, c_axis, c_stride, lvl, ok,
+                                         n, res, n_levels, position, sc, s);
+  if (err != cudaSuccess) return err;
+  slice_carry_resolve_kernel<T><<<resolve_blocks(res), kResolveThreads, 0, s>>>(
+      sc, val, img0, depth0, res, img, depth);
   return cudaGetLastError();
 }
 
@@ -545,19 +650,22 @@ cudaError_t level_hist(const T* val, const int32_t* lvl, const uint8_t* ok,
 
 extern "C" {
 
-int raster_slice_f64(const int32_t* u0, const int32_t* v0, const int32_t* px,
-                     const int32_t* lvl, const uint8_t* good, const double* val,
-                     int64_t n, int32_t res, void* keys_scratch, double* img,
-                     int32_t device, void* stream) {
+// B1: the slice from the raw columns over an all-zero ``keys_scratch``
+// (see SliceScratch), left all zero.
+int raster_slice_f64(const int32_t* coords2, const int32_t* c_axis,
+                     int64_t c_stride, const int32_t* lvl, const uint8_t* ok,
+                     const double* val, int64_t n, int32_t res,
+                     int32_t n_levels, double position, void* keys_scratch,
+                     double* img, int32_t device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t npix = (int64_t)res * res;
-  auto* keys = static_cast<unsigned long long*>(keys_scratch);
-  const cudaError_t err = paint_keys(u0, v0, px, lvl, good, n, res, keys, s);
+  const SliceScratch sc = slice_scratch(keys_scratch, res);
+  const cudaError_t err = paint_slice<double>(
+      coords2, c_axis, c_stride, lvl, ok, n, res, n_levels, position, sc, s);
   if (err != cudaSuccess) return err;
-  slice_resolve_kernel<<<ceil_div(npix, kThreads), kThreads, 0, s>>>(
-      keys, val, npix, img);
+  slice_resolve_kernel<<<resolve_blocks(res), kResolveThreads, 0, s>>>(
+      sc, val, res, img);
   return cudaGetLastError();
 }
 

@@ -41,8 +41,8 @@ _p, _i32, _i64, _f32, _f64 = (ctypes.c_void_p, ctypes.c_int32,
 #: cudaError_t as an int
 SIGNATURES = {
     # csrc/raster.cu
-    "raster_slice_f64": [_p, _p, _p, _p, _p, _p, _i64, _i32, _p, _p, _i32,
-                         _p],
+    "raster_slice_f64": [_p, _p, _i64, _p, _p, _p, _i64, _i32, _i32, _f64,
+                         _p, _p, _i32, _p],
     "raster_projection_f64": [_p, _p, _p, _p, _i64, _i32, _i32, _p, _p, _p,
                               _p, _i32, _p],
     "raster_level_hist_f64": [_p, _p, _p, _p, _i64, _i32, _i32, _p, _i32,
@@ -58,8 +58,8 @@ SIGNATURES = {
     "raster_level_hist_f32": [_p, _p, _p, _p, _i64, _i32, _i32, _p, _i32,
                               _p],
     # csrc/codec.cu
-    "codec_encode_groups": [_p, _p, _p, _p, _i32, _i64, _i32, _i32, _p, _p,
-                            _p, _i32, _p],
+    "codec_encode_groups": [_p, _p, _p, _p, _i32, _i64, _i32, _i32, _p,
+                            _i32, _p],
     "codec_decode_groups": [_p, _p, _p, _p, _i64, _p, _p, _i32, _p],
     "codec_bitpack": [_p, _i64, _p, _i32, _p],
     "codec_bitunpack": [_p, _i64, _p, _i32, _p],

@@ -225,23 +225,26 @@ def _payload_lens(nlz: torch.Tensor, s: int, width: int) -> torch.Tensor:
 
 def compress_bits(pred_hi, pred_lo, son_hi, son_lo, *, zbits: int = 4,
                   width: int = 64, backend: str | None = None):
-    """Encode (S, G) words: B6, then pack the codes and payload streams.
+    """Encode (S, G) words: B6 (``codec.encode_block``, whose one buffer
+    holds the residues in stream order), then pack the codes and payload
+    streams.
 
     Returns ``(code_words, payload_words, code_bits, payload_bits)``:
     int32 word arrays sized at the reference's upper bounds and the int64
     bit counts; the words up to ``ceil(bits / 32)`` are the host codec's.
     """
-    res_hi, res_lo, nlz = encode_groups_bits(
-        pred_hi, pred_lo, son_hi, son_lo, zbits=zbits, width=width,
-        backend=backend)
-    s, g = res_lo.shape
+    args = [_words(a) for a in (pred_hi, pred_lo, son_hi, son_lo)]
+    fn = _pick(backend, args[0], codec.encode_block,
+               ref.group_residues_block_ref)
+    block = fn(*args, zbits, width)
+    s, g = args[3].shape
+    nlz = block[2 * s * g:]
     code_words, code_bits = bs.pack_bits(
         nlz, torch.full_like(nlz, zbits),
         num_words=max(1, -(-g * zbits // 32)))
-    if width == 64:
-        vals = torch.stack([res_lo, res_hi], 1).reshape(2 * s, g).T.reshape(-1)
-    else:
-        vals = res_lo.T.reshape(-1)
+    # the block holds the payload values in stream order (B6's layout);
+    # at widths 32 and 16 the lo words come first
+    vals = block[:(2 if width == 64 else 1) * s * g]
     payload_words, payload_bits = bs.pack_bits(
         vals, _payload_lens(nlz, s, width),
         num_words=max(1, -(-g * s * width // 32)))

@@ -11,6 +11,10 @@ Value dtypes on the card: B1 and B2 take float64 values (the device path
 is float64 only, as the reference's); B3, B4 and B5 take float64 or
 float32 values and launch that dtype's kernel (the mesh path's float32
 tables), counted apart under ``<name>_f32``. Any other dtype raises.
+
+B1, B2, B4 and B5 each make one C call from the raw columns; the leaf
+table or CSR is built on the card, over scratch the module keeps per
+(device, stream).
 """
 from __future__ import annotations
 
@@ -30,12 +34,21 @@ LAUNCHES = {"slice_raster": 0, "projection_raster": 0, "level_hist": 0,
 #: B3-B5's value dtypes on the card -> the C entries' suffix
 _SUFFIX = {torch.float64: "_f64", torch.float32: "_f32"}
 
-#: B4's (R, R) int64 key scratch per (device, raw stream, R), all zero
-#: between calls: the kernel's resolve clears every key it reads. Only
-#: calls on one stream share one, and the library holds the interpreter
-#: lock through each call, so one call's paint and resolve reach the
-#: stream with no other call's launches between them.
+#: B1/B4's int64 key scratch per (device, raw stream, R): the (R, R)
+#: pixel keys, the coarse levels' cell keys (:func:`slice_coarse_cells`)
+#: and one slot for a block counter and the mask of keyed levels, all
+#: zero between calls: both kernels' resolve clears every pixel key it
+#: reads, and its last block the keyed cells, the mask and the counter.
+#: Only calls on one stream share one, and the library holds the
+#: interpreter lock through each call, so one call's paint and resolve
+#: reach the stream with no other call's launches between them.
 _SLICE_KEYS: dict = {}
+
+#: largest slice rectangle (pixels) the paint kernel paints pixel by
+#: pixel from its row's thread; a larger (coarse) leaf sets one key in
+#: its level's cell grid, which the resolve reads per pixel
+#: (``kSliceOwnArea`` in csrc/raster.cu)
+SLICE_OWN_AREA = 16
 
 #: B2/B5's CSR scratch per (device, raw stream, R, n_levels), shared by
 #: the two on the same terms as ``_SLICE_KEYS``: ``[zeros, offsets,
@@ -76,6 +89,10 @@ def round_f32(x: float) -> float:
 
 
 # ----------------------------------------------------------- leaf tables
+#
+# ``leaf_table``, ``plane_hit`` and ``_slice_table`` are the Python mirror
+# of what B1/B4's paint kernel computes per row from the raw columns; the
+# tests and ``chip_smoke.py`` hold the kernel and the reference to them.
 
 def leaf_table(coords2: torch.Tensor, levels: torch.Tensor, *,
                resolution: int):
@@ -109,8 +126,9 @@ def plane_hit(c_axis: torch.Tensor, levels: torch.Tensor, position: float,
 
 def _slice_table(coords2, c_axis, levels, ok, *, position: float,
                  resolution: int, n_levels: int):
-    """B1/B4's leaf table: (u0, v0, px, lvl, good), contiguous, where
-    ``good`` folds validity, level range and the slice-plane test."""
+    """B1/B4's leaf table at float64: (u0, v0, px, lvl, good),
+    contiguous, where ``good`` folds validity, level range and the
+    slice-plane test."""
     u0, v0, px = (t.contiguous() for t in
                   leaf_table(coords2, levels, resolution=resolution))
     lvl = levels.to(torch.int32).contiguous()
@@ -130,27 +148,81 @@ def _seed(init, resolution: int, dtypes):
     return tuple(dense(t) for t in init)
 
 
+def _slice_columns(name: str, coords2, c_axis, levels, values, ok):
+    """B1/B4's raw columns for the card — int32 ``coords2`` (N, 2) and
+    ``levels``, int32 ``c_axis`` (any stride), the values and bool or
+    uint8 ``ok`` (N,) — with every column but ``c_axis`` contiguous;
+    raises TypeError for anything else."""
+    n = values.shape[0]
+    if not (coords2.dtype == c_axis.dtype == levels.dtype == torch.int32
+            and ok.dtype in (torch.bool, torch.uint8)
+            and coords2.shape == (n, 2)
+            and c_axis.shape == levels.shape == ok.shape == values.shape):
+        got = [(tuple(t.shape), t.dtype)
+               for t in (coords2, c_axis, levels, values, ok)]
+        raise TypeError(f"{name} on the card takes int32 coords2 (N, 2), "
+                        f"int32 c_axis and levels (N,), float values (N,) "
+                        f"and bool ok (N,); got {got}")
+    return dense(coords2), dense(levels), dense(values), dense(ok)
+
+
+def slice_coarse_levels(resolution: int) -> int:
+    """Levels whose px² rectangle exceeds :data:`SLICE_OWN_AREA` at
+    ``resolution``: the coarse levels, whose leaves the paint keys into
+    cells (``coarse_levels`` in csrc/raster.cu)."""
+    lvl = 0
+    while (resolution >> lvl) ** 2 > SLICE_OWN_AREA:
+        lvl += 1
+    return lvl
+
+
+def slice_coarse_cells(resolution: int) -> int:
+    """Cells of the coarse levels' grids: sum of 4^l over them."""
+    return ((1 << 2 * slice_coarse_levels(resolution)) - 1) // 3
+
+
+def _slice_keys(dev: int, device: torch.device, resolution: int):
+    """``(key, keys)``: the all-zero key scratch of ``_SLICE_KEYS`` for a
+    call on CUDA device ``dev``'s current stream, made on first use:
+    R² pixel keys, :func:`slice_coarse_cells` cell keys, one slot for the
+    counter and the mask."""
+    key = (dev, current_stream(dev), resolution)
+    keys = _SLICE_KEYS.get(key)
+    if keys is None:
+        keys = _SLICE_KEYS[key] = torch.zeros(
+            resolution * resolution + slice_coarse_cells(resolution) + 1,
+            dtype=torch.int64, device=device)
+    return key, keys
+
+
 def slice_raster(coords2, c_axis, levels, values, ok, *, position: float,
                  resolution: int, n_levels: int) -> torch.Tensor:
     """B1: (R, R) float64 slice image (deepest covering leaf, NaN where
-    none); same contract as :func:`.ref.slice_raster_ref`."""
+    none); same contract as :func:`.ref.slice_raster_ref`.
+
+    On the card one C call paints from the raw columns (as
+    :func:`slice_raster_carry` takes them, float64 values) over the kept
+    key scratch; the call allocates the image and runs no other torch
+    op."""
     dev = device_index(coords2, c_axis, levels, values, ok)
     if dev < 0:
         return ref.slice_raster_ref(coords2, c_axis, levels, values, ok,
                                     position=position, resolution=resolution,
                                     n_levels=n_levels)
     _suffix("slice_raster", values, {torch.float64: "_f64"})
-    u0, v0, px, lvl, good = _slice_table(
-        coords2, c_axis, levels, ok, position=position,
-        resolution=resolution, n_levels=n_levels)
-    val = dense(values)
-    keys = torch.empty((resolution, resolution), dtype=torch.int64,
-                       device=values.device)
+    c2, lvl, val, okb = _slice_columns("slice_raster", coords2, c_axis,
+                                       levels, values, ok)
+    scratch, keys = _slice_keys(dev, values.device, resolution)
     img = torch.empty((resolution, resolution), dtype=torch.float64,
                       device=values.device)
-    launch("raster_slice_f64", dev, u0.data_ptr(), v0.data_ptr(),
-           px.data_ptr(), lvl.data_ptr(), good.data_ptr(), val.data_ptr(),
-           val.shape[0], resolution, keys.data_ptr(), img.data_ptr())
+    try:
+        launch("raster_slice_f64", dev, c2.data_ptr(), c_axis.data_ptr(),
+               c_axis.stride(0), lvl.data_ptr(), okb.data_ptr(),
+               val.data_ptr(), val.shape[0], resolution, n_levels, position,
+               keys.data_ptr(), img.data_ptr())
+    except RuntimeError:
+        _SLICE_KEYS.pop(scratch, None)    # may hold a paint, unresolved
+        raise
     LAUNCHES["slice_raster"] += 1
     return img
 
@@ -181,30 +253,16 @@ def slice_raster_carry(coords2, c_axis, levels, values, ok, *,
             resolution=resolution, n_levels=n_levels, init=init)
     fx = _suffix("slice_raster_carry", values)
     img0, depth0 = _seed(init, resolution, (values.dtype, torch.int32))
-    n = values.shape[0]
-    if not (coords2.dtype == c_axis.dtype == levels.dtype == torch.int32
-            and ok.dtype in (torch.bool, torch.uint8)
-            and coords2.shape == (n, 2)
-            and c_axis.shape == levels.shape == ok.shape == values.shape):
-        got = [(tuple(t.shape), t.dtype)
-               for t in (coords2, c_axis, levels, values, ok)]
-        raise TypeError(f"slice_raster_carry on the card takes int32 "
-                        f"coords2 (N, 2), int32 c_axis and levels (N,), "
-                        f"float values (N,) and bool ok (N,); got {got}")
-    c2, lvl, val, okb = dense(coords2), dense(levels), dense(values), \
-        dense(ok)
-    scratch = (dev, current_stream(dev), resolution)
-    keys = _SLICE_KEYS.get(scratch)
-    if keys is None:
-        keys = _SLICE_KEYS[scratch] = torch.zeros(
-            (resolution, resolution), dtype=torch.int64, device=values.device)
+    c2, lvl, val, okb = _slice_columns("slice_raster_carry", coords2, c_axis,
+                                       levels, values, ok)
+    scratch, keys = _slice_keys(dev, values.device, resolution)
     img = torch.empty_like(img0)
     depth = torch.empty_like(depth0)
     try:
         launch("raster_slice_carry" + fx, dev, c2.data_ptr(),
                c_axis.data_ptr(), c_axis.stride(0), lvl.data_ptr(),
-               okb.data_ptr(), val.data_ptr(), n, resolution, n_levels,
-               position if fx == "_f64" else round_f32(position),
+               okb.data_ptr(), val.data_ptr(), val.shape[0], resolution,
+               n_levels, position if fx == "_f64" else round_f32(position),
                keys.data_ptr(), img0.data_ptr(), depth0.data_ptr(),
                img.data_ptr(), depth.data_ptr())
     except RuntimeError:

@@ -34,10 +34,21 @@ import torch
 _NAN = float("nan")
 
 
+#: level_scale's tensors per (device, n_levels): made once, so a call on
+#: the card copies nothing from the host (a copy from pageable memory
+#: synchronizes the stream). Read only: callers index or cast them.
+_LEVEL_SCALES: dict = {}
+
+
 def level_scale(n_levels: int, device) -> torch.Tensor:
     """Exact float64 path lengths ``2^-l`` for l in [0, n_levels)."""
-    return torch.tensor([2.0 ** -l for l in range(max(n_levels, 1))],
-                        dtype=torch.float64, device=device)
+    key = (torch.device(device), n_levels)
+    scale = _LEVEL_SCALES.get(key)
+    if scale is None:
+        scale = _LEVEL_SCALES[key] = torch.tensor(
+            [2.0 ** -l for l in range(max(n_levels, 1))],
+            dtype=torch.float64, device=key[0])
+    return scale
 
 
 def level_bases(n_levels: int, k: int) -> list[int]:
@@ -245,6 +256,21 @@ def group_residues_ref(pred_hi, pred_lo, son_hi, son_lo, zbits: int,
     else:  # 16-bit payloads in the low word
         nlz = clz32_ref(m_lo) - 16
     return res_hi, res_lo, nlz.clamp(max=(1 << zbits) - 1).to(torch.int32)
+
+
+def group_residues_block_ref(pred_hi, pred_lo, son_hi, son_lo, zbits: int,
+                             width: int) -> torch.Tensor:
+    """Twin of B6's one buffer (``codec.encode_block``): the residues of
+    :func:`group_residues_ref` in stream order — (G, S, 2) lo/hi pairs at
+    width 64, else the lo words (G, S) then the hi words (G, S) — then
+    nlz, flat int32."""
+    res_hi, res_lo, nlz = group_residues_ref(pred_hi, pred_lo, son_hi,
+                                             son_lo, zbits, width)
+    if width == 64:
+        block = torch.stack([res_lo.T, res_hi.T], 2)
+    else:
+        block = torch.stack([res_lo.T, res_hi.T])
+    return torch.cat([block.reshape(-1), nlz])
 
 
 def decode_residues_ref(res_hi, res_lo, pred_hi, pred_lo):

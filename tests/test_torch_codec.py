@@ -161,6 +161,53 @@ def test_compress_bits_words_vs_reference_and_host_codec(g, width):
     np.testing.assert_array_equal(u32(slo), words[3])
 
 
+@pytest.mark.parametrize("zbits", [2, 4, 8])
+@pytest.mark.parametrize("width", [64, 32, 16])
+def test_compress_bits_block_layout_vs_reference(width, zbits):
+    """``compress_bits`` packs B6's one buffer (the residues in stream
+    order) as its payload values: its words and bit counts are the
+    reference's at every width and zbits, through the wrapper and
+    through the twin — against ``ref`` on a ragged G, and against
+    ``pallas_interpret`` on G = 1024, the Pallas kernel's block (its
+    caller pads G to it)."""
+    rng = np.random.default_rng(width + zbits)
+    for backend, g in (("ref", 333), ("pallas_interpret", 1024)):
+        pred = rng.lognormal(size=g)
+        sons = pred[:, None] * (1 + 1e-4 * rng.standard_normal((g, S)))
+        words = words_of(pred, sons, width)
+        want = ops_ref.compress_bits(*map(jnp.asarray, words), zbits=zbits,
+                                     width=width, backend=backend)
+        for mine in (None, "ref"):
+            got = ops.compress_bits(*port(words), zbits=zbits, width=width,
+                                    backend=mine)
+            assert [int(b) for b in got[2:]] == [int(b) for b in want[2:]]
+            for a, b in zip(cut(*got), cut(*want)):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("width", [64, 32, 16])
+@pytest.mark.parametrize("g", [5, 333])
+def test_encode_groups_are_views_of_one_stream_ordered_block(g, width):
+    """B6's (S, G) residues and (G,) nlz equal ``group_residues_ref``'s
+    and are views of one buffer, whose residue block is the payload in
+    stream order: group by group, son by son, (lo, hi) at width 64;
+    the lo words, then the hi words, at widths 32 and 16."""
+    words = port(groups(g, width, seed=g)[0])
+    got = codec.encode_groups(*words, 4, width)
+    want = ref.group_residues_ref(*words, 4, width)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    block = ops.codec.encode_block(*words, 4, width)
+    assert block.shape == (2 * S * g + g,) and block.dtype == torch.int32
+    assert len({t.untyped_storage().data_ptr() for t in got}) == 1
+    res_hi, res_lo, nlz = want
+    if width == 64:
+        stream = torch.stack([res_lo.T, res_hi.T], 2).reshape(-1)
+    else:
+        stream = torch.cat([res_lo.T.reshape(-1), res_hi.T.reshape(-1)])
+    assert torch.equal(block, torch.cat([stream, nlz]))
+    assert torch.equal(block, ref.group_residues_block_ref(*words, 4, width))
+
+
 @pytest.mark.parametrize("seed", [0, 7])
 def test_tree_field_stream(seed):
     """A Sedov tree field through compress_bits is the level-fused HDep
@@ -332,6 +379,17 @@ def test_c_prototypes_match_signatures(source):
                 or name == "raster_slice_carry_f32", name
         assert protos["raster_slice_carry_f32"][9] == ctypes.c_float
         assert protos["raster_slice_carry_f64"][9] == ctypes.c_double
+        # B1 takes B4's raw columns: the strided c_axis with its element
+        # stride, and the position as a double
+        b1 = protos["raster_slice_f64"]
+        assert b1[2] == ctypes.c_int64 and b1[9] == ctypes.c_double
+        assert b1[:10] == protos["raster_slice_carry_f64"][:10]
+    else:
+        # B6 writes one buffer: four word inputs, four ints, one output
+        assert protos["codec_encode_groups"][:9] == \
+            [ctypes.c_void_p] * 4 + [ctypes.c_int32, ctypes.c_int64,
+                                     ctypes.c_int32, ctypes.c_int32,
+                                     ctypes.c_void_p]
 
 
 def test_every_signature_has_a_c_entry():
@@ -405,4 +463,27 @@ def test_cuda_codec_kernels_bit_equal_to_twins(cuda_device, width):
         assert torch.equal(codec.bitunpack(packed, n),
                            ref.bitunpack_ref(packed, n))
         assert torch.equal(codec.bitunpack(packed, n).bool(), flags)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [64, 32, 16])
+def test_cuda_encode_groups_views_of_one_buffer(cuda_device, width):
+    """On the card B6's three outputs are views of one allocation, equal
+    to the twin's (S, G) residues and nlz, and its block equals the
+    twin's stream-ordered block, with 16-byte stores (S = 8) and
+    without (S = 3)."""
+    for s_, g in ((S, 5000), (3, 777)):
+        words = [w.to(cuda_device) for w in
+                 port(groups(g, width, 13)[0])]
+        if s_ != S:
+            words = [w[:s_].contiguous() for w in words]
+        for zbits in (2, 4, 8):
+            got = codec.encode_groups(*words, zbits, width)
+            want = ref.group_residues_ref(*words, zbits, width)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+            assert len({t.untyped_storage().data_ptr() for t in got}) == 1
+            assert torch.equal(
+                codec.encode_block(*words, zbits, width),
+                ref.group_residues_block_ref(*words, zbits, width))
     torch.cuda.synchronize()

@@ -363,6 +363,55 @@ def test_slice_carry_predicate_at_cell_boundaries(arrays, position,
             assert_bits(g.numpy(), w, f"reference {what} at {position}")
 
 
+def reference_slice(table, values):
+    """The reference's Pallas ``slice_raster`` (interpret mode) over a
+    given whole leaf table."""
+    with jax.enable_x64(True):
+        u0, v0, px, lvl, good, val = (
+            ops_ref._pad_leaf(jnp.asarray(c), 1 if i == 2 else 0,
+                              ops.BLOCK_N)
+            for i, c in enumerate((*table, values)))
+        return np.asarray(raster_kernel.slice_raster(
+            u0, v0, px, lvl, val, good, resolution=R, block_n=ops.BLOCK_N,
+            interpret=True))
+
+
+@pytest.mark.parametrize("bad_levels", [False, True])
+@pytest.mark.parametrize("position", BOUNDARIES)
+def test_slice_predicate_at_cell_boundaries(arrays, position, bad_levels):
+    """What B1's one C call computes per row — the paint kernel it shares
+    with B4: ``_slice_table``'s geometry, level range and float64 plane
+    test — at positions on exact cell boundaries and with rows of
+    out-of-range level: the port's slice (the twin, on the CPU) equals
+    the reference's interpret-mode ``slice_raster`` fed the port's
+    table, and (levels in range) the reference's own slice."""
+    x = node_tables(arrays)
+    if bad_levels:
+        x = with_bad_levels(x)
+    t = {k: torch.from_numpy(np.asarray(v)) for k, v in x.items()
+         if k != "n_levels"}
+    table = raster._slice_table(
+        ops.plane_coords(t["coords"], 2), t["coords"][:, 2].to(torch.int32),
+        t["levels"], t["ok"], position=position, resolution=R,
+        n_levels=x["n_levels"])
+    want_good = fused_good(x["coords"][:, 2], x["levels"], x["ok"],
+                           position=position, n_levels=x["n_levels"])
+    np.testing.assert_array_equal(table[4].numpy().astype(bool), want_good)
+    got = ops.raster_slice(t["coords"], t["levels"], t["values"], t["ok"],
+                           axis=2, position=position, resolution=R,
+                           n_levels=x["n_levels"]).numpy()
+    assert_bits(got, reference_slice([c.numpy() for c in table],
+                                     x["values"]), f"slice at {position}")
+    if not bad_levels:
+        with jax.enable_x64(True):
+            j = {k: jnp.asarray(v) for k, v in x.items() if k != "n_levels"}
+            want = ops_ref.raster_slice(
+                j["coords"], j["levels"], j["values"], j["ok"], axis=2,
+                position=position, resolution=R, n_levels=x["n_levels"],
+                backend="pallas_interpret")
+        assert_bits(got, np.asarray(want), f"reference slice at {position}")
+
+
 # ------------------------------------------------------------- runner
 
 def port_run(arrays, devices, *, tile_n=MESH_TILE, backend=None, **snap):
@@ -617,3 +666,31 @@ def test_cuda_projection_carry_bit_equal_to_twin_on_adversarial_tables(
     assert torch.equal(got.view(torch.int64), want.view(torch.int64))
     assert raster.LAUNCHES["projection_raster_carry"] - before == \
         -(-x["values"].shape[0] // tile_n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad_levels", [False, True])
+@pytest.mark.parametrize("position", BOUNDARIES)
+def test_cuda_slice_bit_equal_to_twin_at_cell_boundaries(
+        cuda_device, arrays, position, bad_levels):
+    """B1 through ``ops.raster_slice`` (the device path's call: the
+    strided slice-axis column of int32 coords) against its twin at the
+    boundary positions, with and without rows of out-of-range level,
+    twice on one stream: one launch a call."""
+    x = node_tables(arrays)
+    if bad_levels:
+        x = with_bad_levels(x)
+    t = {k: torch.from_numpy(np.asarray(v)).to(cuda_device)
+         for k, v in x.items() if k != "n_levels"}
+    coords = t["coords"].to(torch.int32)
+    kw = dict(axis=2, position=position, resolution=R,
+              n_levels=x["n_levels"])
+    before = raster.LAUNCHES["slice_raster"]
+    got = [ops.raster_slice(coords, t["levels"], t["values"], t["ok"], **kw)
+           for _ in range(2)]
+    want = ops.raster_slice(coords, t["levels"], t["values"], t["ok"],
+                            backend="ref", **kw)
+    torch.cuda.synchronize()
+    assert raster.LAUNCHES["slice_raster"] - before == 2
+    for g in got:
+        assert torch.equal(g.view(torch.int64), want.view(torch.int64))

@@ -342,6 +342,154 @@ def test_device_impl_registry_fallback_configs():
     assert device_impl_for(LevelHistogramReducer()) is not None
 
 
+# ------------------------------------------- B1/B4's one-thread-per-row paint
+
+def coarse_table(seed: int, *, resolution: int = 512,
+                 n_levels: int = 11) -> dict:
+    """A level-major leaf table (numpy) whose slice at 0.5 paints coarse
+    leaves: levels 0-3 (rectangles of 512² down to 64² pixels at R =
+    512) among finer and sub-pixel ones, overlapping on every level;
+    half the rows of a level lie on the plane's cell (c = 2^(l-1)), ~10 %
+    are not ok and every 13th ok row has a level outside [0,
+    n_levels)."""
+    rng = np.random.default_rng(seed)
+    coords, levels = [], []
+    for lvl in range(n_levels):
+        side = 1 << lvl
+        n = int(rng.integers(4, 12 if lvl < 4 else 40))
+        c = rng.integers(0, side, size=(n, 3))
+        on_plane = rng.random(n) < 0.5
+        c[on_plane, 2] = side >> 1
+        coords.append(c)
+        levels.append(np.full(n, lvl))
+    coords = np.concatenate(coords).astype(np.int32)
+    levels = np.concatenate(levels).astype(np.int32)
+    ok = rng.random(levels.shape[0]) < 0.9
+    bad = np.flatnonzero(ok)[::13]
+    levels[bad] = np.resize([n_levels, n_levels + 3, -1], bad.size)
+    values = rng.standard_normal(levels.shape[0]) * 4.0 + 1.0
+    return {"coords": coords, "levels": levels, "values": values, "ok": ok,
+            "n_levels": n_levels}
+
+
+def paint_mirror(x: dict, *, resolution: int, position: float = 0.5):
+    """``slice_paint_kernel`` + ``slice_resolve_kernel`` in numpy, one
+    step per row: a hit row whose rectangle has at most
+    ``raster.SLICE_OWN_AREA`` pixels ``atomicMax``-es its key ``(level +
+    1) << 32 | row`` over its pixels; a coarse row (level below
+    ``raster.slice_coarse_levels``) into its cell (c0, c1) of its
+    level's grid, at ``(4^l - 1) / 3 + c0 · 2^l + c1``, and marks the
+    level keyed. The resolve takes each pixel's max over its own key and
+    its ancestors' cells on the keyed levels, then clears both. Returns
+    the image, the scratch left after the resolve (pixels, cells) and
+    how many rows each branch keyed."""
+    r = resolution
+    k = r.bit_length() - 1
+    t = {key: torch.from_numpy(np.asarray(v)) for key, v in x.items()
+         if key != "n_levels"}
+    c2 = ops.plane_coords(t["coords"], 2)
+    u0, v0, px, lvl, good = (a.numpy().astype(np.int64) for a in
+                             raster._slice_table(
+        c2, t["coords"][:, 2].to(torch.int32), t["levels"], t["ok"],
+        position=position, resolution=r, n_levels=x["n_levels"]))
+    c2 = c2.numpy().astype(np.int64)
+    coarse_levels = raster.slice_coarse_levels(r)
+    pixel = np.zeros((r, r), np.uint64)
+    cells = np.zeros(raster.slice_coarse_cells(r), np.uint64)
+    counts = {"own": 0, "coarse": 0}
+    keyed = set()
+    for row in np.flatnonzero(good):
+        key = np.uint64(((lvl[row] + 1) << 32) | row)
+        l = lvl[row]
+        if l < coarse_levels:
+            side = 1 << l
+            if ((c2[row] >= 0) & (c2[row] < side)).all():
+                at = (4 ** l - 1) // 3 + c2[row, 0] * side + c2[row, 1]
+                cells[at] = max(cells[at], key)
+                keyed.add(l)
+            counts["coarse"] += 1
+            continue
+        assert px[row] ** 2 <= raster.SLICE_OWN_AREA
+        blk = pixel[u0[row]:u0[row] + px[row], v0[row]:v0[row] + px[row]]
+        np.maximum(blk, key, out=blk)
+        counts["own"] += 1
+    keys = pixel.copy()
+    i, j = np.indices((r, r))
+    for l in sorted(keyed):
+        grid = cells[(4 ** l - 1) // 3:(4 ** (l + 1) - 1) // 3]
+        keys = np.maximum(keys, grid[((i >> (k - l)) << l) + (j >> (k - l))])
+    win = keys != 0
+    img = np.full((r, r), np.nan)
+    img[win] = np.asarray(x["values"])[(keys[win] & np.uint64(0xFFFFFFFF))
+                                       .astype(np.int64)]
+    pixel[:] = 0                       # the resolve clears what it read,
+    cells[:] = 0                       # its last block the cells
+    return img, (pixel, cells), counts
+
+
+@pytest.mark.parametrize("table", ["sedov0", "sedov7", "coarse0", "coarse1"])
+def test_paint_mirror_gives_the_slice_twin(table):
+    """The paint kernel's split — rectangles of at most
+    ``SLICE_OWN_AREA`` pixels painted per pixel by their row's thread,
+    coarse ones keyed into their level's cell and taken up per pixel by
+    the resolve — gives ``slice_raster_ref``'s image bit for bit on
+    Sedov trees (R = 16, 64) and on coarse-leaf tables (R = 512,
+    rectangles up to the whole image), and leaves the scratch all
+    zero."""
+    if table.startswith("sedov"):
+        x = node_inputs(random_tree(int(table[-1])).to_arrays())
+        geometries = RESOLUTIONS
+    else:
+        x = coarse_table(int(table[-1]))
+        geometries = (512,)
+    keyed = {"own": 0, "coarse": 0}
+    for r in geometries:
+        img, scratch, counts = paint_mirror(x, resolution=r)
+        want = run_port(x, "slice", r, None)
+        assert_bits(want, img, f"{table} R={r}")
+        assert not any(a.any() for a in scratch)
+        keyed = {k: keyed[k] + counts[k] for k in keyed}
+    assert keyed["own"] > 0 and keyed["coarse"] > 0, keyed
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_slice_twin_on_coarse_tables_matches_reference(seed):
+    """The slice twin on a coarse-leaf table (at R = 64, where every
+    level up to 6 is a rectangle) equals the reference's ``ref`` and
+    interpret-mode Pallas slice."""
+    x = coarse_table(seed, resolution=64, n_levels=8)
+    got = run_port(x, "slice", 64, None)
+    ok = reference_ok(x)       # the reference's geometry needs the range
+    for backend in ("ref", "pallas_interpret"):
+        assert_bits(run_jax({**x, "ok": ok}, "slice", 64, None, backend),
+                    got, f"coarse slice vs repro.kernels.ops[{backend}]")
+    assert np.isfinite(got).any()
+
+
+def test_slice_own_area_matches_the_kernel_source():
+    src = (cudalib.CSRC / "raster.cu").read_text()
+    assert f"constexpr int kSliceOwnArea = {raster.SLICE_OWN_AREA};" in src
+
+
+@pytest.mark.parametrize("resolution,levels,cells", [
+    (1, 0, 0), (4, 0, 0), (8, 1, 1), (16, 2, 5), (64, 4, 85),
+    (512, 7, 5461)])
+def test_slice_coarse_levels_and_scratch(resolution, levels, cells,
+                                         monkeypatch):
+    """The coarse levels are those with px > 4 (px² above SLICE_OWN_AREA),
+    and the key scratch holds R² pixel keys, their cells and one
+    counter, made zero once per (device, stream, R) and then kept."""
+    assert raster.slice_coarse_levels(resolution) == levels
+    assert raster.slice_coarse_cells(resolution) == cells
+    monkeypatch.setattr(raster, "_SLICE_KEYS", {})
+    monkeypatch.setattr(raster, "current_stream", lambda dev: 77)
+    key, keys = raster._slice_keys(0, torch.device("cpu"), resolution)
+    assert key == (0, 77, resolution)
+    assert keys.shape == (resolution ** 2 + cells + 1,)
+    assert keys.dtype == torch.int64 and not keys.any()
+    assert raster._slice_keys(0, torch.device("cpu"), resolution)[1] is keys
+
+
 # ------------------------------------------------------------------ card
 
 @pytest.fixture
@@ -397,3 +545,34 @@ def test_cuda_projection_bit_equal_to_twin_on_adversarial_tables(
     assert raster.LAUNCHES["projection_raster"] - before == 2
     for g in (got, again):
         assert torch.equal(g.view(torch.int64), want.view(torch.int64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", SEEDS)
+def test_cuda_slice_bit_equal_to_twin_on_coarse_tables(cuda_device, seed):
+    """B1 and B4 (whose paint B1 shares) on coarse-leaf tables at R =
+    512 and 64 against their twins, bitwise; B1 twice on one stream's
+    kept scratch, which its resolve leaves all zero."""
+    for r, n_levels in ((512, 11), (64, 8)):
+        x = coarse_table(seed, resolution=r, n_levels=n_levels)
+        t = {k: torch.from_numpy(np.asarray(v)).to(cuda_device)
+             for k, v in x.items() if k != "n_levels"}
+        args = (ops.plane_coords(t["coords"], 2),
+                t["coords"][:, 2].to(torch.int32), t["levels"], t["values"],
+                t["ok"])
+        geo = dict(position=0.5, resolution=r, n_levels=n_levels)
+        before = dict(raster.LAUNCHES)
+        got = [raster.slice_raster(*args, **geo) for _ in range(2)]
+        carry = raster.slice_raster_carry(*args, **geo)
+        want = ref.slice_raster_ref(*args, **geo)
+        want_carry = ref.slice_raster_depth_ref(*args, **geo)
+        torch.cuda.synchronize()
+        assert raster.LAUNCHES["slice_raster"] - \
+            before["slice_raster"] == 2
+        for g in got:
+            assert torch.equal(g.view(torch.int64), want.view(torch.int64))
+        assert torch.equal(carry[0].view(torch.int64),
+                           want_carry[0].view(torch.int64))
+        assert torch.equal(carry[1], want_carry[1])
+        keys = raster._SLICE_KEYS[(0, cudalib.current_stream(0), r)]
+        assert not bool(keys.any())
