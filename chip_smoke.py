@@ -35,7 +35,13 @@ non-zero (and prints no result) otherwise, or on any failure.
      their values cast to float32, B4-f32 at the boundary positions, B5-f32
      on the adversarial tables, and B4 and B4-f32 on a level-26 table
      whose float32 plane test rounds, each bitwise against its float32
-     twin (float32 bits compared as int32);
+     twin (float32 bits compared as int32); B3 and B3-f32 on edge cases
+     (values on every edge and on ``hi``, NaN and ±inf, levels out of
+     range, non-uniform and duplicate edges, edges float32 cannot hold,
+     L·B beyond shared memory at L = 16 and 4,096 bins, edges beyond it
+     at 8,192 bins, n = 0), each table whole and from row 1 (unaligned),
+     with CPU edges (by value) and edges on the card, each call twice:
+     bitwise the twin, one launch a call, the next call's output zeroed;
   3. main path: ``InTransitEngine(device_reduce=True, device="cuda")``
      over the Orion tree with the 512-res slice/projection/histogram DAG,
      then the CLI's default DAG (LOD cut, slice, slice-of-LOD,
@@ -76,13 +82,17 @@ non-zero (and prints no result) otherwise, or on any failure.
      B4-f32/B5-f32 per tile call, B3-f32 on the one-shard float32 table;
      B6-B9 at the Orion codec shapes, B7 on contiguous residues), its
      plain twin, B7's library yardstick (one ``torch.bitwise_xor``) and
-     its bound; for B1, B2, B4-B7 and the float32 kernels also the
+     its bound; for B1-B7 and the float32 kernels also the
      host's own time per wrapper call (a loop with no sync), its split by
      step, and the kernels' device time by kernel (``torch.profiler``);
-     B1's call must record no torch op but its output's ``aten::empty``
-     and launch no memset; for B2/B5 the longest (level, cell) segment
-     of the Orion table and tiles; and the host cost of the two
-     spellings of the current stream's handle.
+     B1's and B3's (and B3-f32's) calls must record no torch op but
+     their output's ``aten::empty``, and launch no memset (B3: its one
+     kernel and nothing else); B3 also with its edges on the card; the
+     device path's histogram reducer on Orion, whole and split into the
+     bounds pull, the edges and B3, and its run and the mesh reducer's
+     must copy nothing host to device; for B2/B5 the longest (level,
+     cell) segment of the Orion table and tiles; and the host cost of
+     the two spellings of the current stream's handle.
 
 The line before the last is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -709,6 +719,98 @@ def check_level26(device) -> None:
                                  f"{deepest}")
     print("parity level-26 plane case (position 0.3, R=4): B4-f32 paints no "
           "level-26 leaf, B4 paints one; both bit-equal to their twins")
+
+
+def hist_cases(seed: int = 18) -> dict:
+    """B3's edge cases (numpy): name -> (values float64, levels int32, ok
+    bool, edges float64, n_levels). Every value is a float32 too, so the
+    float32 run bins the same numbers."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def table(values, n_levels, lv_lo=0, lv_hi=None):
+        n = values.size
+        levels = rng.integers(lv_lo, lv_hi or n_levels, n).astype(np.int32)
+        return (values.astype(np.float32).astype(np.float64), levels,
+                rng.random(n) < 0.9)
+
+    lin = np.linspace(-4.0, 4.0, 33)            # float32 holds these exactly
+    odd = np.sort(np.concatenate([rng.uniform(-3, 3, 20), [-1.0] * 3,
+                                  [0.5] * 4, [2.0] * 2]))
+    odd = odd.astype(np.float32).astype(np.float64)
+    wide = np.linspace(0.1, 0.7, 65)            # inner edges not float32
+    w32 = wide.astype(np.float32)
+    near = np.concatenate([w32, np.nextafter(w32, np.float32(np.inf)),
+                           np.nextafter(w32, np.float32(-np.inf))])
+    special = rng.uniform(-5, 5, 4003)
+    special[::7], special[1::11], special[2::13] = np.nan, np.inf, -np.inf
+    return {
+        "values on every edge and on hi": (*table(rng.permutation(
+            np.concatenate([np.repeat(lin, 40), rng.uniform(-5, 5, 3001)])),
+            5), lin, 5),
+        "NaN and +-inf": (*table(special, 5), lin, 5),
+        "levels out of range": (*table(rng.uniform(-5, 5, 4003), 5, -3, 9),
+                                lin, 5),
+        "non-uniform and duplicate edges": (*table(rng.permutation(
+            np.concatenate([np.repeat(odd, 20), rng.uniform(-4, 4, 2003)])),
+            4), odd, 4),
+        "edges float32 cannot hold": (*table(rng.permutation(
+            np.concatenate([np.repeat(near, 10),
+                            rng.uniform(0.0, 0.8, 1001)])), 3), wide, 3),
+        "L x B beyond shared memory (L=16, bins=4096)": (
+            *table(rng.standard_normal(200_003), 16),
+            np.linspace(-4.0, 4.0, 4097), 16),
+        "edges beyond shared memory (bins=8192)": (
+            *table(rng.standard_normal(50_001), 2),
+            np.linspace(-4.0, 4.0, 8193), 2),
+        "n = 0": (np.zeros(0), np.zeros(0, np.int32), np.zeros(0, bool),
+                  lin, 5),
+    }
+
+
+def check_hist_cases(device) -> float:
+    """B3 and B3-f32 on :func:`hist_cases` against their twins, bitwise:
+    each table whole (16-byte loads and the n % 4 tail) and from row 1
+    (unaligned: one row a thread), with the edges on the CPU (by value; past
+    257 edges the wrapper uploads them) and on the card; each call twice,
+    one launch a call, the output kept for the next call all zero after.
+    Returns the max abs error (0.0)."""
+    import torch
+
+    from repro_torch.kernels import cudalib, raster, ref
+    stream = cudalib.current_stream(device.index)
+    calls, err = 0, 0.0
+    for name, (v, lv, ok, edges, L) in hist_cases().items():
+        cols = [torch.from_numpy(a).to(device) for a in (v, lv, ok)]
+        e_cpu = torch.from_numpy(edges)
+        e_dev = e_cpu.to(device)
+        for dtype, counter in ((torch.float64, "level_hist"),
+                               (torch.float32, "level_hist_f32")):
+            vals = cols[0].to(dtype)
+            for start in (0, 1):
+                args = (vals[start:], cols[1][start:], cols[2][start:])
+                twin = ref.level_hist_ref(*args, e_dev, n_levels=L)
+                for e in (e_cpu, e_dev):
+                    label = (f"B3 case {name!r}: {dtype}, rows from {start},"
+                             f" edges on {e.device}")
+                    before = dict(raster.LAUNCHES)
+                    got = [raster.level_hist(*args, e, n_levels=L)
+                           for _ in range(2)]
+                    torch.cuda.synchronize()
+                    _check_launched(before, {counter: 2}, label)
+                    err = max([err] + [_same_bits(label, (g,), (twin,))
+                                       for g in got])
+                    kept = raster._HIST_NEXT[(device.index, stream, L,
+                                              edges.size - 1)]
+                    if bool(kept.any()):
+                        raise AssertionError(f"{label}: the next call's "
+                                             f"output is not all zero")
+                    calls += 2
+    print(f"parity B3 cases: {len(hist_cases())} tables x float64/float32 "
+          f"x aligned/unaligned x CPU/card edges, {calls} calls, each "
+          f"bit-equal to its twin, one launch a call, the next call's output "
+          f"all zero after each")
+    return err
 
 
 # ----------------------------------------------------------- main path
@@ -1600,13 +1702,15 @@ def carry_bounds(tiles: list, resolution: int) -> dict:
 def time_kernels(x: dict, edges, n_hist: int, resolution: int) -> dict:
     from repro_torch.kernels import raster, ref
     geo = dict(resolution=resolution, n_levels=x["n_levels"])
+    e_cpu = edges.cpu()         # B3 takes the reducers' CPU edges by value
     calls = {
         "slice_raster": lambda f: f(x["coords2"], x["c_axis"], x["levels"],
                                     x["values"], x["ok"], position=0.5,
                                     **geo),
         "projection_raster": lambda f: f(x["coords2"], x["levels"],
                                          x["values"], x["ok"], **geo),
-        "level_hist": lambda f: f(x["values"], x["levels"], x["ok"], edges,
+        "level_hist": lambda f: f(x["values"], x["levels"], x["ok"],
+                                  e_cpu if f is raster.level_hist else edges,
                                   n_levels=n_hist),
     }
     pairs = {"slice_raster": (raster.slice_raster, ref.slice_raster_ref),
@@ -1627,6 +1731,8 @@ def time_kernels(x: dict, edges, n_hist: int, resolution: int) -> dict:
         raise AssertionError(f"slice_raster launched {memsets} on the kept "
                              f"scratch")
     b1["host_steps_us"] = slice_steps(x)
+    out["level_hist"].update(hist_calls(x["values"], x["levels"], x["ok"],
+                                        edges, n_hist))
     return out
 
 
@@ -1666,8 +1772,9 @@ def time_carries(arrays: dict, device, dtype=None) -> tuple:
 def time_hist_f32(arrays: dict, device) -> tuple:
     """B3-f32 at the float32 mesh path's shapes: the one-shard Orion
     table's float32 values, levels and ``ok`` (569,344 padded rows) and
-    the live DAG's 64 edges; the wrapper (CUDA events, host ms, device ms
-    from ``torch.profiler``), its plain twin, and the bound."""
+    the live DAG's 64 edges (on the CPU, as the reducers pass them); the
+    wrapper (:func:`hist_calls`), its plain twin (edges on the card), and
+    the bound."""
     import numpy as np
     import torch
 
@@ -1680,17 +1787,196 @@ def time_hist_f32(arrays: dict, device) -> tuple:
              if isinstance(r, LevelHistogramReducer))
     edges = torch.from_numpy(np.linspace(r.lo, r.hi, r.bins + 1)).to(device)
     n_hist = min(mt.n_levels, r.max_levels)
-
-    def call(f):
-        return f(values, levels, ok, edges, n_levels=n_hist)
-
-    out = {"ms": time_ms(lambda: call(raster.level_hist), reps=20),
-           "plain_ms": time_ms(lambda: call(ref.level_hist_ref), reps=3,
-                               warm=1),
-           **wrapper_calls(lambda: call(raster.level_hist), 1)}
+    e_cpu = edges.cpu()
+    out = {"ms": time_ms(lambda: raster.level_hist(
+               values, levels, ok, e_cpu, n_levels=n_hist), reps=20),
+           "plain_ms": time_ms(lambda: ref.level_hist_ref(
+               values, levels, ok, edges, n_levels=n_hist), reps=3, warm=1),
+           **hist_calls(values, levels, ok, edges, n_hist)}
     x = {"values": values, "levels": levels, "ok": ok,
          "n_levels": mt.n_levels}
     return out, hist_bound(x, edges, n_hist)
+
+
+def hist_calls(values, levels, ok, edges, n_hist: int,
+               reps: int = 50) -> dict:
+    """B3's (or B3-f32's) wrapper alone with the main path's CPU edges
+    (:func:`wrapper_calls`), which must launch its one kernel and no
+    memset or copy; its host steps (:func:`hist_steps`); and the call
+    with the edges on the card (CUDA events)."""
+    from repro_torch.kernels import raster
+    e_cpu = edges.cpu()
+
+    def call(e=e_cpu):
+        return raster.level_hist(values, levels, ok, e, n_levels=n_hist)
+
+    out = wrapper_calls(call, 1, reps)
+    if len(out["device_split_ms"]) != 1 or \
+            "level_hist_kernel" not in next(iter(out["device_split_ms"])):
+        raise AssertionError(f"level_hist launched {out['device_split_ms']}"
+                             f", expected its one kernel and no memset")
+    out["host_steps_us"] = hist_steps(values, levels, ok, e_cpu, n_hist)
+    out["device_edges_ms"] = time_ms(lambda: call(edges), reps=reps)
+    out["torch.histogram on the card"] = torch_histogram_on_cuda(values,
+                                                                 edges)
+    return out
+
+
+def torch_histogram_on_cuda(values, edges) -> str:
+    """Whether ``torch.histogram`` (one bin rule, no levels) runs on CUDA
+    tensors at all: "runs", or the error it raises. Only probed here; the
+    port never calls it."""
+    import torch
+    try:
+        torch.histogram(values, bins=edges.to(values))
+    except (RuntimeError, NotImplementedError) as exc:
+        return f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+    return "runs"
+
+
+def hist_steps(values, levels, ok, edges, n_hist: int) -> dict:
+    """Host µs per call of each step of B3's wrapper (B3-f32's for float32
+    values), alone, with CPU ``edges``: the device and dtype checks, the
+    edges by value, taking and leaving the kept output, the one output
+    allocation, the ctypes call with its launch, and the whole wrapper; and
+    the torch ops one call records (``torch.profiler``, CPU activity),
+    which must be the output's ``aten::empty`` alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import cudalib, raster
+    dev = values.device
+    i = cudalib.device_index(values, levels, ok)
+    bins = edges.numel() - 1
+    key = (i, cudalib.current_stream(i), n_hist, bins)
+
+    def keep():
+        raster._HIST_NEXT[key] = raster._HIST_NEXT.pop(key, None)
+
+    hist, nxt = (torch.zeros((n_hist, bins), dtype=torch.int32, device=dev)
+                 for _ in range(2))
+    cudalib.lib()
+    entry = cudalib._FNS["raster_level_hist"
+                         + raster._suffix("level_hist", values)]
+    args = (values.data_ptr(), levels.data_ptr(), ok.data_ptr(),
+            edges.data_ptr(), 1, values.shape[0], n_hist, bins,
+            hist.data_ptr(), nxt.data_ptr())
+    stream = cudalib.current_stream(i)
+
+    def wrapper():
+        return raster.level_hist(values, levels, ok, edges, n_levels=n_hist)
+
+    wrapper()                       # the kept output exists from here on
+    steps = {
+        "checks": lambda: (cudalib.device_index(values, levels, ok),
+                           raster._suffix("level_hist", values)),
+        "edges by value": lambda: raster._hist_edges(i, edges, dev),
+        "kept output": keep,
+        "one allocation": lambda: torch.empty((n_hist, bins),
+                                              dtype=torch.int32, device=dev),
+        "ctypes call and launch": lambda: entry(*args, i, stream),
+        "whole wrapper": wrapper,
+    }
+    out = {name: host_us(fn, 500) for name, fn in steps.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        wrapper()
+    ops_seen = {e.key: e.count for e in prof.key_averages()
+                if e.key.startswith("aten::")}
+    if ops_seen != {"aten::empty": 1}:
+        raise AssertionError(f"level_hist's call ran torch ops {ops_seen}, "
+                             f"expected only its output's aten::empty")
+    out["torch ops a call"] = ops_seen
+    return out
+
+
+def sync_ms(fn, calls: int = 200) -> float:
+    """Host ms per call of ``fn`` followed by a device synchronize."""
+    import torch
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / calls
+
+
+def host_to_device_copies(fn) -> list:
+    """The host-to-device copies one call of ``fn`` makes
+    (``torch.profiler``, CUDA activity): [(event, count)]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count) for e in prof.key_averages() if "HtoD" in e.key]
+
+
+def time_hist_reducer(arrays: dict, on_card: dict, device) -> dict:
+    """The histogram reducers on Orion. The device path's (``insitu.device``
+    impl) on the snapshot on the card: its whole ``run`` with the live
+    DAG's fixed bounds and with auto bounds, split into the bounds pull,
+    the edges (``np.linspace``, ``torch.from_numpy``) and B3
+    (``ops.raster_level_hist``, its int64 cast included), beside B3 with
+    the edges uploaded first (the earlier route); host ms a call, each
+    followed by a synchronize. Then the host-to-device copies of one run:
+    none with fixed bounds (asserted), and of the mesh reducer's run at
+    ``MESH_SHARDS`` shards on the one card (none, asserted); the auto
+    bounds' own copies are counted."""
+    import numpy as np
+    import torch
+
+    from repro_torch.insitu import LevelHistogramReducer
+    from repro_torch.insitu.device import DeviceTree, device_impl_for
+    from repro_torch.insitu.mesh_reduce import MeshTable, mesh_impl_for
+    from repro_torch.kernels import ops
+    fixed = next(r for r in live_reducers()
+                 if isinstance(r, LevelHistogramReducer))
+    auto = LevelHistogramReducer(field="density", bins=fixed.bins)
+    dt = DeviceTree(on_card, 1)
+    v, lv, okk = dt.field("density"), dt.levels, dt.ok
+    n_hist = min(dt.n_levels, fixed.max_levels)
+    run_fixed, run_auto = device_impl_for(fixed), device_impl_for(auto)
+
+    def bounds():
+        inf = torch.tensor(float("inf"), dtype=v.dtype, device=v.device)
+        return torch.stack([torch.where(okk, v, inf).min(),
+                            torch.where(okk, v, -inf).max()]).cpu()
+
+    def edges():
+        return torch.from_numpy(np.linspace(fixed.lo, fixed.hi,
+                                            fixed.bins + 1))
+
+    e = edges()
+    parts = {
+        "run (fixed bounds)": lambda: run_fixed(dt),
+        "run (auto bounds)": lambda: run_auto(dt),
+        "bounds pull": bounds,
+        "edges": edges,
+        "B3": lambda: ops.raster_level_hist(v, lv, okk, e, n_levels=n_hist),
+        "B3 with the edges uploaded": lambda: ops.raster_level_hist(
+            v, lv, okk, e.to(device), n_levels=n_hist),
+    }
+    out = {"ms": {name: sync_ms(fn) for name, fn in parts.items()}}
+    out["htod_fixed"] = host_to_device_copies(lambda: run_fixed(dt))
+    out["htod_auto"] = host_to_device_copies(lambda: run_auto(dt))
+    mt = MeshTable(arrays, 1, [device] * MESH_SHARDS)
+    run_mesh = mesh_impl_for(fixed)
+    run_mesh(mt)                               # uploads the shards' fields
+    out["htod_mesh"] = host_to_device_copies(lambda: run_mesh(mt))
+    if out["htod_fixed"] or out["htod_mesh"]:
+        raise AssertionError(f"a histogram reducer copied host to device: "
+                             f"device path {out['htod_fixed']}, mesh "
+                             f"{out['htod_mesh']}")
+    print(f"time histogram reducer on Orion, host ms a call (synchronized):"
+          f" {out['ms']!r}; host-to-device copies a run: fixed bounds "
+          f"{out['htod_fixed']!r}, auto bounds {out['htod_auto']!r}, mesh "
+          f"S={MESH_SHARDS} {out['htod_mesh']!r}")
+    return out
 
 
 def wrapper_calls(chain, n_calls: int, reps: int = 20) -> dict:
@@ -2107,6 +2393,7 @@ def main() -> int:
     table_segment = check_projection_tables(device)
     check_projection_tables(device, f32=True)
     check_level26(device)
+    hist_err = check_hist_cases(device)
     coarse_err = check_coarse_tables(device)
     t0 = time.perf_counter()
     tree = orion_tree()
@@ -2124,6 +2411,8 @@ def main() -> int:
                                  tile_n=MESH_TILE))
     errs.update(check_codec_parity("orion full size", tree, device))
     errs["slice_raster"] = max(errs["slice_raster"], coarse_err)
+    for name in ("level_hist", "level_hist_f32"):
+        errs[name] = max(errs[name], hist_err)
 
     # -- 3. main path
     with tempfile.TemporaryDirectory(prefix="chip_smoke_",
@@ -2134,6 +2423,8 @@ def main() -> int:
         wall["breakdown"] = step_breakdown(
             on_card, str(tmp / "orion_prof"), "device_reduce",
             device_reduce=True, device=device)
+        wall["hist_reducer"] = time_hist_reducer(tree.to_arrays(), on_card,
+                                                 device)
         del on_card
         # -- 4. mesh path
         mesh_launches, wall["mesh"] = main_path_mesh(
@@ -2168,14 +2459,22 @@ def main() -> int:
     times.update(codec_times)
     bnd.update(codec_bnd)
     wall["stream_handle_us"] = time_stream_handles(device)
-    b1, b4, b6, b7 = (times[k] for k in ("slice_raster",
-                                         "slice_raster_carry",
-                                         "encode_groups", "decode_groups"))
+    b1, b3, b4, b6, b7 = (times[k] for k in ("slice_raster", "level_hist",
+                                             "slice_raster_carry",
+                                             "encode_groups",
+                                             "decode_groups"))
     print(f"time slice_raster wrapper alone on the Orion table: "
           f"{b1['wrapper_ms']!r} ms a call (CUDA events), host "
           f"{b1['host_ms']!r} ms a call, device {b1['device_ms']!r} ms a "
           f"call {b1['device_split_ms']!r}; host us per call of each step "
           f"{b1['host_steps_us']!r}")
+    print(f"time level_hist wrapper alone on the Orion table, CPU edges by "
+          f"value: {b3['wrapper_ms']!r} ms a call (CUDA events), host "
+          f"{b3['host_ms']!r} ms a call, device {b3['device_ms']!r} ms a "
+          f"call {b3['device_split_ms']!r}; edges on the card "
+          f"{b3['device_edges_ms']!r} ms; host us per call of each step "
+          f"{b3['host_steps_us']!r}; torch.histogram on the card: "
+          f"{b3['torch.histogram on the card']}")
     print(f"time encode_groups: wrapper {b6['ms']!r} ms a call (CUDA "
           f"events), host {b6['host_ms']!r} ms a call, device "
           f"{b6['device_ms']!r} ms; host us per call of each step "
@@ -2222,7 +2521,8 @@ def main() -> int:
               f"{t['device_ms']!r} ms a call {t['device_split_ms']!r}"
               + (f"; host us per call of each step {t['host_steps_us']!r}"
                  if "host_steps_us" in t else ""))
-    wall["wrapper_calls"] = {"slice_raster": b1, "encode_groups": b6,
+    wall["wrapper_calls"] = {"slice_raster": b1, "level_hist": b3,
+                             "encode_groups": b6,
                              "slice_raster_carry": b4,
                              "projection_raster": b2,
                              "projection_raster_carry": b5,

@@ -318,8 +318,10 @@ def _hist_impl(r: LevelHistogramReducer):
         if hi <= lo:
             hi = lo + 1.0
         edges = np.linspace(lo, hi, r.bins + 1)
+        # the edges stay on the host: B3 takes them by value, with no
+        # upload (which would synchronize the stream)
         hist = ops.raster_level_hist(
-            v, dt.levels, dt.ok, torch.from_numpy(edges).to(v.device),
+            v, dt.levels, dt.ok, torch.from_numpy(edges),
             n_levels=min(dt.n_levels, r.max_levels), backend=dt.backend)
         return {"hist": hist, "edges": edges}
     return run

@@ -334,9 +334,10 @@ def _hist_mesh(r: LevelHistogramReducer):
             hi = lo + 1.0
         edges = np.linspace(lo, hi, r.bins + 1)
         n_levels = min(mt.n_levels, r.max_levels)
+        # host edges, passed by value to every shard's B3: no upload
+        host_edges = torch.from_numpy(edges)
         parts = [ops.raster_level_hist_partial(
-            v, lv, ok, torch.from_numpy(edges).to(v.device),
-            n_levels=n_levels, backend=mt.backend)
+            v, lv, ok, host_edges, n_levels=n_levels, backend=mt.backend)
             for _, lv, v, ok in mt.shards(r.field)]
         hist = parts[0].to(mt.devices[0], torch.int64)
         for part in parts[1:]:

@@ -51,8 +51,13 @@
 //     CSR; one thread per pixel walks the levels in ascending order and
 //     adds its cell's leaves in row order. Explicit __dmul_rn/__dadd_rn
 //     keep nvcc from fusing the multiply into the add.
-//   * histogram: integer counts are order-free: a shared-memory (L, B)
-//     histogram per block, then integer atomicAdd into global memory.
+//   * histogram: integer counts are order-free, so integer atomics. One
+//     launch and no memset: one wave of blocks counts in shared memory and
+//     adds its cells into the output, which the previous call on the
+//     stream left zeroed; the launch zeroes the next call's output. The bin
+//     is a guess from the uniform spacing corrected against the edges (no
+//     binary search); up to 257 edges cross by value as a kernel
+//     parameter, so the caller uploads nothing.
 //   * carries (B4/B5): one leaf-table tile painted over the partial image of
 //     the earlier tiles. B4 resolves each pixel's tile winner against the
 //     seed depth: the sequential rule ``lvl >= depth`` lets the tile win at
@@ -84,6 +89,7 @@
 // synchronizes, and returns cudaGetLastError().
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 #include "device_guard.cuh"
@@ -499,51 +505,129 @@ __global__ void projection_kernel(const T* __restrict__ val,
 
 // ------------------------------------------------------------ B3 histogram
 
-// Grid-stride over rows; np.histogram bins: right-open, top edge inclusive,
-// out-of-range / NaN / invalid / bad-level rows dropped. A float32 value
-// widens to double exactly and is binned against the float64 edges.
-template <typename T>
-__global__ void level_hist_kernel(const T* __restrict__ val,
-                                  const int32_t* __restrict__ lvl,
-                                  const uint8_t* __restrict__ ok,
-                                  const double* __restrict__ edges,
-                                  int64_t n, int32_t n_levels, int32_t bins,
-                                  int32_t use_smem, int32_t* __restrict__ hist) {
-  extern __shared__ double s_edges[];    // (bins + 1) edges, then (L, B)
-  int32_t* s_hist = reinterpret_cast<int32_t*>(s_edges + bins + 1);
-  const int cells = n_levels * bins;
-  const double* e = edges;
-  int32_t* h = hist;
-  if (use_smem) {
-    for (int t = threadIdx.x; t <= bins; t += blockDim.x) s_edges[t] = edges[t];
-    for (int t = threadIdx.x; t < cells; t += blockDim.x) s_hist[t] = 0;
-    __syncthreads();
+// Edges up to this many cross by value as a kernel parameter (2,056 bytes,
+// under the 4 KB parameter limit): the caller's host copy is read by the C
+// entry, so no host-to-device copy is made (raster.py's HIST_PARAM_EDGES).
+constexpr int kParamEdges = 257;
+struct HistEdges {
+  double e[kParamEdges];
+};
+
+constexpr int kHistThreads = 256;
+
+// level_hist_kernel's route, fixed per call by the C entry.
+enum HistFlags : int32_t {
+  kHistSmemEdges = 1,    // the edges copied into shared memory
+  kHistVector = 2,       // 4 rows a unit, 16-byte loads (aligned columns)
+};
+
+// Row r's (L, B) cell, or -1 for a row np.histogram drops: not ok, NaN, out
+// of [lo, hi], or a level outside [0, n_levels). v is the value widened to
+// double. The bin is searchsorted(edges, v, side="right") - 1 (v == hi: the
+// last bin): a guess from the uniform spacing, then corrected against the
+// real edges; for any ascending edges (duplicates too) the walk ends at the
+// largest g with e[g] <= v, and for np.linspace edges it takes at most one
+// step. The guess is clamped before its conversion (NaN and inf included).
+__device__ __forceinline__ int32_t hist_cell(double v, int32_t l, bool good,
+                                             const double* e, int32_t bins,
+                                             int32_t n_levels, double lo,
+                                             double hi, double scale) {
+  if (!good || !(v >= lo) || !(v <= hi) || l < 0 || l >= n_levels) return -1;
+  int32_t g = bins - 1;
+  if (v != hi) {
+    const double t = (v - lo) * scale;
+    g = t >= 1.0 ? (t < (double)(bins - 1) ? (int32_t)t : bins - 1) : 0;
+    while (g > 0 && v < e[g]) --g;
+    while (g < bins - 1 && v >= e[g + 1]) ++g;
+  }
+  return l * bins + g;
+}
+
+// Four consecutive values in 16-byte loads (two for double).
+__device__ __forceinline__ void load4(const double* p, double (&v)[4]) {
+  const double2 a = reinterpret_cast<const double2*>(p)[0];
+  const double2 b = reinterpret_cast<const double2*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+__device__ __forceinline__ void load4(const float* p, double (&v)[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+
+// B3 in one launch, np.histogram's bins, into ``hist``, which is all zero
+// on entry (the previous call on the stream zeroed it). One wave of blocks,
+// grid-strided over units of rows: 4 rows on the vector route (16-byte
+// value and level loads, the 4 ok bytes as one word; the last n % 4 rows go
+// to block 0), else 1. A block counts into shared memory (kSharedCounts)
+// and adds its non-zero cells into ``hist``, or, when L * B does not fit
+// there, adds each row straight into ``hist``. The same launch zeroes
+// ``next``, the output of the next call on the stream, so no call memsets
+// and none waits for a last block. The edges come from ``edges`` on the
+// device, or, when it is null, from the by-value ``pe``. A float32 value
+// widens to double exactly and is binned against the float64 edges. The
+// shared atomics are not warp-aggregated: __match_any_sync or a ballot loop
+// before them measured slower on an H100, where the plain atomics cost
+// little (PERF.md).
+template <typename T, bool kSharedCounts>
+__global__ void __launch_bounds__(kHistThreads)
+level_hist_kernel(const T* __restrict__ val, const int32_t* __restrict__ lvl,
+                  const uint8_t* __restrict__ ok,
+                  const double* __restrict__ edges,
+                  const __grid_constant__ HistEdges pe, int64_t n,
+                  int32_t n_levels, int32_t bins, int32_t flags,
+                  int32_t* __restrict__ hist, int32_t* __restrict__ next) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  const int32_t cells = n_levels * bins;
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t t = first; t < cells; t += stride) next[t] = 0;
+  const double* e = edges ? edges : pe.e;
+  if (flags & kHistSmemEdges) {
+    double* s_edges = reinterpret_cast<double*>(s_raw);
+    for (int32_t t = threadIdx.x; t <= bins; t += blockDim.x) s_edges[t] = e[t];
     e = s_edges;
-    h = s_hist;
   }
+  int32_t* h = hist;
+  if (kSharedCounts) {
+    h = reinterpret_cast<int32_t*>(
+        s_raw + (flags & kHistSmemEdges ? (bins + 1) * sizeof(double) : 0));
+    for (int32_t t = threadIdx.x; t < cells; t += blockDim.x) h[t] = 0;
+  }
+  __syncthreads();
   const double lo = e[0], hi = e[bins];
-  for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < n;
-       r += (int64_t)gridDim.x * blockDim.x) {
-    const double v = (double)val[r];
-    const int l = lvl[r];
-    if (!ok[r] || !(v >= lo) || !(v <= hi) || l < 0 || l >= n_levels) continue;
-    int b;
-    if (v == hi) {
-      b = bins - 1;
-    } else {          // (count of edges <= v) - 1, by binary search
-      int a = 0, z = bins + 1;
-      while (a < z) {
-        const int m = (a + z) >> 1;
-        if (e[m] <= v) a = m + 1; else z = m;
+  const double scale = (double)bins / (hi - lo);
+  if (flags & kHistVector) {
+    const int64_t units = n / 4;
+    for (int64_t u = first; u < units; u += stride) {
+      double v[4];
+      load4(val + 4 * u, v);
+      const int4 l4 = reinterpret_cast<const int4*>(lvl)[u];
+      const uint32_t o4 = reinterpret_cast<const uint32_t*>(ok)[u];
+      const int32_t l[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int32_t c = hist_cell(v[j], l[j], (o4 >> (8 * j)) & 0xffu, e,
+                                    bins, n_levels, lo, hi, scale);
+        if (c >= 0) atomicAdd(&h[c], 1);
       }
-      b = a - 1;
     }
-    atomicAdd(&h[l * bins + b], 1);
+    if (blockIdx.x == 0 && threadIdx.x < n % 4) {
+      const int64_t r = n - n % 4 + threadIdx.x;
+      const int32_t c = hist_cell((double)val[r], lvl[r], ok[r], e, bins,
+                                  n_levels, lo, hi, scale);
+      if (c >= 0) atomicAdd(&h[c], 1);
+    }
+  } else {
+    for (int64_t r = first; r < n; r += stride) {
+      const int32_t c = hist_cell((double)val[r], lvl[r], ok[r], e, bins,
+                                  n_levels, lo, hi, scale);
+      if (c >= 0) atomicAdd(&h[c], 1);
+    }
   }
-  if (use_smem) {
+  if (kSharedCounts) {
     __syncthreads();
-    for (int t = threadIdx.x; t < cells; t += blockDim.x)
-      if (s_hist[t]) atomicAdd(&hist[t], s_hist[t]);
+    for (int32_t t = threadIdx.x; t < cells; t += blockDim.x)
+      if (h[t]) atomicAdd(&hist[t], h[t]);
   }
 }
 
@@ -627,22 +711,74 @@ cudaError_t slice_carry(const int32_t* coords2, const int32_t* c_axis,
   return cudaGetLastError();
 }
 
-// B3: the (L, B) counts zeroed, then one grid-stride pass over the rows.
+// B3's wave: the blocks of level_hist_kernel<T, kSharedCounts> that are
+// resident on the card at once with ``smem`` bytes of shared memory each.
+// The occupancy query costs host time, so the last answer is kept per
+// instantiation (the library's calls hold the interpreter lock: one at a
+// time).
+template <typename T, bool kSharedCounts>
+cudaError_t hist_wave(int32_t device, size_t smem, int64_t* blocks) {
+  static int32_t cached_device = -1;
+  static size_t cached_smem = 0;
+  static int64_t cached_blocks = 0;
+  if (device != cached_device || smem != cached_smem) {
+    int per_sm = 0, sms = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, level_hist_kernel<T, kSharedCounts>, kHistThreads, smem);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    cached_device = device;
+    cached_smem = smem;
+    cached_blocks = (int64_t)(per_sm > 0 ? per_sm : 1) * sms;
+  }
+  *blocks = cached_blocks;
+  return cudaSuccess;
+}
+
+// B3: one launch that adds the counts into the all-zero ``hist`` and zeroes
+// ``next`` (both (L, B) int32). ``edges`` is a host pointer when
+// ``edges_on_host`` (at most kParamEdges edges, copied here into the
+// kernel's parameters: no copy to the device), else a device pointer.
 template <typename T>
 cudaError_t level_hist(const T* val, const int32_t* lvl, const uint8_t* ok,
-                       const double* edges, int64_t n, int32_t n_levels,
-                       int32_t bins, int32_t* hist, cudaStream_t s) {
-  cudaError_t err = cudaMemsetAsync(
-      hist, 0, (size_t)n_levels * bins * sizeof(int32_t), s);
+                       const double* edges, int32_t edges_on_host, int64_t n,
+                       int32_t n_levels, int32_t bins, int32_t* hist,
+                       int32_t* next, int32_t device, cudaStream_t s) {
+  HistEdges pe;
+  if (edges_on_host) {
+    if (bins + 1 > kParamEdges) return cudaErrorInvalidValue;
+    std::memcpy(pe.e, edges, (size_t)(bins + 1) * sizeof(double));
+    edges = nullptr;
+  }
+  const size_t edge_bytes = (size_t)(bins + 1) * sizeof(double);
+  const size_t count_bytes = (size_t)n_levels * bins * sizeof(int32_t);
+  int32_t flags = 0;
+  size_t smem = 0;
+  if (edge_bytes <= kSmemNoOptIn) {
+    flags |= kHistSmemEdges;
+    smem = edge_bytes;
+  }
+  const bool shared_counts = smem + count_bytes <= kSmemNoOptIn;
+  if (shared_counts) smem += count_bytes;
+  if (((uintptr_t)val | (uintptr_t)lvl) % 16 == 0 && (uintptr_t)ok % 4 == 0)
+    flags |= kHistVector;
+  int64_t wave = 0;
+  cudaError_t err = shared_counts ? hist_wave<T, true>(device, smem, &wave)
+                                  : hist_wave<T, false>(device, smem, &wave);
   if (err != cudaSuccess) return err;
-  if (n == 0) return cudaGetLastError();
-  const size_t smem = (size_t)(bins + 1) * sizeof(double)
-                      + (size_t)n_levels * bins * sizeof(int32_t);
-  const int use_smem = smem <= kSmemNoOptIn;
-  int64_t blocks = ceil_div(n, kThreads);
-  if (blocks > 1056) blocks = 1056;           // 8 blocks per SM on 132 SMs
-  level_hist_kernel<T><<<blocks, kThreads, use_smem ? smem : 0, s>>>(
-      val, lvl, ok, edges, n, n_levels, bins, use_smem, hist);
+  // enough threads for every unit and every cell of ``next``, within a wave
+  const int64_t units = flags & kHistVector ? n / 4 : n;
+  const int64_t cells = (int64_t)n_levels * bins;
+  int64_t blocks = ceil_div(units > cells ? units : cells, kHistThreads);
+  if (blocks > wave) blocks = wave;
+  if (blocks < 1) blocks = 1;
+  if (shared_counts)
+    level_hist_kernel<T, true><<<blocks, kHistThreads, smem, s>>>(
+        val, lvl, ok, edges, pe, n, n_levels, bins, flags, hist, next);
+  else
+    level_hist_kernel<T, false><<<blocks, kHistThreads, smem, s>>>(
+        val, lvl, ok, edges, pe, n, n_levels, bins, flags, hist, next);
   return cudaGetLastError();
 }
 
@@ -738,23 +874,29 @@ int raster_projection_carry_f32(const int32_t* coords2, const int32_t* lvl,
                            img, static_cast<cudaStream_t>(stream));
 }
 
+// B3 (see level_hist above): ``hist`` is the output the previous call
+// zeroed, ``next`` the next call's.
 int raster_level_hist_f64(const double* val, const int32_t* lvl,
-                          const uint8_t* ok, const double* edges, int64_t n,
-                          int32_t n_levels, int32_t bins, int32_t* hist,
+                          const uint8_t* ok, const double* edges,
+                          int32_t edges_on_host, int64_t n, int32_t n_levels,
+                          int32_t bins, int32_t* hist, int32_t* next,
                           int32_t device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
-  return level_hist<double>(val, lvl, ok, edges, n, n_levels, bins, hist,
-                           static_cast<cudaStream_t>(stream));
+  return level_hist<double>(val, lvl, ok, edges, edges_on_host, n, n_levels,
+                            bins, hist, next, device,
+                            static_cast<cudaStream_t>(stream));
 }
 
 int raster_level_hist_f32(const float* val, const int32_t* lvl,
-                          const uint8_t* ok, const double* edges, int64_t n,
-                          int32_t n_levels, int32_t bins, int32_t* hist,
+                          const uint8_t* ok, const double* edges,
+                          int32_t edges_on_host, int64_t n, int32_t n_levels,
+                          int32_t bins, int32_t* hist, int32_t* next,
                           int32_t device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
-  return level_hist<float>(val, lvl, ok, edges, n, n_levels, bins, hist,
+  return level_hist<float>(val, lvl, ok, edges, edges_on_host, n, n_levels,
+                           bins, hist, next, device,
                            static_cast<cudaStream_t>(stream));
 }
 

@@ -45,8 +45,8 @@ SIGNATURES = {
                          _p, _p, _i32, _p],
     "raster_projection_f64": [_p, _p, _p, _p, _i64, _i32, _i32, _p, _p, _p,
                               _p, _i32, _p],
-    "raster_level_hist_f64": [_p, _p, _p, _p, _i64, _i32, _i32, _p, _i32,
-                              _p],
+    "raster_level_hist_f64": [_p, _p, _p, _p, _i32, _i64, _i32, _i32, _p,
+                              _p, _i32, _p],
     "raster_slice_carry_f64": [_p, _p, _i64, _p, _p, _p, _i64, _i32, _i32,
                                _f64, _p, _p, _p, _p, _p, _i32, _p],
     "raster_projection_carry_f64": [_p, _p, _p, _p, _i64, _i32, _i32, _p,
@@ -55,8 +55,8 @@ SIGNATURES = {
                                _f32, _p, _p, _p, _p, _p, _i32, _p],
     "raster_projection_carry_f32": [_p, _p, _p, _p, _i64, _i32, _i32, _p,
                                     _p, _p, _p, _p, _i32, _p],
-    "raster_level_hist_f32": [_p, _p, _p, _p, _i64, _i32, _i32, _p, _i32,
-                              _p],
+    "raster_level_hist_f32": [_p, _p, _p, _p, _i32, _i64, _i32, _i32, _p,
+                              _p, _i32, _p],
     # csrc/codec.cu
     "codec_encode_groups": [_p, _p, _p, _p, _i32, _i64, _i32, _i32, _p,
                             _i32, _p],

@@ -89,12 +89,21 @@ def raster_projection(coords, levels, values, ok, *, axis: int,
               resolution=resolution, n_levels=n_levels)
 
 
+def _level_hist(backend, values, levels, ok, edges, n_levels: int):
+    """B3 or, for ``backend="ref"``, its twin, which takes its edges on the
+    values' device (the kernel's wrapper also takes them on the CPU)."""
+    fn = _pick(backend, values, raster.level_hist, ref.level_hist_ref)
+    if fn is ref.level_hist_ref:
+        edges = edges.to(values.device)
+    return fn(values, levels.to(torch.int32), ok, edges, n_levels=n_levels)
+
+
 def raster_level_hist(values, levels, ok, edges, *, n_levels: int,
                       backend: str | None = None):
-    """(n_levels, bins) int64 per-level histogram over ``edges``."""
-    fn = _pick(backend, values, raster.level_hist, ref.level_hist_ref)
-    hist = fn(values, levels.to(torch.int32), ok, edges, n_levels=n_levels)
-    return hist.to(torch.int64)
+    """(n_levels, bins) int64 per-level histogram over ``edges`` (float64,
+    on the CPU or on the values' device)."""
+    return _level_hist(backend, values, levels, ok, edges,
+                       n_levels).to(torch.int64)
 
 
 # ------------------------------------------- partial (sharded/tiled) rasters
@@ -158,8 +167,7 @@ def raster_level_hist_partial(values, levels, ok, edges, *, n_levels: int,
     Integer counts are order-free, so partials merge by a plain sum. No
     ``tile_n``: the kernel streams the table with an O(L·B) working set.
     """
-    fn = _pick(backend, values, raster.level_hist, ref.level_hist_ref)
-    return fn(values, levels.to(torch.int32), ok, edges, n_levels=n_levels)
+    return _level_hist(backend, values, levels, ok, edges, n_levels)
 
 
 def _run_tiles(tile_fn, arrays, seed, *, tile_n: int | None, block_n: int):

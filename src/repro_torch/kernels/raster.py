@@ -14,7 +14,8 @@ tables), counted apart under ``<name>_f32``. Any other dtype raises.
 
 B1, B2, B4 and B5 each make one C call from the raw columns; the leaf
 table or CSR is built on the card, over scratch the module keeps per
-(device, stream).
+(device, stream). B3 makes one C call and one launch into an output the
+previous call zeroed, with its edges by value from the CPU.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import struct
 import torch
 
 from . import ref
-from .cudalib import current_stream, dense, device_index, launch
+from .cudalib import current_stream, dense, device_index, launch, on_cuda
 
 #: kernel launches per wrapper; each wrapper adds one where it launches
 LAUNCHES = {"slice_raster": 0, "projection_raster": 0, "level_hist": 0,
@@ -56,6 +57,18 @@ SLICE_OWN_AREA = 16
 #: between calls: the place step counts every cell back down), the int64
 #: offsets, and three int32 rows per table row (grown with N).
 _PROJ_SCRATCH: dict = {}
+
+#: B3's next output per (device, raw stream, L, B): an all-zero (L, B)
+#: int32 tensor. A call takes it as its output, adds the counts into it
+#: and, in the same launch, zeroes the fresh tensor it leaves here for the
+#: next call on the stream, so no call memsets or waits for a last block.
+#: A call takes the tensor out of the dict before it launches, so two
+#: threads never fill one output.
+_HIST_NEXT: dict = {}
+
+#: most histogram edges the C entry takes from the CPU by value, as a
+#: kernel parameter (``kParamEdges`` in csrc/raster.cu)
+HIST_PARAM_EDGES = 257
 
 #: cells per scan block of the CSR (``kScanChunk`` in csrc/raster.cu); the
 #: count and offsets scratch are padded to a multiple of it
@@ -377,25 +390,58 @@ def projection_raster_carry(coords2, levels, values, ok, *, resolution: int,
     return img
 
 
+def _hist_edges(dev: int, edges: torch.Tensor, device: torch.device):
+    """``(edges, on_host)`` for a B3 call on CUDA device ``dev``: float64
+    contiguous edges on the CPU (up to :data:`HIST_PARAM_EDGES`, which the
+    C entry passes by value) or on ``device``; more CPU edges than that
+    are copied to ``device``. Raises for edges on any other device."""
+    if edges.device.type != "cpu" and edges.get_device() != dev:
+        raise ValueError(f"level_hist takes its edges on the CPU or on the "
+                         f"values' device ({device}), got {edges.device}")
+    edges = _as(edges, torch.float64)
+    if edges.device.type == "cpu":
+        if edges.numel() <= HIST_PARAM_EDGES:
+            return edges, 1
+        edges = edges.to(device)
+    return edges, 0
+
+
 def level_hist(values, levels, ok, edges, *, n_levels: int) -> torch.Tensor:
     """B3: (L, B) int32 per-level histogram; same contract as
     :func:`.ref.level_hist_ref`. On the card float64 or float32 values,
-    binned against float64 edges."""
-    dev = device_index(values, levels, ok, edges)
+    binned against float64 edges, which may lie on the CPU (up to
+    :data:`HIST_PARAM_EDGES` cross by value: nothing is copied to the
+    card) or on the values' device. One C call launches one kernel, which
+    fills the zeroed output the previous call on the stream left in
+    ``_HIST_NEXT`` and zeroes the one this call allocates for the next;
+    the call runs no other torch op (the first call per stream and shape
+    makes its output with ``torch.zeros``)."""
+    dev = device_index(values, levels, ok)
     if dev < 0:
+        on_cuda(values, edges)        # raises unless the edges are on the CPU
         return ref.level_hist_ref(values, levels, ok, edges,
                                   n_levels=n_levels)
     fx = _suffix("level_hist", values)
     bins = edges.shape[-1] - 1
+    cells = n_levels * bins
+    if cells >= 2 ** 31:
+        raise ValueError(f"level_hist of {n_levels} levels x {bins} bins "
+                         f"exceeds the kernel's int32 cell index")
+    edg, on_host = _hist_edges(dev, edges, values.device)
     # bool ``ok`` is read as its uint8 bytes: no cast kernel
-    val, lvl, edg = (dense(values), _as(levels, torch.int32),
-                     _as(edges, torch.float64))
+    val, lvl = dense(values), _as(levels, torch.int32)
     okb = dense(ok) if ok.dtype in (torch.bool, torch.uint8) else \
         ok.to(torch.uint8).contiguous()
-    hist = torch.empty((n_levels, bins), dtype=torch.int32,
-                       device=values.device)
+    key = (dev, current_stream(dev), n_levels, bins)
+    hist = _HIST_NEXT.pop(key, None)
+    if hist is None:
+        hist = torch.zeros((n_levels, bins), dtype=torch.int32,
+                           device=values.device)
+    nxt = torch.empty((n_levels, bins), dtype=torch.int32,
+                      device=values.device)
     launch("raster_level_hist" + fx, dev, val.data_ptr(), lvl.data_ptr(),
-           okb.data_ptr(), edg.data_ptr(), val.shape[0], n_levels, bins,
-           hist.data_ptr())
+           okb.data_ptr(), edg.data_ptr(), on_host, val.shape[0], n_levels,
+           bins, hist.data_ptr(), nxt.data_ptr())
+    _HIST_NEXT[key] = nxt
     _count("level_hist", fx)
     return hist
