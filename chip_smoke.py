@@ -92,7 +92,22 @@ non-zero (and prints no result) otherwise, or on any failure.
      bounds pull, the edges and B3, and its run and the mesh reducer's
      must copy nothing host to device; for B2/B5 the longest (level,
      cell) segment of the Orion table and tiles; and the host cost of
-     the two spellings of the current stream's handle.
+     the two spellings of the current stream's handle;
+  7. serving and ledger (run after the mesh path, over the Orion
+     catalog phase 3 reduced on the card): (a) the port's
+     ``CatalogServer`` (``compress=True``) serves it, and
+     ``RemoteCatalog.query`` and the progressive stream of every reducer
+     at every step must be bitwise ``Catalog.query`` and the host
+     engine's catalog; (b) ``python -m repro_torch.launch.catalog_serve
+     --selftest --load 64 --root <that catalog>`` must exit 0 (its QPS,
+     p99 and coalesce/batch/reject counters are printed); (c) ``python
+     -m repro_torch.launch.insitu --device-reduce --serve-check
+     --ledger`` on Sedov steps must exit 0 with no mismatched array and
+     move B1-B3's launch counters, ``python -m repro_torch.launch.obs
+     report`` must read its ledger, whose ``device_fallbacks`` signal
+     must read 0 in every flush; (d) the Orion device-reduce wall per
+     step with the ledger bound (tracer on, 1 s flushes, as the CLI)
+     beside the wall without it, in turns, and one flush's ms and bytes.
 
 The line before the last is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -1525,6 +1540,233 @@ def codec_path_orion(tree, device) -> dict:
     return out
 
 
+# ---------------------------------------------------- serving and ledger
+
+SERVE_LOAD_CLIENTS = 64  # viewers of the catalog_serve load test
+
+
+def _src_env() -> dict:
+    import os
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+
+def serve_orion_catalog(root: str, host_root: str) -> dict:
+    """Phase 7a: the Orion catalog the card reduced, served by the port's
+    ``CatalogServer``; every remote query (buffered and progressive) must
+    be bitwise the local ``Catalog.query`` and the host engine's."""
+    import numpy as np
+
+    from repro_torch.insitu import Catalog, CatalogServer, RemoteCatalog
+    local, host = Catalog(root), Catalog(host_root)
+    srv = CatalogServer(root, port=0, compress=True).start()
+    try:
+        rc = RemoteCatalog(srv.url, timeout=120.0)
+        steps = rc.steps()
+        if steps != local.steps() or steps != host.steps() or not steps:
+            raise AssertionError(f"served steps {steps} != local "
+                                 f"{local.steps()} / host {host.steps()}")
+        n = n_q = nbytes = 0
+        t_buf = t_prog = 0.0
+        for s in steps:
+            if rc.reducers(s) != local.reducers(s):
+                raise AssertionError(f"step {s}: served reducers differ")
+            for r in local.reducers(s):
+                want, want_host = local.query(s, r), host.query(s, r)
+                n_q += 1
+                t0 = time.perf_counter()
+                got = rc.query(s, r)
+                t_buf += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                final = None
+                for final in rc.query_progressive(s, r):
+                    pass
+                t_prog += time.perf_counter() - t0
+                for k, v in want.items():
+                    for label, other in (("served", got[k]),
+                                         ("progressive", final[k]),
+                                         ("host engine", want_host[k])):
+                        if other.dtype != v.dtype or not np.array_equal(
+                                v, other, equal_nan=True):
+                            raise AssertionError(f"step {s} {r}/{k}: "
+                                                 f"{label} differs")
+                    n += 1
+                    nbytes += v.nbytes
+        info = rc.cache_info()
+    finally:
+        srv.close()
+        local.close()
+        host.close()
+    out = {"arrays": n, "queries": n_q, "bytes": nbytes,
+           "buffered_ms_per_query": 1e3 * t_buf / n_q,
+           "progressive_ms_per_query": 1e3 * t_prog / n_q,
+           "server_requests": info["server"]["requests"]}
+    print(f"serve orion catalog: {len(steps)} steps, {n_q} objects, "
+          f"{n} arrays ({nbytes} bytes) "
+          f"bitwise Catalog.query and the host engine's, buffered and "
+          f"progressive (compress=True); host ms a query: buffered "
+          f"{out['buffered_ms_per_query']!r}, progressive "
+          f"{out['progressive_ms_per_query']!r}")
+    return out
+
+
+def serve_load(root: str) -> dict:
+    """Phase 7b: ``python -m repro_torch.launch.catalog_serve --selftest
+    --load 64`` over the Orion device catalog, as a user runs it."""
+    import re
+    cmd = [sys.executable, "-m", "repro_torch.launch.catalog_serve",
+           "--selftest", "--load", str(SERVE_LOAD_CLIENTS), "--root", root]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                          env=_src_env(), timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"catalog_serve --selftest --load "
+                             f"{SERVE_LOAD_CLIENTS} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    text = proc.stdout
+    m = re.search(r"sustained (\S+) q/s, p99 (\S+) ms; engine: (\d+) backend "
+                  r"reads for (\d+) requests \((\S+)x\), (\d+) coalesced, "
+                  r"(\d+) batched, (\d+) rejected, (\d+) cache-served", text)
+    if m is None:
+        raise AssertionError(f"no load-test summary in:\n{text[-4000:]}")
+    keys = ("qps", "p99_ms", "backend_reads", "requests", "ratio",
+            "coalesced", "batched_reads", "rejections", "cache_serves")
+    out = {k: float(v) for k, v in zip(keys, m.groups())}
+    out["seconds"] = secs
+    for ln in text.splitlines():
+        if any(w in ln for w in ("== load test", " ok, ", "sustained",
+                                 "herd of", "arrays compared")):
+            print(f"serve load: {ln.strip()}")
+    print(f"serve load: python -m repro_torch.launch.catalog_serve "
+          f"--selftest --load {SERVE_LOAD_CLIENTS} over the Orion device "
+          f"catalog: rc 0 in {secs!r} s; qps {out['qps']!r}, p99 "
+          f"{out['p99_ms']!r} ms, coalesced {int(out['coalesced'])}, "
+          f"batched {int(out['batched_reads'])}, rejected "
+          f"{int(out['rejections'])}")
+    return out
+
+
+def cli_serve_ledger(tmp: Path, device) -> dict:
+    """Phase 7c: ``launch/insitu.py --device-reduce --serve-check
+    --ledger`` on Sedov steps, then ``launch.obs report`` on its run."""
+    import re
+
+    from repro_torch.kernels import raster
+    from repro_torch.launch import insitu as cli
+    from repro_torch.obs import TRACER, LedgerReader
+    run = str(tmp / "cli_ledger")
+    argv = ["--out", run, "--steps", "4", "--max-level", "6",
+            "--resolution", "128", "--policy", "block", "--queries", "4",
+            "--device-reduce", "--device", str(device), "--serve-check",
+            "--ledger"]
+    buf = io.StringIO()
+    raster.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    launches = dict(raster.LAUNCHES)
+    TRACER.disable()           # --ledger switched the tracer on
+    TRACER.clear()
+    text = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"launch/insitu.py --serve-check --ledger "
+                             f"exited {rc}:\n{text}")
+    check_launches(launches, "launch/insitu.py --serve-check --ledger")
+    m = re.search(r"serve check \S+: (\d+) arrays, (\d+) mismatched", text)
+    if m is None or int(m.group(2)) != 0 or int(m.group(1)) == 0:
+        raise AssertionError(f"serve check failed:\n{text}")
+    ledger_line = next(ln.strip() for ln in text.splitlines()
+                       if ln.strip().startswith("ledger:"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.obs",
+                           "report", run], capture_output=True, text=True,
+                          cwd=ROOT, env=_src_env(), timeout=300)
+    if proc.returncode != 0 or "verdict:" not in proc.stdout:
+        raise AssertionError(f"launch.obs report exited {proc.returncode}:"
+                             f"\n{proc.stdout}\n{proc.stderr}")
+    verdict = next(ln.strip() for ln in proc.stdout.splitlines()
+                   if "verdict:" in ln)
+    reader = LedgerReader(run)
+    try:
+        flushes = reader.flushes()
+        signals = [next(iter(f["parts"]["meta"].values()))["signals"]
+                   for f in flushes]
+        fallbacks = [sig.get("device_fallbacks") for sig in signals]
+        attributed = sorted(reader.attribs())
+        run_verdict = reader.verdict(flushes)
+    finally:
+        reader.close()
+    if not fallbacks or any(v != 0.0 for v in fallbacks):
+        raise AssertionError(f"ledger device_fallbacks signal: {fallbacks}")
+    if run_verdict == "critical":
+        raise AssertionError(f"ledger verdict critical:\n{proc.stdout}")
+    print(f"cli serve+ledger: python -m repro_torch.launch.insitu "
+          f"--device-reduce --serve-check --ledger: rc 0, {m.group(1)} "
+          f"arrays served, 0 mismatched; launches {launches}; "
+          f"{ledger_line}")
+    print(f"cli serve+ledger: python -m repro_torch.launch.obs report: rc "
+          f"0, {len(flushes)} flushes, {verdict}; device_fallbacks signal "
+          f"{fallbacks}; steps attributed {attributed}")
+    return {"launches": launches, "flushes": len(flushes),
+            "device_fallbacks": fallbacks, "verdict": run_verdict,
+            "steps_attributed": attributed}
+
+
+def time_ledger(arrays: dict, tmp: Path, device) -> dict:
+    """Phase 7d: the Orion device-reduce wall per step with a bound
+    ledger (the CLI's: tracer on, 1 s flush interval) beside the wall
+    without one, four runs each in turns (off, on, on, off, ...), and
+    one explicit flush's ms and bytes."""
+    from repro_torch.insitu.device import to_device
+    from repro_torch.obs import TRACER, RunLedger
+    on_card = to_device(arrays, device)
+    steps = range(1, ORION_STEPS + 2)
+    walls = {"off": [], "on": []}
+    flush = None
+    order = ("off", "on", "on", "off") * 2
+    for i, arm in enumerate(order):
+        root = str(tmp / f"ledger_{i}_{arm}")
+        led = None
+        if arm == "on":
+            TRACER.clear()
+            TRACER.enable()
+            led = RunLedger(root, "trainer", interval=1.0)
+        try:
+            _, w = run_engine(root, live_reducers(),
+                              [(s, on_card) for s in steps],
+                              device_reduce=True, device=device,
+                              ledger=led)
+            if led is not None and flush is None:
+                before = led.bytes_written
+                t0 = time.perf_counter()
+                led.flush()
+                flush = {"ms": 1e3 * (time.perf_counter() - t0),
+                         "bytes": led.bytes_written - before}
+        finally:
+            if led is not None:
+                led.close()
+                TRACER.disable()
+                TRACER.clear()
+        walls[arm].append(1e3 * sum(w[1:]) / len(w[1:]))
+    out = {"wall_ms_per_step_off": walls["off"],
+           "wall_ms_per_step_on": walls["on"], "order": list(order),
+           "flush_ms": flush["ms"], "flush_bytes": flush["bytes"]}
+    print(f"time ledger: device_reduce wall per Orion step (steps "
+          f"2-{ORION_STEPS + 1}), in turns {list(order)}: without "
+          f"{walls['off']!r} ms, with the ledger bound {walls['on']!r} ms; "
+          f"one explicit flush {flush['ms']!r} ms, {flush['bytes']} bytes")
+    return out
+
+
+def serving_and_ledger(tree, tmp: Path, device) -> dict:
+    """Phase 7 (see the module docstring)."""
+    out = {"serve": serve_orion_catalog(str(tmp / "orion_dev"),
+                                        str(tmp / "orion_host")),
+           "load": serve_load(str(tmp / "orion_dev")),
+           "cli": cli_serve_ledger(tmp, device),
+           "ledger": time_ledger(tree.to_arrays(), tmp, device)}
+    return out
+
+
 # --------------------------------------------------------------- timing
 
 def time_ms(fn, reps: int, warm: int = 2) -> float:
@@ -2430,6 +2672,8 @@ def main() -> int:
         mesh_launches, wall["mesh"] = main_path_mesh(
             tree, tmp, device, str(tmp / "orion_host"))
         main_path_mesh_cli(tmp, device)
+        # -- 7. serving and ledger, over the Orion catalog of phase 3
+        wall["serving"] = serving_and_ledger(tree, tmp, device)
         shutil.rmtree(tmp, ignore_errors=True)
     # -- 4b. the mesh path's float32 tables
     wall["mesh_f32"] = main_path_mesh_f32(tree, device, wall["mesh"])

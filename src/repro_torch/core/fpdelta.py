@@ -21,10 +21,10 @@ pure vectorized cumsum+gather — same total size, no sequential walk. The
 paper's top-down order is kept: groups are emitted level by level, so
 partial decompression down to a chosen level works (``decode_to_level``).
 
-Everything here is host-side numpy orchestration. On a card,
-``kernels.ops.compress_bits`` runs the compute-hot inner step (XOR +
-group-OR + CLZ) as a CUDA kernel and writes the same code and payload
-words.
+Everything here is host-side numpy orchestration, and nothing here
+calls a kernel. ``kernels.ops.compress_bits`` is the compute-hot inner
+step (XOR + group-OR + CLZ) as a CUDA kernel; it writes the same code
+and payload words as :func:`encode_tree_field`.
 """
 from __future__ import annotations
 

@@ -628,8 +628,8 @@ class TelemetryKind(ObjectKind):
     """Run-ledger telemetry batches (``telemetry/<part>``).
 
     The observability flavor of the paper's purpose-specific-format
-    lesson (DESIGN.md §19): each flush of :class:`repro.obs.ledger.
-    RunLedger` writes one ledger context whose records are JSON parts —
+    lesson (DESIGN.md §19): each flush of
+    :class:`repro_torch.obs.ledger.RunLedger` writes one ledger context whose records are JSON parts —
     ``telemetry/meta``, ``telemetry/metrics``, ``telemetry/spans``,
     ``telemetry/events``, ``telemetry/attrib``, ``telemetry/health`` —
     and every writing process (trainer/engine, process lanes relayed

@@ -22,6 +22,14 @@ written at an independent cadence.
     shard and merged on the first device, so no device holds more than
     its shard (``InTransitEngine(device_reduce="mesh")``).
   * :mod:`catalog`   — the read side: cached, domain-merged queries.
+  * :mod:`serve`     — the continuous-batching serving core: in-flight
+    identical queries coalesce onto one decode+merge (single-flight),
+    region crops batch, admission control + per-client fairness bound
+    overload, and ``fpdelta-pyramid`` levels stream coarse-first.
+  * :mod:`server`    — the catalog as a service: many viewer processes
+    share one reduction cache over HTTP (``hx-frame/1`` frames, read by
+    ``RemoteCatalog`` of either package), routed through the serving
+    engine.
 """
 from .catalog import Catalog                                   # noqa: F401
 from .engine import InTransitEngine                            # noqa: F401
@@ -31,6 +39,9 @@ from .partition import partition_snapshot                      # noqa: F401
 from .reducers import (LevelHistogramReducer, LODCutReducer,   # noqa: F401
                        ProjectionReducer, Reducer, ReducerDAG,
                        SliceReducer, SpectraReducer, TensorNormReducer)
+from .serve import (ProgressiveAssembler, ServeEngine,         # noqa: F401
+                    ServeOverloaded, plan_progressive, staging_pressure)
+from .server import CatalogBusy, CatalogServer, RemoteCatalog  # noqa: F401
 from .staging import (POLICIES, ShmStagingArea, Snapshot,      # noqa: F401
                       StagingArea, StrideController)
 from .device import (DeviceDAGRunner, DeviceStagingArea,       # noqa: F401

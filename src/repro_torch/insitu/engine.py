@@ -86,7 +86,7 @@ class InTransitEngine:
                  durable_parts: bool = False, backend: str = "thread",
                  step_ttl: float | None = None,
                  device_reduce: bool | str = False, device=None,
-                 mesh_devices=None, lane_pool: bool = False):
+                 mesh_devices=None, lane_pool: bool = False, ledger=None):
         from .lanes import BACKENDS
         if backend not in BACKENDS:   # before creating anything on disk
             raise ValueError(f"unknown lane backend {backend!r}; "
@@ -191,10 +191,56 @@ class InTransitEngine:
         self._bp_active = False
         self._fallback_seen = 0
         self._dumped = False
+        self.ledger = None
+        if ledger is not None:
+            self.bind_ledger(ledger)
 
     @property
     def backend(self) -> str:
         return self._backend.name
+
+    # ------------------------------------------------------------ run ledger
+    def bind_ledger(self, ledger) -> None:
+        """Attach a :class:`~repro_torch.obs.ledger.RunLedger`: the
+        engine registers its metrics registry as a flush source and its
+        health signals, and lane telemetry relayed over the results
+        queue is forwarded into each lane's own ledger domain."""
+        self.ledger = ledger
+        ledger.add_source("engine", self.obs.snapshot)
+        ledger.add_signal("staging_pressure", self._sig_staging_pressure)
+        ledger.add_signal("backpressure", self._sig_backpressure)
+        ledger.add_signal(
+            "engine_failed",
+            lambda: float(self._failed + len(self._errors)))
+        if self._device is not None:
+            # the device runner's own count of snapshots it had to
+            # materialize on the host (DeviceRunStats.fallback_snapshots)
+            ledger.add_signal(
+                "device_fallbacks",
+                lambda: float(self._device.stats.fallback_snapshots))
+
+    def _sig_staging_pressure(self) -> float | None:
+        """Worst queue-fill fraction across the contributor groups."""
+        worst = None
+        for area in self.stages:
+            try:
+                frac = len(area) / max(1, area.capacity)
+            except Exception:           # noqa: BLE001 — unlinked shm area
+                continue
+            worst = frac if worst is None else max(worst, frac)
+        return worst
+
+    def _sig_backpressure(self) -> float:
+        """Fraction of wall time producers spent blocked since the last
+        sample (block policy; drop policies surface as evict events)."""
+        now = time.monotonic()
+        total = sum(a.stats.as_dict().get("block_seconds", 0.0)
+                    for a in self.stages)
+        last_t, last_b = getattr(self, "_bp_sample", (None, 0.0))
+        self._bp_sample = (now, total)
+        if last_t is None or now <= last_t:
+            return 0.0
+        return min(1.0, max(0.0, (total - last_b) / (now - last_t)))
 
     def _note_backpressure(self) -> None:
         """Edge-triggered backpressure events off the block-time stat:
@@ -666,6 +712,8 @@ class InTransitEngine:
             "trace": {"spans_dropped": TRACER.spans_dropped,
                       "max_spans": TRACER.max_spans,
                       "events_dropped": obs_events.EVENTS.dropped},
+            "ledger": None if self.ledger is None
+            else self.ledger.telemetry(),
             "metrics": self.obs.snapshot(),
         }
 

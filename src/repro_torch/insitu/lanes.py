@@ -197,8 +197,8 @@ def _lane_main(handle, root: str, group: int, reducers, compress: bool,
     slot 5; "exit" carries the lane's cumulative stats dict in slot 8.
     Slot 9 ships the lane's flight-recorder drain (its process-local
     event ring since the previous message — e.g. ``lane.error`` on a
-    failed reduce), which the collector relays into the engine
-    process's event ring.
+    failed reduce), which the collector relays into the lane's own
+    domain of the run ledger.
 
     ``reducers`` may be a prebuilt :class:`ReducerDAG` (pooled lanes
     pass their fingerprint-cached DAG) or a reducer list. When a popped
@@ -607,10 +607,15 @@ class ProcessLaneBackend(LaneBackend):
             eng._run_deferred()
 
     def _relay_events(self, group: int, evs: list) -> None:
-        """Land a lane's flight-recorder drain in the engine-process ring
-        so the events stay live-visible."""
-        del group
-        obs_events.EVENTS.ingest(evs)
+        """Land a lane's flight-recorder drain: into its own ledger
+        domain when a run ledger is bound, else into the engine-process
+        ring so the events at least stay live-visible."""
+        led = self.engine.ledger
+        if led is not None:
+            from ..obs.ledger import lane_domain
+            led.ingest_domain(lane_domain(group), {"events": evs})
+        else:
+            obs_events.EVENTS.ingest(evs)
 
     def _check_lanes(self) -> None:
         """Surface lanes that died without reporting (crash semantics).
@@ -629,7 +634,10 @@ class ProcessLaneBackend(LaneBackend):
                 # producer against a lane that will never pop again
                 self.stages[g].close()
                 # flight recorder: a SIGKILLed lane reports nothing, so
-                # the engine writes the crash event on its behalf
+                # the engine writes the crash event on its behalf and
+                # forces a durable ledger flush (the ledger's dump hook)
+                # with whatever partial attribution the dead lane's
+                # steps have
                 obs_events.EVENTS.emit(
                     obs_events.LANE_CRASH, group=g,
                     exitcode=p.exitcode)

@@ -82,27 +82,29 @@ def main(argv=None):
     p.add_argument("--queries", type=int, default=16,
                    help="viewer queries to replay against the catalog")
     p.add_argument("--serve-check", action="store_true",
-                   help="not ported yet (catalog server)")
+                   help="also serve the catalog on an ephemeral port and "
+                        "verify RemoteCatalog == local merge-at-read")
     p.add_argument("--trace-out", default=None, metavar="PATH",
                    help="record per-step spans (submit -> staging -> "
                         "reduce -> write -> commit, across process lanes) "
                         "and write a Chrome-trace JSON loadable in "
                         "Perfetto / chrome://tracing")
     p.add_argument("--ledger", action="store_true",
-                   help="not ported yet (run ledger)")
+                   help="persist a run ledger (metrics/spans/events/"
+                        "attribution/health) into <out>/telemetry/; "
+                        "inspect with python -m repro_torch.launch.obs")
+    p.add_argument("--ledger-interval", type=float, default=1.0,
+                   help="seconds between background ledger flushes "
+                        "(0 = flush only at exit)")
     args = p.parse_args(argv)
 
-    for flag, on in (("--serve-check", args.serve_check),
-                     ("--ledger", args.ledger)):
-        if on:
-            p.error(f"{flag} is not ported to repro_torch yet")
     if args.device_mesh and args.device_reduce:
         p.error("--device-mesh and --device-reduce are exclusive paths")
     if args.device is not None and not (args.device_reduce
                                         or args.device_mesh):
         p.error("--device only applies with --device-reduce or "
                 "--device-mesh")
-    if args.trace_out:
+    if args.trace_out or args.ledger:
         from ..obs import TRACER
         TRACER.enable()
 
@@ -110,6 +112,11 @@ def main(argv=None):
         args.out = tempfile.mkdtemp(prefix="hx_insitu_")
     else:
         shutil.rmtree(args.out, ignore_errors=True)
+    ledger = None
+    if args.ledger:
+        from ..obs import RunLedger
+        ledger = RunLedger(args.out, "trainer",
+                           interval=args.ledger_interval)
     reducers = default_reducers(args.resolution, args.lod, args.domains)
     device_reduce = "mesh" if args.device_mesh else args.device_reduce
     device, mesh_devices = args.device, None
@@ -124,7 +131,8 @@ def main(argv=None):
         queue_capacity=args.queue_capacity, policy=args.policy,
         domains=args.domains, backend=args.backend,
         device_reduce=device_reduce, device=device,
-        mesh_devices=mesh_devices, lane_pool=args.lane_pool).start()
+        mesh_devices=mesh_devices, lane_pool=args.lane_pool,
+        ledger=ledger).start()
 
     print(f"== compute flow: {args.steps} Sedov steps "
           f"(policy={args.policy}, output_every={args.output_every}, "
@@ -178,6 +186,15 @@ def main(argv=None):
           f"bytes_staged={tot['bytes_staged']/1e6:.2f} MB; "
           f"lanes={tel['lanes']}")
     engine.close()
+    if ledger is not None:
+        verdict = ledger.verdict()
+        ledger.close()
+        lt = ledger.telemetry()
+        print(f"   ledger: {lt['flushes']} flushes, "
+              f"{lt['bytes_written']/1e3:.1f} kB, "
+              f"{lt['steps_attributed']} steps attributed, "
+              f"verdict={verdict} -> {args.out}/telemetry/ "
+              f"(python -m repro_torch.launch.obs report {args.out})")
     if args.lane_pool:
         from ..insitu import shutdown_pool
         shutdown_pool()       # reclaim the resident lanes before exit
@@ -232,6 +249,27 @@ def main(argv=None):
         print(f"   merge check {hname}: {len(parts)} domains, "
               f"counts {int(merged.sum())} == sum(parts) {total}: {ok}")
         if not ok:
+            return 1
+    if args.serve_check:
+        # server-mode catalog: remote viewers must see exactly the local
+        # merge-at-read answers, served from one shared cache
+        from ..insitu import CatalogServer, RemoteCatalog
+        srv = CatalogServer(cat, port=0).start()
+        try:
+            rc = RemoteCatalog(srv.url)
+            n_arr = bad = 0
+            for name in names:
+                remote = rc.query(steps[-1], name)
+                local = cat.query(steps[-1], name)
+                for k, v in local.items():
+                    n_arr += 1
+                    if not np.array_equal(v, remote[k], equal_nan=True):
+                        bad += 1
+            print(f"   serve check {srv.url}: {n_arr} arrays, "
+                  f"{bad} mismatched; server cache {rc.cache_info()}")
+        finally:
+            srv.close()
+        if bad:
             return 1
     full_slice = next(r for r in reducers
                       if isinstance(r, SliceReducer) and r.source is None)

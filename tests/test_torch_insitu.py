@@ -245,8 +245,7 @@ def test_cli_default_out_is_a_fresh_temp_dir(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--device-mesh", "2", "--device-reduce"],
-                                  ["--serve-check"],
-                                  ["--ledger"], ["--device", "cpu"]])
+                                  ["--device", "cpu"]])
 def test_cli_refuses_unported_flags(tmp_path, flag):
     with pytest.raises(SystemExit) as ei:
         cli.main(["--out", str(tmp_path / "x"), *flag])
