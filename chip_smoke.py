@@ -107,7 +107,27 @@ non-zero (and prints no result) otherwise, or on any failure.
      report`` must read its ledger, whose ``device_fallbacks`` signal
      must read 0 in every flush; (d) the Orion device-reduce wall per
      step with the ledger bound (tracer on, 1 s flushes, as the CLI)
-     beside the wall without it, in turns, and one flush's ms and bytes.
+     beside the wall without it, in turns, and one flush's ms and bytes;
+  8. HProt on the card: (a) the train state of one full-width
+     stablelm-1.6b decoder layer (51.4 M parameters in bfloat16, Adam
+     moments in float32, an int32 step; about 514 MB), made on the card
+     from a seeded generator, matrices row-sharded over four shards of
+     the one card, vectors replicated; (b) ``AsyncCheckpointManager``
+     (thread lanes, ``delta_every=2``) over four saves (full, delta,
+     delta, full rebase), every tensor mutated in place right after each
+     ``save`` returns: every step must restore bitwise, as it was when
+     ``save`` was called, onto 4, 2 and 8 shards and whole, and one more
+     save goes through a process lane; (c) a synchronous
+     ``CheckpointManager`` save of the same state, its wall beside the
+     async stall; (d) the Orion tree's arrays, on the card, saved raw and
+     restored bitwise, ``AMRTree.from_arrays`` equal to the tree;
+     (e) ``InTransitEngine.submit_state`` of the layer's parameters
+     through ``TensorNormReducer`` and ``SpectraReducer(k=8)`` on the
+     card against the same engine on the CPU (rtol 1e-5, atol 1e-6); no
+     ``device.fallback`` event. Stall, gather, commit, encode and
+     device-to-host rates, stored bytes, restore rates and the cut's
+     device time against its bound are printed beside the card's name
+     and power limit.
 
 The line before the last is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -221,10 +241,11 @@ def kernel_inputs(arrays: dict, device, *, n_domains: int = 1, axis: int = 2):
 # ------------------------------------------------------------- parity
 
 def _bits(t):
-    """A float tensor's bit patterns (int64 / int32), else the tensor."""
+    """A float tensor's bit patterns (int64 / int32 / int16), else the
+    tensor."""
     import torch
-    view = {torch.float64: torch.int64, torch.float32: torch.int32}.get(
-        t.dtype)
+    view = {torch.float64: torch.int64, torch.float32: torch.int32,
+            torch.bfloat16: torch.int16}.get(t.dtype)
     return t if view is None else t.view(view)
 
 
@@ -1767,6 +1788,434 @@ def serving_and_ledger(tree, tmp: Path, device) -> dict:
     return out
 
 
+# ------------------------------------------------------ 8. HProt on the card
+
+#: one decoder layer of stablelm-1.6b at its full width
+#: (src/repro/configs/stablelm_1_6b.py: d_model 2048, d_ff 5632, swiglu
+#: MLP, layernorm): 51,388,416 parameters
+D_MODEL, D_FF = 2048, 5632
+HPROT_SHARDS = 4           # the mesh path's S = 4, on the one card
+HPROT_SAVES = 4            # full, delta, delta, full rebase (delta_every=2)
+#: shard counts every step restores onto; None: whole, from meta templates
+HPROT_LAYOUTS = (4, 2, 8, None)
+
+
+def hprot_tree(make) -> dict:
+    """The layer's train-state tree with ``make(shape, dtype)`` at every
+    leaf: bfloat16 parameters (a mixed-precision run), float32 Adam
+    moments and an int32 step."""
+    import torch
+    d, f = D_MODEL, D_FF
+    shapes = {"attn": {"q": (d, d), "k": (d, d), "v": (d, d), "o": (d, d)},
+              "mlp": {"gate": (d, f), "up": (d, f), "down": (f, d)},
+              "ln1": {"scale": (d,), "bias": (d,)},
+              "ln2": {"scale": (d,), "bias": (d,)}}
+
+    def layer(dtype, kind):
+        return {blk: {n: make(shape, dtype, kind) for n, shape in
+                      leaves.items()} for blk, leaves in shapes.items()}
+    return {"params": layer(torch.bfloat16, "param"),
+            "opt": {"mu": layer(torch.float32, "mu"),
+                    "nu": layer(torch.float32, "nu")},
+            "step": make((), torch.int32, "step")}
+
+
+def hprot_state(device, seed: int = 20) -> dict:
+    """(a) The layer's train state, made on the card from a seeded
+    generator: matrices row-sharded over ``[device] * 4``, vectors
+    replicated (ownership pruning writes them once)."""
+    import torch
+
+    from repro_torch.hercule.checkpoint import replicate, shard_rows
+    gen = torch.Generator(device=device).manual_seed(seed)
+    devs = [device] * HPROT_SHARDS
+
+    def make(shape, dtype, kind):
+        if kind == "step":
+            return torch.zeros((), dtype=dtype, device=device)
+        x = torch.randn(shape, generator=gen, device=device)
+        x = {"param": x * 0.02, "mu": x * 1e-3,
+             "nu": x.square() * 1e-6}[kind].to(dtype)
+        return shard_rows(x, devs) if x.ndim == 2 else replicate(x, devs)
+    return hprot_tree(make)
+
+
+def hprot_template(n, device) -> dict:
+    """The state's layout over ``[device] * n`` (``None``: whole leaves
+    from ``meta`` tensors, restored onto the current CUDA device)."""
+    import torch
+
+    from repro_torch.hercule.checkpoint import ShardSpec
+
+    def make(shape, dtype, kind):
+        if n is None:
+            return torch.empty(shape, dtype=dtype, device="meta")
+        if not shape:
+            return torch.empty((), dtype=dtype, device=device)
+        devs = [device] * n
+        return ShardSpec.rows(shape, dtype, devs) if len(shape) == 2 \
+            else ShardSpec.replicated(shape, dtype, devs)
+    return hprot_tree(make)
+
+
+def hprot_leaves(state, device=None) -> dict:
+    """keystr -> a copy of the leaf as one tensor (on ``device``, else
+    where its first shard lives)."""
+    from repro_torch.hercule.checkpoint import ShardedTensor, _leaf_paths
+    return {p: leaf.full(device) if isinstance(leaf, ShardedTensor)
+            else leaf.to(device or leaf.device, copy=True)
+            for p, leaf in _leaf_paths(state)}
+
+
+def hprot_tensors(state) -> list:
+    """Every local tensor of ``state``: each shard of a sharded leaf."""
+    from repro_torch.hercule.checkpoint import ShardedTensor, _leaf_paths
+    out = []
+    for _, leaf in _leaf_paths(state):
+        out += [t for _, _, t in leaf.shards] \
+            if isinstance(leaf, ShardedTensor) else [leaf]
+    return out
+
+
+def hprot_drift(state, k: int) -> None:
+    """``benchmarks/bench_checkpoint._drift`` in place: float tensors
+    ``+= k * 1e-5`` (temporally correlated, delta-friendly; most bfloat16
+    weights do not move at that size), the step set to ``k``."""
+    for t in hprot_tensors(state):
+        if t.is_floating_point():
+            t.add_(k * 1e-5)
+        else:
+            t.fill_(k)
+
+
+def hprot_check(label: str, got, want: dict) -> int:
+    """Raise unless every leaf of ``got`` has ``want``'s dtype, shape
+    and bits (compared where ``want`` lives); returns the bytes
+    compared."""
+    got = hprot_leaves(got, next(iter(want.values())).device)
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{label}: leaves {sorted(got)}")
+    for name, w in want.items():
+        _same_bits(f"{label} {name}", [got[name]], [w])
+    return sum(_nbytes(w) for w in want.values())
+
+
+def hprot_rate(nbytes: int, seconds: float):
+    """MB/s, or None where nothing was timed."""
+    return nbytes / 1e6 / seconds if seconds > 0 else None
+
+
+def hprot_seconds(mgr, name: str) -> float:
+    """Sum of the samples of one of the manager's histograms."""
+    return sum(s["value"]["sum"]
+               for s in mgr.obs.snapshot()[name]["samples"])
+
+
+def hprot_cut_device_ms(state) -> dict:
+    """One snapshot cut's clones: their device time (``torch.profiler``,
+    device-to-device copies) against their bound, every byte read once
+    and written once at the memory rate."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.ckpt import AsyncCheckpointManager
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        mgr = AsyncCheckpointManager(d, ncf=4)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cut = mgr._snapshot(state)
+            torch.cuda.synchronize()
+        mgr.close()
+    nbytes = sum(_nbytes(e[4]) for e in cut)
+    del cut
+    dev = [(e.key, e.self_device_time_total / 1e3)
+           for e in prof.key_averages() if e.self_device_time_total > 0]
+    return {"device_ms": sum(ms for _, ms in dev) if dev else None,
+            "by_kind": dev[:4], "bytes": nbytes,
+            "bound_ms": 1e3 * 2 * nbytes / MEM_BYTES_PER_S}
+
+
+def hprot_async(state, root: str, device) -> tuple:
+    """(b) ``AsyncCheckpointManager(ncf=4, delta_every=2)`` over four
+    saves, every tensor mutated in place (``add_``) right after each
+    ``save`` returns; every step restored bitwise onto 4, 2 and 8 shards
+    and whole."""
+    import torch
+
+    from repro_torch.ckpt import AsyncCheckpointManager
+    mgr = AsyncCheckpointManager(root, ncf=4, delta_every=2,
+                                 lane_backend="thread")
+    want, saves = {}, []
+    state_bytes = sum(_nbytes(t) for t in hprot_tensors(state))
+    for s in range(1, HPROT_SAVES + 1):
+        hprot_drift(state, s)
+        # the expected state and the undo copy wait on the host, so the
+        # card's allocator holds only what a training loop would
+        want[s] = hprot_leaves(state, torch.device("cpu"))
+        shadow = [t.to("cpu", copy=True) for t in hprot_tensors(state)]
+        torch.cuda.synchronize()
+        tel0 = mgr.telemetry()
+        g0 = hprot_seconds(mgr, "ckpt_gather_seconds")
+        c0 = hprot_seconds(mgr, "ckpt_commit_seconds")
+        t0 = time.perf_counter()
+        mgr.save(s, state)
+        stall = time.perf_counter() - t0
+        for t in hprot_tensors(state):    # queued behind the cut's clones
+            t.add_(1)
+        t1 = time.perf_counter()
+        # the next save comes after this one's host work, as in a run
+        # that checkpoints every few hundred steps
+        mgr.wait()
+        background = time.perf_counter() - t1
+        tel = mgr.telemetry()
+        moved = tel["bytes_to_host"] - tel0["bytes_to_host"]
+        saves.append({
+            "step": s, "mode": mgr.db.view(s).attrs["mode"],
+            "stall_ms": 1e3 * stall, "background_ms": 1e3 * background,
+            "gather_ms": 1e3 * (hprot_seconds(mgr, "ckpt_gather_seconds")
+                                - g0),
+            "commit_ms": 1e3 * (hprot_seconds(mgr, "ckpt_commit_seconds")
+                                - c0),
+            "bytes_to_host": moved,
+            "d2h_mb_per_s": hprot_rate(
+                moved, tel["d2h_seconds"] - tel0["d2h_seconds"]),
+            "encode_mb_per_s": hprot_rate(
+                state_bytes,
+                tel["encode_seconds"] - tel0["encode_seconds"])})
+        for t, c in zip(hprot_tensors(state), shadow):
+            t.copy_(c)                    # undo the mutation
+        del shadow
+    stored: dict = {}
+    for sv in saves:
+        recs = mgr.db.view(sv["step"]).records
+        sv["stored_bytes"] = sum(r.nbytes for r in recs)
+        for r in recs:
+            key = f"{sv['mode']}/{r.codec}"
+            stored[key] = stored.get(key, 0) + r.nbytes
+    restores = []
+    for s in range(1, HPROT_SAVES + 1):
+        for n in HPROT_LAYOUTS:
+            t0 = time.perf_counter()
+            got, attrs = mgr.restore(hprot_template(n, device), step=s)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            nbytes = hprot_check(f"hprot step {s} onto {n or 'whole'}",
+                                 got, want[s])
+            del got
+            restores.append({"step": s, "layout": n or "whole",
+                             "mode": attrs["mode"], "ms": 1e3 * wall,
+                             "mb_per_s": nbytes / 1e6 / wall})
+    tel = mgr.telemetry()
+    mgr.close()
+    if tel["errors"] or tel["committed"] != HPROT_SAVES:
+        raise AssertionError(f"hprot async manager: {tel}")
+    modes = [sv["mode"] for sv in saves]
+    if modes != ["full", "delta", "delta", "full"]:
+        raise AssertionError(f"hprot save modes {modes}")
+    return want, {"saves": saves, "stored_bytes_by_mode_codec": stored,
+                  "restores": restores}
+
+
+def hprot_process_and_sync(state, want: dict, tmp: Path, device) -> dict:
+    """(b) one more save through ``lane_backend="process"``, and (c) a
+    ``CheckpointManager(async_write=False)`` save of the same state, both
+    restored bitwise."""
+    import torch
+
+    from repro_torch.ckpt import AsyncCheckpointManager
+    from repro_torch.hercule.checkpoint import CheckpointManager
+    out = {}
+    mgr = AsyncCheckpointManager(str(tmp / "hprot_process"), ncf=4,
+                                 lane_backend="process")
+    t0 = time.perf_counter()
+    mgr.save(1, state)
+    out["process_stall_ms"] = 1e3 * (time.perf_counter() - t0)
+    mgr.wait()
+    out["process_save_ms"] = 1e3 * (time.perf_counter() - t0)
+    got, _ = mgr.restore(hprot_template(HPROT_SHARDS, device), step=1)
+    hprot_check("hprot process lane", got, want)
+    del got
+    if mgr.telemetry()["backend"]["kind"] != "process":
+        raise AssertionError("hprot: no process lane ran")
+    mgr.close()
+    sync = CheckpointManager(str(tmp / "hprot_sync"), ncf=4,
+                             async_write=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sync.save(1, state)
+    out["sync_save_ms"] = 1e3 * (time.perf_counter() - t0)
+    got, _ = sync.restore(hprot_template(None, device), step=1)
+    hprot_check("hprot sync", got, want)
+    del got
+    sync.close()
+    return out
+
+
+def hprot_orion(tree, tmp: Path, device) -> dict:
+    """(d) The RAMSES restart dump: the Orion tree's arrays, held on the
+    card, saved raw and restored bitwise; ``AMRTree.from_arrays`` of the
+    restored arrays is the tree (phase 3 wrote its HDep catalog)."""
+    import torch
+
+    from repro_torch.ckpt import AsyncCheckpointManager
+    from repro_torch.core.amr import AMRTree
+    from repro_torch.insitu.device import to_device
+    arrays = tree.to_arrays()
+    on_card = to_device(arrays, device)
+    want = hprot_leaves(on_card)
+    mgr = AsyncCheckpointManager(str(tmp / "hprot_orion"), ncf=4)
+    t0 = time.perf_counter()
+    mgr.save(1, on_card)
+    stall = time.perf_counter() - t0
+    mgr.wait()
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    codecs = {r.codec for r in mgr.db.view(1).records}
+    t0 = time.perf_counter()
+    got, _ = mgr.restore({k: torch.empty_like(v, device="meta")
+                          for k, v in on_card.items()}, step=1)
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    mgr.close()
+    nbytes = hprot_check("hprot orion dump", got, want)
+    back = AMRTree.from_arrays({k: v.cpu().numpy() for k, v in got.items()})
+    for k, v in back.to_arrays().items():
+        if v.dtype != arrays[k].dtype or v.tobytes() != arrays[k].tobytes():
+            raise AssertionError(f"hprot orion dump: {k} differs")
+    if codecs != {"raw"}:
+        raise AssertionError(f"hprot orion dump codecs {codecs}")
+    return {"bytes": nbytes, "stall_ms": 1e3 * stall, "save_ms": save_ms,
+            "restore_ms": restore_ms,
+            "restore_mb_per_s": nbytes / 1e3 / restore_ms}
+
+
+def hprot_submit_state(state, tmp: Path, device) -> dict:
+    """(e) ``InTransitEngine(device_reduce=True)`` with ``submit_state``
+    on the layer's parameters through the tensor reducers, against the
+    same engine on the CPU (a CPU copy of the same numbers): rtol 1e-5,
+    atol 1e-6 (float32 sums in another order)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.insitu import (Catalog, InTransitEngine,
+                                    SpectraReducer, TensorNormReducer)
+    out, cats = {}, {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        root = str(tmp / f"hprot_tensors_{where}")
+        eng = InTransitEngine(root, [TensorNormReducer(),
+                                     SpectraReducer(k=8)],
+                              device_reduce=True, device=dev,
+                              policy="block").start()
+        t0 = time.perf_counter()
+        if not eng.submit_state(1, state):
+            raise AssertionError("submit_state staged nothing")
+        eng.drain(timeout=600.0)
+        out[f"{where}_ms"] = 1e3 * (time.perf_counter() - t0)
+        ds = eng.device_stats
+        eng.close()
+        if ds["fallback_snapshots"] or ds["fallback_runs"]:
+            raise AssertionError(f"submit_state fell back on {dev}: {ds}")
+        cat = Catalog(root)
+        cats[where] = {r: cat.query(1, r) for r in cat.reducers(1)}
+    ref = cats["cpu"]
+    if sorted(cats["card"]) != sorted(ref):
+        raise AssertionError(f"submit_state reducers {sorted(cats['card'])}")
+    worst = 0.0
+    for r, arrs in ref.items():
+        got = cats["card"][r]
+        if sorted(got) != sorted(arrs):
+            raise AssertionError(f"submit_state {r}: {sorted(got)}")
+        for k, v in arrs.items():
+            g = got[k]
+            if g.dtype != v.dtype or g.shape != v.shape:
+                raise AssertionError(f"submit_state {r}/{k}: {g.dtype} "
+                                     f"{g.shape} vs {v.dtype} {v.shape}")
+            if v.dtype.kind == "f":
+                np.testing.assert_allclose(g, v, rtol=1e-5, atol=1e-6,
+                                           err_msg=f"{r}/{k}")
+                worst = max(worst, float(np.max(np.abs(g - v)
+                                                / (1e-6 + np.abs(v)))))
+            elif not np.array_equal(g, v):
+                raise AssertionError(f"submit_state {r}/{k} differs")
+    out["names"] = list(ref["tnorm"]["names"])
+    out["max_rel_err"] = worst
+    return out
+
+
+def hprot_phase(tree, tmp: Path, device, card: str) -> dict:
+    """Phase 8 (see the module docstring). Each part prints as it ends,
+    beside the card's name and power limit."""
+    from repro_torch.obs import events as obs_events
+    mark = obs_events.EVENTS.drain_since(0)[0]
+    t_phase = time.perf_counter()
+    state = hprot_state(device)
+    from repro_torch.hercule.checkpoint import _leaf_paths
+    n_params = sum(math.prod(leaf.shape)
+                   for _, leaf in _leaf_paths(state["params"]))
+    out = {"params": n_params, "cut": hprot_cut_device_ms(state)}
+    cut = out["cut"]
+    print(f"hprot state: one stablelm-1.6b layer, {n_params} parameters, "
+          f"{cut['bytes']} bytes on the card in "
+          f"{len(hprot_tensors(state))} tensors; cut clones: device "
+          f"{cut['device_ms']!r} ms ({cut['by_kind']!r}) against a bound "
+          f"of {cut['bound_ms']!r} ms (bytes); [{card}]")
+    t0 = time.perf_counter()
+    want, out["async"] = hprot_async(state, str(tmp / "hprot_async"),
+                                     device)
+    shutil.rmtree(tmp / "hprot_async")
+    saves = out["async"]["saves"]
+    for sv in saves:
+        print(f"hprot save {sv['step']} ({sv['mode']}): stall "
+              f"{sv['stall_ms']!r} ms, background {sv['background_ms']!r} "
+              f"ms, gather {sv['gather_ms']!r} ms, commit "
+              f"{sv['commit_ms']!r} ms, device-to-host "
+              f"{sv['d2h_mb_per_s']!r} MB/s, encode "
+              f"{sv['encode_mb_per_s']!r} MB/s, stored "
+              f"{sv['stored_bytes']} bytes; [{card}]")
+    print(f"hprot stored bytes by save mode/codec: "
+          f"{out['async']['stored_bytes_by_mode_codec']!r}")
+    for rs in out["async"]["restores"]:
+        print(f"hprot restore step {rs['step']} ({rs['mode']}) onto "
+              f"{rs['layout']}: {rs['ms']!r} ms, {rs['mb_per_s']!r} MB/s, "
+              f"bitwise; [{card}]")
+    print(f"hprot async: every step bitwise as it was when save was "
+          f"called, in every layout ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    out.update(hprot_process_and_sync(state, want[HPROT_SAVES], tmp,
+                                      device))
+    del want
+    stall = sum(sv["stall_ms"] for sv in saves) / len(saves)
+    out["sync_over_async_stall"] = out["sync_save_ms"] / stall
+    print(f"hprot sync save wall {out['sync_save_ms']!r} ms against an "
+          f"async stall of {stall!r} ms a save: ratio "
+          f"{out['sync_over_async_stall']!r} (the reference's CI floors "
+          f"it at 2.0; not gated here); process lane save "
+          f"{out['process_save_ms']!r} ms (stall "
+          f"{out['process_stall_ms']!r} ms); both restored bitwise; "
+          f"[{card}] ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    od = out["orion"] = hprot_orion(tree, tmp, device)
+    print(f"hprot orion restart dump: {od['bytes']} bytes raw, stall "
+          f"{od['stall_ms']!r} ms, save {od['save_ms']!r} ms, restore "
+          f"{od['restore_ms']!r} ms ({od['restore_mb_per_s']!r} MB/s), "
+          f"bitwise, AMRTree.from_arrays equal to the tree; [{card}] "
+          f"({time.perf_counter() - t0:.1f} s)")
+    st = out["submit_state"] = hprot_submit_state(state, tmp, device)
+    print(f"hprot submit_state: {len(st['names'])} matrices through "
+          f"tnorm and spectra-k8 on the card ({st['card_ms']!r} ms) and "
+          f"the CPU ({st['cpu_ms']!r} ms), max rel err "
+          f"{st['max_rel_err']!r} (rtol 1e-5, atol 1e-6); [{card}]")
+    for d in ("hprot_process", "hprot_sync", "hprot_orion"):
+        shutil.rmtree(tmp / d)
+    fallbacks = [e for e in obs_events.EVENTS.drain_since(mark)[1]
+                 if e["type"] == obs_events.DEVICE_FALLBACK]
+    if fallbacks:
+        raise AssertionError(f"hprot: device.fallback events {fallbacks}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"hprot phase 8 took {out['phase_s']!r} s, no device.fallback "
+          f"event")
+    return out
+
+
 # --------------------------------------------------------------- timing
 
 def time_ms(fn, reps: int, warm: int = 2) -> float:
@@ -2674,6 +3123,8 @@ def main() -> int:
         main_path_mesh_cli(tmp, device)
         # -- 7. serving and ledger, over the Orion catalog of phase 3
         wall["serving"] = serving_and_ledger(tree, tmp, device)
+        # -- 8. HProt on the card
+        wall["hprot"] = hprot_phase(tree, tmp, device, card)
         shutil.rmtree(tmp, ignore_errors=True)
     # -- 4b. the mesh path's float32 tables
     wall["mesh_f32"] = main_path_mesh_f32(tree, device, wall["mesh"])

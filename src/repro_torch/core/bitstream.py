@@ -147,3 +147,28 @@ def u32_to_bf16(x: np.ndarray) -> torch.Tensor:
     """Inverse of :func:`bf16_to_u32`: a ``torch.bfloat16`` tensor."""
     u16 = np.ascontiguousarray(x, np.uint32).astype(np.uint16)
     return torch.from_numpy(u16.view(np.int16)).view(torch.bfloat16)
+
+
+# On the host, bfloat16 lives as a numpy ``uint16`` array of its bits
+# (numpy has no bfloat16 of its own), always beside the dtype name
+# "bfloat16"; only the torch boundary views it as ``torch.bfloat16``.
+
+def f32_to_bf16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16 bits (uint16), round to nearest even.
+
+    NaN becomes 0x7FC0, or 0xFFC0 with the sign bit, as ``ml_dtypes``
+    does; a float64 cast to float32 first rounds as ``ml_dtypes``'
+    float64 -> bfloat16 cast does.
+    """
+    x = np.ascontiguousarray(x, np.float32)
+    b = x.view(np.uint32).astype(np.uint64)
+    out = ((b + 0x7FFF + ((b >> 16) & 1)) >> 16).astype(np.uint16)
+    nan = np.isnan(x)
+    out[nan] = np.where(np.signbit(x[nan]), 0xFFC0, 0x7FC0)
+    return out
+
+
+def bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    """bfloat16 bits (uint16) -> float32 values, exactly."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16
+            ).view(np.float32)

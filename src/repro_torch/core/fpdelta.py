@@ -96,6 +96,10 @@ def _to_bits(x: np.ndarray, width: int):
         return bs.f64_to_pair(np.asarray(x, np.float64))
     if width == 32:
         return np.zeros(x.shape, np.uint32), bs.f32_to_u32(np.asarray(x, np.float32))
+    if x.dtype == np.uint16:
+        # bfloat16 bits already (the host form of a bf16 tensor): widen,
+        # never round them again as values
+        return np.zeros(x.shape, np.uint32), x.astype(np.uint32)
     return np.zeros(x.shape, np.uint32), bs.bf16_to_u32(x)
 
 
@@ -136,10 +140,17 @@ def encode(pred: np.ndarray, sons: np.ndarray, *, zbits: int = 4,
 
 
 def decode(blk: Compressed, pred: np.ndarray) -> np.ndarray:
-    """Inverse of :func:`encode`; ``pred`` must match the encode-time predictor."""
+    """Inverse of :func:`encode`; ``pred`` must match the encode-time predictor.
+
+    At width 16 a ``uint16`` predictor (bfloat16 bits) gives the sons'
+    bits back as ``uint16``; a float predictor gives a bfloat16 tensor.
+    """
     G, S, width = blk.n_groups, blk.group_size, blk.width
+    pred = np.asarray(pred)
+    bits16 = width == 16 and pred.dtype == np.uint16
     if G == 0:
-        return np.zeros((0, S), np.float64 if width == 64 else np.float32)
+        return np.zeros((0, S), np.uint16 if bits16 else
+                        np.float64 if width == 64 else np.float32)
     nlz = bs.unpack_bits_host(blk.codes, np.full(G, blk.zbits, np.int32))
     nbits = (np.int64(width) - nlz.astype(np.int64))
     nb = np.repeat(nbits, S)
@@ -154,9 +165,11 @@ def decode(blk: Compressed, pred: np.ndarray) -> np.ndarray:
         flat = bs.unpack_bits_host(blk.payload, nb.astype(np.int32))
         res_lo = flat.reshape(G, S)
         res_hi = np.zeros((G, S), np.uint32)
-    ph, plo = _to_bits(np.asarray(pred), width)
+    ph, plo = _to_bits(pred, width)
     ph = np.broadcast_to(ph.reshape(G, -1), (G, S))
     plo = np.broadcast_to(plo.reshape(G, -1), (G, S))
+    if bits16:
+        return (res_lo ^ plo).astype(np.uint16)
     return _from_bits(res_hi ^ ph, res_lo ^ plo, width)
 
 

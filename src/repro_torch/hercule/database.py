@@ -41,10 +41,11 @@ _CTX_RE = re.compile(r"^ctx_(\d+)$")
 
 def _dtype_of(name: str):
     if name == "bfloat16":
-        # numpy has no bfloat16 without ml_dtypes, which this package
-        # does not use; bf16 records arrive with the checkpoint layer
-        raise NotImplementedError(
-            "bfloat16 records are not supported by repro_torch yet")
+        # numpy has no bfloat16 of its own (the reference reads these
+        # records through ml_dtypes): the port reads their 2-byte
+        # payloads as uint16 bits, which core.pyramid and
+        # hercule.checkpoint carry with the name "bfloat16"
+        return np.dtype(np.uint16)
     return np.dtype(_DTYPES.get(name, name))
 
 

@@ -1,10 +1,10 @@
 """In-transit analysis engine (the paper's staging-node role).
 
 ``InTransitEngine`` sits between the compute flow and an HDep database:
-compute calls :meth:`submit` and returns immediately; lanes drain the
-staging areas, run the reducer DAG and write each snapshot's reduced
-objects as one HDep context. The engine has its *own* output frequency
-(``output_every``), independent of
+compute calls :meth:`submit` (or :meth:`submit_state` for train states)
+and returns immediately; lanes drain the staging areas, run the reducer
+DAG and write each snapshot's reduced objects as one HDep context. The
+engine has its *own* output frequency (``output_every``), independent of
 HProt checkpoint cadence — the paper's "different output frequencies"
 between the protection and post-processing flows.
 
@@ -435,6 +435,27 @@ class InTransitEngine:
             else:
                 self._part_done(step, None, None, defer_finalize=True)
         return staged_any
+
+    def submit_state(self, step: int, state, *, prefix: str = "params"
+                     ) -> bool:
+        """Stage the matrix-shaped leaves of a train-state tree.
+
+        Leaves are named as HProt names them (``hercule.checkpoint.
+        leaf_name``); tensors stay where they live (a sharded leaf is
+        assembled on its first shard's device).
+        """
+        if step % self.output_every != 0:
+            return False   # skip the tree walk on off-cadence steps
+        from ..hercule.checkpoint import ShardedTensor, _leaf_paths, leaf_name
+        sub = state[prefix] if isinstance(state, dict) and prefix in state \
+            else state
+        arrays = {}
+        for path, leaf in _leaf_paths(sub):
+            if getattr(leaf, "ndim", 0) < 2:
+                continue
+            arrays[leaf_name(path)] = leaf.full() \
+                if isinstance(leaf, ShardedTensor) else leaf
+        return self.submit(step, arrays, kind="tensors")
 
     # ---------------------------------------------------------- analysis side
     def _on_evict(self, snap: Snapshot) -> None:

@@ -232,8 +232,12 @@ class TensorNormReducer(Reducer):
     @staticmethod
     def _stats(x) -> np.ndarray:
         x = _as_tensor(x).to(torch.float32)
-        return torch.stack([torch.linalg.vector_norm(x.reshape(-1)),
-                            torch.sqrt(torch.mean(x * x)),
+        sq = x * x
+        # sqrt(sum(x * x)), as XLA computes jnp.linalg.norm: the CPU's
+        # torch.linalg.vector_norm drifts 3e-5 from it at 4M float32
+        # values, while both sums here stay at float32 roundoff
+        return torch.stack([torch.sqrt(torch.sum(sq)),
+                            torch.sqrt(torch.mean(sq)),
                             torch.max(torch.abs(x)),
                             torch.mean(x)]).cpu().numpy()
 
@@ -265,7 +269,12 @@ class SpectraReducer(Reducer):
             arr = snap.arrays[name]
             if arr.ndim != 2 or min(arr.shape) < 2:
                 continue
-            s = torch.linalg.svdvals(_as_tensor(arr).to(torch.float32))
+            x = _as_tensor(arr).to(torch.float32)
+            # cuSOLVER's default (Jacobi) method gave the top singular
+            # values of a 2048 x 2048 float32 matrix 2e-4 apart from the
+            # host's LAPACK on an H100; gesvd (QR) agrees to roundoff
+            s = torch.linalg.svdvals(x, driver="gesvd") if x.is_cuda \
+                else torch.linalg.svdvals(x)
             out[name.replace("/", ".")] = s[:self.k].cpu().numpy().astype(
                 np.float32)
         return out

@@ -169,10 +169,13 @@ def host_array(x) -> np.ndarray:
     """One array (torch tensor on any device, or numpy) on the host.
 
     ``np.asarray`` raises on a CUDA tensor, so tensors go through
-    ``.cpu()`` (a no-op for CPU tensors, which are then shared).
+    ``.cpu()`` (a no-op for CPU tensors, which are then shared). numpy
+    has no bfloat16: a bfloat16 tensor lands as its float32 values,
+    exactly.
     """
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     return np.asarray(x)
 
 
