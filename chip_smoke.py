@@ -10,8 +10,9 @@ non-zero (and prints no result) otherwise, or on any failure.
   2. kernel parity: each of B1-B3 (slice, projection, per-level
      histogram) against its plain torch twin on the card, bitwise, and
      against the port's host numpy reducers, and B4/B5 (the carry-seeded
-     slice and projection) chained over BFS tiles against their seeded
-     twins (image and depth, bitwise) and against one-shot B1/B2 — on
+     slice and projection) called per BFS tile and in one call over the
+     table (the mesh path's route) against their seeded twins' tile
+     chain (image and depth, bitwise) and against one-shot B1/B2 — on
      small Sedov trees (R=16 and 64; R=16 forces sub-pixel collisions;
      512-row tiles), on an owner-masked 3-way partition, and on the full
      Orion tree (649,385 nodes, R=512, 16384-row tiles); the codec
@@ -29,7 +30,12 @@ non-zero (and prints no result) otherwise, or on any failure.
      their (level, cell) CSR on the card) also on adversarial tables —
      deep columns of up to 2,048 leaves, sub-pixel levels, n_levels >
      k + 1, rows of out-of-range level, all-invalid and padded tiles —
-     at R = 16, 64 and 512, each call twice on the kept scratch; the
+     at R = 16, 64 and 512, level-major and with the rows shuffled (the
+     one call then keeps the chain's order by re-adding pixels), each
+     call twice on the kept scratch; the mesh chain at its real shapes:
+     every Orion shard at S = 1 and 4, float64 and float32, in one call
+     against the twins' 16,384-row chain, and the S = 1 shard cut into
+     calls of five tiles by a lowered row limit; the
      float32 instantiations B3-f32, B4-f32 and B5-f32 (the mesh path's
      float32 tables) on the same Sedov, partition and Orion tables with
      their values cast to float32, B4-f32 at the boundary positions, B5-f32
@@ -55,15 +61,15 @@ non-zero (and prints no result) otherwise, or on any failure.
      bitwise against the ascending fold of the per-shard host
      reductions and within rtol 1e-12 of the host), then
      ``python -m repro_torch.launch.insitu --device-mesh 4 --device
-     cuda:0`` on Sedov steps under the same contract; B4/B5 must launch
-     once per tile per step and B3 once per shard per step; then
+     cuda:0`` on Sedov steps under the same contract; B4, B5 and B3 must
+     launch once per shard per step; then
      ``MeshDAGRunner(dtype="float32")`` over Orion at one and four shards,
      in turns with the same runner at float64: every float32 output
      bitwise the float32 twins' run on the card, the slice within rtol
      1e-6 and the projection within 1e-4 of the float64 host reducers,
      the histogram and edges equal to the host's over the cast field,
-     only the float32 kernels launched (B4-f32/B5-f32 once per tile,
-     B3-f32 once per shard, per step), and half the field bytes up and
+     only the float32 kernels launched (B4-f32, B5-f32 and B3-f32 once
+     per shard per step), and half the field bytes up and
      half the image bytes down;
   5. codec path: ``kernels.ops.compress_bits`` (B6 and the stream
      packing) over the five Orion fields at width 64, from the host
@@ -79,7 +85,10 @@ non-zero (and prints no result) otherwise, or on any failure.
      and bytes to the host per step, where a device-reduce step's time
      goes (the engine's spans and the device's busy time from
      ``torch.profiler``), and, with CUDA events, each kernel (B4/B5 and
-     B4-f32/B5-f32 per tile call, B3-f32 on the one-shard float32 table;
+     B4-f32/B5-f32 per shard call on the one-shard Orion table, beside
+     the old chain of 35 per-tile calls timed in the same run, with B5's
+     five steps and ``projection_kernel`` float32 against float64 from
+     ``torch.profiler``; B3-f32 on the one-shard float32 table;
      B6-B9 at the Orion codec shapes, B7 on contiguous residues), its
      plain twin, B7's library yardstick (one ``torch.bitwise_xor``) and
      its bound; for B1-B7 and the float32 kernels also the
@@ -91,7 +100,7 @@ non-zero (and prints no result) otherwise, or on any failure.
      device path's histogram reducer on Orion, whole and split into the
      bounds pull, the edges and B3, and its run and the mesh reducer's
      must copy nothing host to device; for B2/B5 the longest (level,
-     cell) segment of the Orion table and tiles; and the host cost of
+     cell) segment of the Orion table and shard; and the host cost of
      the two spellings of the current stream's handle;
   7. serving and ledger (run after the mesh path, over the Orion
      catalog phase 3 reduced on the card): (a) the port's
@@ -304,6 +313,78 @@ def carry_chain(x: dict, kind: str, backend, *, resolution: int,
                                           x["values"], x["ok"], **kw),)
 
 
+def tile_chain(x: dict, kind: str, *, resolution: int, tile_n: int,
+               position: float = 0.5):
+    """The per-tile seeded entries on the card: B4 (``kind="slice"``,
+    image and depth) or B5 called once per ``tile_n``-row BFS tile, the
+    last one padded, with the carry threaded through: the twins' chain
+    (``ops._run_tiles``) run by the kernel wrappers, one launch a tile.
+    B5 gets no ``tile_n``: each call is one tile."""
+    import torch
+
+    from repro_torch.kernels import ops, raster
+    r, L = resolution, x["n_levels"]
+    dev, dt = x["values"].device, x["values"].dtype
+    if kind == "slice":
+        def call(c2, ca, lv, val, okk, img, depth):
+            return raster.slice_raster_carry(
+                c2, ca, lv, val, okk, position=position, resolution=r,
+                n_levels=L, init=(img, depth))
+        cols = (ops.plane_coords(x["coords"], 2),
+                x["coords"][:, 2].to(torch.int32),
+                x["levels"].to(torch.int32), x["values"], x["ok"])
+        seed = (torch.full((r, r), float("nan"), dtype=dt, device=dev),
+                torch.full((r, r), -1, dtype=torch.int32, device=dev))
+    else:
+        def call(c2, lv, val, okk, img):
+            return (raster.projection_raster_carry(
+                c2, lv, val, okk, resolution=r, n_levels=L, init=img),)
+        cols = (ops.plane_coords(x["coords"], 2),
+                x["levels"].to(torch.int32), x["values"], x["ok"])
+        seed = (torch.zeros((r, r), dtype=dt, device=dev),)
+    return ops._run_tiles(call, cols, seed, tile_n=tile_n,
+                          block_n=ops.BLOCK_N)
+
+
+def check_chain_routes(label: str, x: dict, kind: str, *, resolution: int,
+                       tile_n: int, position: float = 0.5) -> float:
+    """B4 (``kind="slice"``) or B5, in ``x``'s values' dtype, both ways
+    on the card against the twins' chain (``ops`` with ``backend="ref"``)
+    over ``tile_n``-row tiles, bitwise: the per-tile seeded entries (one
+    launch a tile) and ``ops``' one call over the table (one launch).
+    Returns the image (the one call's) and the max abs error (0.0)."""
+    import torch
+
+    from repro_torch.kernels import ops, raster
+    fx = "_f32" if x["values"].dtype == torch.float32 else ""
+    name = ("slice_raster_carry" if kind == "slice" else
+            "projection_raster_carry") + fx
+    n_tiles = max(1, -(-x["values"].shape[0] // tile_n))
+    kw = dict(axis=2, resolution=resolution, n_levels=x["n_levels"],
+              tile_n=tile_n)
+    args = (x["coords"], x["levels"], x["values"], x["ok"])
+    if kind == "slice":
+        twin = ops.raster_slice_partial(*args, position=position,
+                                        backend="ref", **kw)
+    else:
+        twin = (ops.raster_projection_partial(*args, backend="ref", **kw),)
+    before = dict(raster.LAUNCHES)
+    tiled = tile_chain(x, kind, resolution=resolution, tile_n=tile_n,
+                       position=position)
+    torch.cuda.synchronize()
+    _check_launched(before, {name: n_tiles}, f"{label}: {name} per tile")
+    err = _same_bits(f"{label}: {name} over {n_tiles} tiles", tiled, twin)
+    before = dict(raster.LAUNCHES)
+    if kind == "slice":
+        one = ops.raster_slice_partial(*args, position=position, **kw)
+    else:
+        one = (ops.raster_projection_partial(*args, **kw),)
+    torch.cuda.synchronize()
+    _check_launched(before, {name: 1}, f"{label}: {name} one call")
+    err = max(err, _same_bits(f"{label}: {name} in one call", one, twin))
+    return one[0], err
+
+
 def check_parity(label: str, arrays: dict, device, *, resolution: int,
                  bins: int, lo, hi, n_domains: int = 1, domain: int = 0,
                  tile_n: int = 512):
@@ -370,44 +451,32 @@ def check_parity(label: str, arrays: dict, device, *, resolution: int,
     for kind, name, one in (("slice", "slice_raster_carry", "slice"),
                             ("projection", "projection_raster_carry",
                              "proj")):
-        before = raster.LAUNCHES[name]
-        got = carry_chain(x, kind, None, resolution=resolution,
-                          tile_n=tile_n)
-        twin = carry_chain(x, kind, "ref", resolution=resolution,
-                           tile_n=tile_n)
-        torch.cuda.synchronize()
-        if raster.LAUNCHES[name] - before != n_tiles:
-            raise AssertionError(f"{label}: {name} launched "
-                                 f"{raster.LAUNCHES[name] - before} times "
-                                 f"for {n_tiles} tiles")
-        for g, t in zip(got, twin):
-            if g.dtype != t.dtype or not torch.equal(_bits(g), _bits(t)):
-                raise AssertionError(f"{label}: {name} differs from its "
-                                     f"seeded twin (max abs err "
-                                     f"{_max_abs_err(g, t)})")
-        if not np.array_equal(got[0].cpu().numpy().view(np.int64),
+        got, errs[name] = check_chain_routes(label, x, kind,
+                                             resolution=resolution,
+                                             tile_n=tile_n)
+        if not np.array_equal(got.cpu().numpy().view(np.int64),
                               np.asarray(host[one]["image"]).view(np.int64)):
             raise AssertionError(f"{label}: chained {name} differs from "
                                  f"the one-shot image")
-        errs[name] = max(_max_abs_err(g, t) for g, t in zip(got, twin))
     print(f"parity {label}: B1-B3 bit-equal to plain twins and host "
-          f"reducers, B4/B5 over {n_tiles} tiles of {tile_n} rows bit-equal "
-          f"to seeded twins and one-shot images (R={resolution}, "
-          f"{x['values'].shape[0]} padded rows)")
+          f"reducers, B4/B5 per tile over {n_tiles} tiles of {tile_n} rows "
+          f"and in one call bit-equal to the seeded twins' chain and to the "
+          f"one-shot images (R={resolution}, {x['values'].shape[0]} padded "
+          f"rows)")
     return errs, x, edges, n_hist
 
 
 def check_carry_boundaries(label: str, arrays: dict, device, *,
                            resolution: int = 64, tile_n: int = 512,
                            f32: bool = False) -> None:
-    """B4 (``f32``: B4-f32 on the values cast to float32) chained over
-    ``tile_n``-row tiles against its seeded twin, bitwise (image and
-    depth), at slice positions on exact cell boundaries, with the tree's
-    levels and with every 7th valid row given a level outside [0,
-    n_levels) (rows B4 must drop)."""
+    """B4 (``f32``: B4-f32 on the values cast to float32) per
+    ``tile_n``-row tile and in one call against its seeded twins' chain,
+    bitwise (image and depth; :func:`check_chain_routes`), at slice
+    positions on exact cell boundaries, with the tree's levels and with
+    every 7th valid row given a level outside [0, n_levels) (rows B4 must
+    drop)."""
     import torch
 
-    from repro_torch.kernels import ops, raster
     x = kernel_inputs(arrays, device)
     if f32:
         x = f32_inputs(x)
@@ -422,28 +491,19 @@ def check_carry_boundaries(label: str, arrays: dict, device, *,
     positions = (0.0, 0.25, 0.5, 1 - 2.0 ** -(L - 1))
     for levels in (x["levels"], bad):
         for pos in positions:
-            kw = dict(axis=2, position=pos, resolution=resolution,
-                      n_levels=L, tile_n=tile_n)
-            before = raster.LAUNCHES[name]
-            got = ops.raster_slice_partial(x["coords"], levels, x["values"],
-                                           x["ok"], **kw)
-            launched = raster.LAUNCHES[name] - before
-            twin = ops.raster_slice_partial(x["coords"], levels,
-                                            x["values"], x["ok"],
-                                            backend="ref", **kw)
-            torch.cuda.synchronize()
-            if launched != n_tiles:
-                raise AssertionError(f"{label}: {name} launched {launched} "
-                                     f"times for {n_tiles} tiles")
-            _same_bits(f"{label}: {name} at position {pos}", got, twin)
+            check_chain_routes(f"{label} at position {pos}",
+                               {**x, "levels": levels}, "slice",
+                               resolution=resolution, tile_n=tile_n,
+                               position=pos)
             if not f32:
                 check_slice_twice(f"{label}: slice_raster at position {pos}",
                                   {**x, "levels": levels}, position=pos,
                                   resolution=resolution)
     b1 = "" if f32 else ", and B1 twice a position on the kept scratch,"
-    print(f"parity {label}: {name} over {n_tiles} tiles bit-equal to its "
-          f"seeded twin{b1} at positions {positions}, with and without "
-          f"{rows.numel()} rows of out-of-range level (R={resolution})")
+    print(f"parity {label}: {name} per tile over {n_tiles} tiles and in one "
+          f"call bit-equal to its seeded twins' chain{b1} at positions "
+          f"{positions}, with and without {rows.numel()} rows of "
+          f"out-of-range level (R={resolution})")
 
 
 def check_slice_twice(label: str, x: dict, *, position: float,
@@ -499,8 +559,8 @@ def coarse_table(seed: int, *, resolution: int, n_levels: int,
 
 
 def check_coarse_tables(device) -> float:
-    """B1 (twice on the kept scratch), B4 and B4-f32 (chained over
-    512-row tiles) against their twins, bitwise, on
+    """B1 (twice on the kept scratch), B4 and B4-f32 (per 512-row tile
+    and in one call) against their twins, bitwise, on
     :func:`coarse_table` tables at R = 512 and 64, where the paint
     kernel's two branches run in one warp: coarse leaves (rectangles
     above ``raster.SLICE_OWN_AREA`` pixels, up to the whole image) keyed
@@ -532,24 +592,15 @@ def check_coarse_tables(device) -> float:
                                  f"hit rows keyed into cells; the table "
                                  f"must run both branches")
         n_tiles = -(-tbl["levels"].shape[0] // 512)
-        for dtype, name in ((torch.float64, "slice_raster_carry"),
-                            (torch.float32, "slice_raster_carry_f32")):
-            kw = dict(axis=2, position=0.5, resolution=res, n_levels=L,
-                      tile_n=512)
-            vals = t["values"].to(dtype)
-            before = dict(raster.LAUNCHES)
-            got = ops.raster_slice_partial(t["coords"], t["levels"], vals,
-                                           t["ok"], **kw)
-            torch.cuda.synchronize()
-            _check_launched(before, {name: n_tiles}, f"{label}: {name}")
-            twin = ops.raster_slice_partial(t["coords"], t["levels"], vals,
-                                            t["ok"], backend="ref", **kw)
-            _same_bits(f"{label}: {name}", got, twin)
+        for dtype in (torch.float64, torch.float32):
+            check_chain_routes(label, {**x, "coords": t["coords"],
+                                       "values": t["values"].to(dtype)},
+                               "slice", resolution=res, tile_n=512)
         print(f"parity {label}: {tbl['levels'].shape[0]} rows, "
               f"{int(hit.sum())} hit the plane, {coarse} of them coarse "
               f"(keyed into cells); B1 twice on the kept scratch, B4 and "
-              f"B4-f32 over {n_tiles} tiles of 512 rows, bit-equal to their "
-              f"twins")
+              f"B4-f32 per tile over {n_tiles} tiles of 512 rows and in one "
+              f"call, bit-equal to their twins' chain")
     return err
 
 
@@ -606,14 +657,17 @@ def longest_segment(coords2, levels, ok, *, resolution: int,
 
 
 def check_projection_tables(device, f32: bool = False) -> int:
-    """B2 whole and B5 chained against their twins on the card, bitwise,
-    on :func:`projection_table` tables: sub-pixel levels with n_levels >
+    """B2 whole and B5 against their twins on the card, bitwise, on
+    :func:`projection_table` tables: sub-pixel levels with n_levels >
     k + 1 at R = 16 and 64, and at R = 512 (12 levels) deep columns of
-    512 leaves at level 9 and of 2,048 at sub-pixel level 11; B5 chained
-    over 512-row and ``MESH_TILE``-row tiles (all-invalid and padded
-    tiles). Each call pair runs twice, the second on the kept scratch.
+    512 leaves at level 9 and of 2,048 at sub-pixel level 11; B5 per
+    512-row and ``MESH_TILE``-row tile (all-invalid and padded tiles) and
+    in one call with that ``tile_n``, on the level-major table and on its
+    rows shuffled (the one call's restart in the chain's order). Each
+    check runs twice, the second on the kept scratch.
     ``f32``: the values cast to float32 through B5-f32 (B2 has no float32
     kernel). Returns the longest cell segment of the tables."""
+    import numpy as np
     import torch
 
     from repro_torch.insitu.mesh_reduce import MESH_TILE
@@ -630,8 +684,6 @@ def check_projection_tables(device, f32: bool = False) -> int:
              if k != "n_levels"}
         if f32:
             t["values"] = t["values"].to(torch.float32)
-        name = "projection_raster_carry_f32" if f32 else \
-            "projection_raster_carry"
         c2 = ops.plane_coords(t["coords"], 2)
         args = (c2, t["levels"], t["values"], t["ok"])
         geo = dict(resolution=res, n_levels=L)
@@ -644,38 +696,35 @@ def check_projection_tables(device, f32: bool = False) -> int:
                 raise AssertionError(f"projection table R={res} L={L}: B2 "
                                      f"differs from its twin (max abs err "
                                      f"{_max_abs_err(got, want)})")
-        for tn in (512, tile_n):
-            kw = dict(axis=2, resolution=res, n_levels=L, tile_n=tn)
-            want = ops.raster_projection_partial(
-                t["coords"], t["levels"], t["values"], t["ok"],
-                backend="ref", **kw)
-            n_tiles = -(-x["values"].shape[0] // tn)
-            for _ in range(2):
-                before = raster.LAUNCHES[name]
-                got = ops.raster_projection_partial(
-                    t["coords"], t["levels"], t["values"], t["ok"], **kw)
-                torch.cuda.synchronize()
-                launched = raster.LAUNCHES[name] - before
-                if launched != n_tiles:
-                    raise AssertionError(f"projection table R={res}: {name} "
-                                         f"launched {launched} times for "
-                                         f"{n_tiles} tiles")
-                _same_bits(f"projection table R={res} L={L} tile_n={tn}: "
-                           f"{name}", (got,), (want,))
+        # level-major, and shuffled: kept rows not level-sorted, where
+        # the one call re-adds pixels in the chain's (tile, level, row)
+        # order
+        perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+            x["values"].shape[0])).to(device)
+        for order, rows in (("level-major", None), ("shuffled", perm)):
+            tt = t if rows is None else {k: v[rows] for k, v in t.items()}
+            for tn in (512, tile_n):
+                for _ in range(2):
+                    check_chain_routes(
+                        f"projection table R={res} L={L} {order} "
+                        f"tile_n={tn}", {**tt, "n_levels": L}, "projection",
+                        resolution=res, tile_n=tn)
         what = "B5-f32" if f32 else "B2 and B5"
         print(f"parity projection table R={res} L={L}: "
-              f"{x['values'].shape[0]} rows, {what} (tiles of 512 and "
-              f"{tile_n}) bit-equal to their twins, twice each")
+              f"{x['values'].shape[0]} rows, {what} (B5 per tile and in one "
+              f"call, tiles of 512 and {tile_n}; level-major and shuffled) "
+              f"bit-equal to their twins, twice each")
     print(f"parity projection tables: longest cell segment {longest} rows")
     return longest
 
 
 def check_parity_f32(label: str, x: dict, edges, n_hist: int, *,
                      resolution: int, tile_n: int) -> dict:
-    """B4-f32 and B5-f32 chained over ``tile_n``-row tiles and B3-f32 on
-    ``x``'s table with its values cast to float32, against their float32
-    twins on the card, bitwise (float32 bits compared as int32); only the
-    float32 counters move, once per tile and once per histogram."""
+    """B4-f32 and B5-f32 per ``tile_n``-row tile and in one call, and
+    B3-f32, on ``x``'s table with its values cast to float32, against
+    their float32 twins on the card, bitwise (float32 bits compared as
+    int32); only the float32 counters move, once per tile (once for the
+    one call) and once per histogram."""
     import torch
 
     from repro_torch.kernels import raster, ref
@@ -684,15 +733,9 @@ def check_parity_f32(label: str, x: dict, edges, n_hist: int, *,
     errs = {}
     for kind, name in (("slice", "slice_raster_carry_f32"),
                        ("projection", "projection_raster_carry_f32")):
-        before = dict(raster.LAUNCHES)
-        got = carry_chain(x, kind, None, resolution=resolution,
-                          tile_n=tile_n)
-        torch.cuda.synchronize()
-        _check_launched(before, {name: n_tiles}, f"{label}: {name}")
-        twin = carry_chain(x, kind, "ref", resolution=resolution,
-                           tile_n=tile_n)
-        torch.cuda.synchronize()
-        errs[name] = _same_bits(f"{label}: {name}", got, twin)
+        _, errs[name] = check_chain_routes(label, x, kind,
+                                           resolution=resolution,
+                                           tile_n=tile_n)
     args = (x["values"], x["levels"], x["ok"], edges)
     before = dict(raster.LAUNCHES)
     got = raster.level_hist(*args, n_levels=n_hist)
@@ -701,8 +744,9 @@ def check_parity_f32(label: str, x: dict, edges, n_hist: int, *,
     errs["level_hist_f32"] = _same_bits(
         f"{label}: level_hist_f32", (got,),
         (ref.level_hist_ref(*args, n_levels=n_hist),))
-    print(f"parity {label} float32: B4-f32 and B5-f32 over {n_tiles} tiles "
-          f"of {tile_n} rows and B3-f32 ({edges.numel() - 1} bins) "
+    print(f"parity {label} float32: B4-f32 and B5-f32 per tile over "
+          f"{n_tiles} tiles of {tile_n} rows and in one call, and B3-f32 "
+          f"({edges.numel() - 1} bins) "
           f"bit-equal to their float32 twins (R={resolution})")
     return errs
 
@@ -1096,21 +1140,22 @@ def shard_fold(arrays: dict, n_shards: int, reducer):
 
 
 def mesh_tiles(arrays: dict, n_shards: int) -> int:
-    """B4/B5 launches per reducer per step: tiles over every shard."""
+    """The twins' ``MESH_TILE``-row tiles over every shard: the calls a
+    step made per reducer before the card took a shard in one call."""
     from repro_torch.insitu.mesh_reduce import MESH_TILE, MeshTable
     mt = MeshTable(arrays, 1, ["cpu"] * n_shards)    # row split only
     return n_shards * -(-mt.rows_padded // MESH_TILE)
 
 
-def check_mesh_launches(counts: dict, label: str, *, tiles: int,
-                        n_shards: int, steps: int, suffix: str = "") -> None:
-    """B4 and B5 once per tile, B3 once per shard, every step, in the
-    kernels of ``suffix`` ("" float64, "_f32" float32); every other raster
-    kernel never."""
+def check_mesh_launches(counts: dict, label: str, *, n_shards: int,
+                        steps: int, suffix: str = "") -> None:
+    """B4, B5 and B3 once per shard, every step, in the kernels of
+    ``suffix`` ("" float64, "_f32" float32); every other raster kernel
+    never."""
     from repro_torch.kernels import raster
     want = dict.fromkeys(raster.LAUNCHES, 0)
-    want.update({f"slice_raster_carry{suffix}": tiles * steps,
-                 f"projection_raster_carry{suffix}": tiles * steps,
+    want.update({f"slice_raster_carry{suffix}": n_shards * steps,
+                 f"projection_raster_carry{suffix}": n_shards * steps,
                  f"level_hist{suffix}": n_shards * steps})
     got = {k: counts.get(k, 0) for k in want}
     if got != want:
@@ -1137,7 +1182,7 @@ def main_path_mesh(tree, tmp: Path, device, host_root: str) -> tuple:
                                 device_reduce="mesh",
                                 mesh_devices=[device] * n_shards)
         launches = dict(raster.LAUNCHES)
-        check_mesh_launches(launches, f"mesh S={n_shards}", tiles=tiles,
+        check_mesh_launches(launches, f"mesh S={n_shards}",
                             n_shards=n_shards, steps=len(walls))
         ds = eng.device_stats
         if ds["fallback_snapshots"] or ds["fallback_runs"]:
@@ -1167,7 +1212,8 @@ def main_path_mesh(tree, tmp: Path, device, host_root: str) -> tuple:
              "to the shard fold and within rtol 1e-12 of the host")
         print(f"main path mesh S={n_shards} on {device}: {len(walls)} Orion "
               f"steps, catalog {how} ({n} arrays), fallback_snapshots=0, "
-              f"{tiles} tiles per step, launches {launches}, "
+              f"B4/B5 one call per shard per step (the twins' chain: "
+              f"{tiles} tiles), launches {launches}, "
               f"peak_leaf_frac {ds['peak_leaf_frac']!r}")
         print(f"time mesh_wall_ms_per_step S={n_shards}: "
               f"{out[n_shards]['wall_ms_per_step']!r} (steps 2-{len(walls)}; "
@@ -1227,7 +1273,7 @@ def main_path_mesh_f32(tree, device, mesh64: dict) -> dict:
             st = runner.stats.as_dict()
             check_mesh_launches(
                 launches, f"mesh {dtype or 'float64'} S={n_shards}",
-                tiles=tiles, n_shards=n_shards, steps=len(walls),
+                n_shards=n_shards, steps=len(walls),
                 suffix="_f32" if dtype else "")
             if st["fallback_snapshots"] or st["fallback_runs"]:
                 raise AssertionError(f"mesh float32 S={n_shards} fell back "
@@ -1285,8 +1331,9 @@ def main_path_mesh_f32(tree, device, mesh64: dict) -> dict:
               f"{n} outputs bit-equal to the float32 twins' run on the card, "
               f"slice within rtol 1e-6 and projection within 1e-4 of the "
               f"float64 host reducers, histogram and edges equal to the "
-              f"host's over the cast field; {tiles} tiles per step, "
-              f"launches {f32['launches']}")
+              f"host's over the cast field; B4-f32/B5-f32 one call per "
+              f"shard per step (the twins' chain: {tiles} tiles), launches "
+              f"{f32['launches']}")
         print(f"time mesh_f32_wall_ms_per_step S={n_shards}: runs 2 and 3 "
               f"{walls['float32']!r} (steps 2-{len(steps)}; all steps of "
               f"run 2 {f32['wall_ms_steps']!r}); the same runner at float64, "
@@ -1305,7 +1352,7 @@ def main_path_mesh_f32(tree, device, mesh64: dict) -> dict:
 def main_path_mesh_cli(tmp: Path, device) -> dict:
     """``python -m repro_torch.launch.insitu --device-mesh 4 --device D``
     on Sedov steps: its catalog held to the host CLI run's under the
-    mesh contract, its kernels launched per tile."""
+    mesh contract, its kernels launched once per shard per step."""
     from repro_torch.insitu import ProjectionReducer
     from repro_torch.kernels import raster
     from repro_torch.launch import insitu as cli
@@ -1332,7 +1379,7 @@ def main_path_mesh_cli(tmp: Path, device) -> dict:
     # those steps, as the launcher makes them, give the shard folds
     proj = next(r for r in cli.default_reducers(res, 4)
                 if isinstance(r, ProjectionReducer))
-    folds, tiles = {}, 0
+    folds = {}
     for s in range(1, n_steps + 1):
         tree = amrgen.generate_tree(
             fields.sedov(r_shock=0.1 + 0.25 * s / n_steps), min_level=3,
@@ -1340,11 +1387,11 @@ def main_path_mesh_cli(tmp: Path, device) -> dict:
         if s % 2 == 0:
             folds[s, proj.name] = shard_fold(tree.to_arrays(), MESH_SHARDS,
                                              proj)
-            tiles += mesh_tiles(tree.to_arrays(), MESH_SHARDS)
     n = catalogs_equal(str(tmp / "mesh_cli"), str(tmp / "mesh_cli_host"),
                        folds=folds)
-    want = {"slice_raster_carry": tiles, "projection_raster_carry": tiles,
-            "level_hist": MESH_SHARDS * len(folds)}
+    calls = MESH_SHARDS * len(folds)      # one per shard per written step
+    want = {"slice_raster_carry": calls, "projection_raster_carry": calls,
+            "level_hist": calls}
     if {k: launches.get(k, 0) for k in want} != want:
         raise AssertionError(f"--device-mesh launches {launches}, "
                              f"expected {want}")
@@ -2252,17 +2299,21 @@ def profiled(fn, calls: int, reps: int) -> tuple:
     """``fn`` run ``reps`` times (``calls`` wrapper calls in all) under
     ``torch.profiler`` with CPU and CUDA activity: the device ms per call
     by kernel, and the host ms per call of the eight events with the most
-    host time (the profiler's own cost included)."""
+    host time (the profiler's own cost included). A trace with no device
+    time is taken once more."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    device = {e.key[:48]: e.self_device_time_total / calls / 1e3
-              for e in events if e.self_device_time_total > 0}
+    for _ in range(2):         # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        device = {e.key[:48]: e.self_device_time_total / calls / 1e3
+                  for e in events if e.self_device_time_total > 0}
+        if device:
+            break
     host = sorted(((e.key[:48], e.self_cpu_time_total / calls / 1e3)
                    for e in events if e.self_cpu_time_total > 0),
                   key=lambda kv: -kv[1])[:8]
@@ -2366,18 +2417,18 @@ def hist_bound(x: dict, edges, n_hist: int) -> dict:
                   n_valid * (3 + math.ceil(math.log2(edges.numel()))))
 
 
-def carry_bounds(tiles: list, resolution: int) -> dict:
-    """Least time of one B4/B5 call (float64 or, for float32 tiles,
-    B4-f32/B5-f32), the mean over the main path's tiles: each tile's
-    :func:`raster_work` plus its seed, read once — B4's (image, depth)
-    seed and outputs are (2v + 8)·R² bytes, B5's 2v·R², for v-byte
-    values."""
+def carry_bounds(tables: list, resolution: int) -> dict:
+    """Least time of one B4/B5 call (float64 or, for float32 tables,
+    B4-f32/B5-f32), the mean over ``tables`` (the mesh path's one call a
+    shard: the shard's table alone): each table's :func:`raster_work`
+    plus its seed, read once — B4's (image, depth) seed and outputs are
+    (2v + 8)·R² bytes, B5's 2v·R², for v-byte values."""
     px2 = resolution * resolution
-    vb = tiles[0]["values"].element_size()
+    vb = tables[0]["values"].element_size()
     fx, kind = ("", "f64") if vb == 8 else ("_f32", "f32")
     sums = {"slice_raster_carry" + fx: [0, 0],
             "projection_raster_carry" + fx: [0, 0]}
-    for x in tiles:
+    for x in tables:
         w = raster_work(x, resolution)
         for name, work, seed in (("slice_raster_carry", "slice",
                                   (vb + 8) * px2),
@@ -2385,8 +2436,8 @@ def carry_bounds(tiles: list, resolution: int) -> dict:
                                   vb * px2)):
             sums[name + fx][0] += w[work][0] + seed
             sums[name + fx][1] += w[work][1]
-    return {name: dict(_bound(nb // len(tiles), ops // len(tiles), kind),
-                       tiles=len(tiles))
+    return {name: dict(_bound(nb // len(tables), ops // len(tables), kind),
+                       calls=len(tables))
             for name, (nb, ops) in sums.items()}
 
 
@@ -2427,37 +2478,116 @@ def time_kernels(x: dict, edges, n_hist: int, resolution: int) -> dict:
     return out
 
 
-def time_carries(arrays: dict, device, dtype=None) -> tuple:
-    """B4/B5 per tile call at the mesh path's shapes (``dtype="float32"``:
-    B4-f32/B5-f32 on the float32 table): the one-shard Orion table's tile
-    chain timed whole (wrapper, then plain twin) over its tile count, and
-    the bound as the mean over the same tiles."""
-    from repro_torch.insitu.mesh_reduce import MESH_TILE, MeshTable
+def mesh_shard_table(arrays: dict, device, n_shards: int = 1, dtype=None):
+    """``MeshTable``'s shards of the Orion table on ``device`` as the mesh
+    path uploads them (``dtype="float32"``: the float32 table), each a
+    dict with the columns ``kernels.ops`` and the wrappers take."""
+    from repro_torch.insitu.mesh_reduce import MeshTable
     from repro_torch.kernels import ops
-    mt = MeshTable(arrays, 1, [device], dtype=dtype)
+    mt = MeshTable(arrays, 1, [device] * n_shards, dtype=dtype)
+    return [{"coords": c, "coords2": ops.plane_coords(c, 2),
+             "c_axis": c[:, 2], "levels": lv, "values": v, "ok": ok,
+             "n_levels": mt.n_levels}
+            for c, lv, v, ok in mt.shards("density")]
+
+
+def cut_rows(x: dict, a: int, b: int) -> dict:
+    """Rows [a, b) of table ``x``."""
+    return {k: (v if k == "n_levels" else v[a:b]) for k, v in x.items()}
+
+
+def check_shard_chain(arrays: dict, device) -> dict:
+    """The mesh path's carry chain at its real shapes: every Orion shard
+    at S = 1 and ``MESH_SHARDS``, float64 and float32 (the tables
+    ``MeshTable`` uploads), through ``kernels.ops``' one call (B4, B5 and
+    their float32 kernels, one launch a shard) against the twins' chain
+    over ``MESH_TILE``-row tiles on the card, bitwise (image and depth);
+    then the S = 1 shard with ``raster.MAX_ROWS`` cut to five tiles and
+    seven rows, so ``ops._run_shard`` chains calls of whole tiles: the
+    same bits, one launch a call. Returns the max abs error per kernel
+    (0.0)."""
+    import torch
+
+    from repro_torch.insitu.mesh_reduce import MESH_TILE
+    from repro_torch.kernels import raster
+    geo = dict(resolution=LIVE_RESOLUTION, tile_n=MESH_TILE)
+    errs = {}
+    for n_shards in (1, MESH_SHARDS):
+        for dtype in (None, "float32"):
+            fx = "_f32" if dtype else ""
+            shards = mesh_shard_table(arrays, device, n_shards, dtype)
+            for g, x in enumerate(shards):
+                for kind in ("slice", "projection"):
+                    name = f"{kind}_raster_carry{fx}"
+                    label = f"orion shard {g}/{n_shards} {dtype or 'float64'}"
+                    twin = carry_chain(x, kind, "ref", **geo)
+                    before = dict(raster.LAUNCHES)
+                    got = carry_chain(x, kind, None, **geo)
+                    torch.cuda.synchronize()
+                    _check_launched(before, {name: 1}, f"{label}: {name}")
+                    errs[name] = max(errs.get(name, 0.0), _same_bits(
+                        f"{label}: {name} in one call", got, twin))
+                    if n_shards > 1:
+                        continue
+                    limit, raster.MAX_ROWS = raster.MAX_ROWS, \
+                        5 * MESH_TILE + 7
+                    try:
+                        before = dict(raster.LAUNCHES)
+                        cut = carry_chain(x, kind, None, **geo)
+                        torch.cuda.synchronize()
+                    finally:
+                        raster.MAX_ROWS = limit
+                    calls = -(-x["values"].shape[0] // (5 * MESH_TILE))
+                    _check_launched(before, {name: calls},
+                                    f"{label}: {name} cut")
+                    _same_bits(f"{label}: {name} in {calls} calls of 5 "
+                               f"tiles", cut, twin)
+            print(f"parity orion mesh chain S={n_shards} "
+                  f"{dtype or 'float64'}: B4{fx.replace('_', '-')} and "
+                  f"B5{fx.replace('_', '-')} in one call a "
+                  f"shard bit-equal to the twins' {MESH_TILE}-row chain "
+                  f"(image and depth), shard rows "
+                  f"{[x['values'].shape[0] for x in shards]}"
+                  + ("; cut at 5 tiles by the row limit: the same bits"
+                     if n_shards == 1 else ""))
+    return errs
+
+
+def time_carries(arrays: dict, device, dtype=None) -> tuple:
+    """B4/B5 at the mesh path's shapes (``dtype="float32"``: B4-f32/B5-f32
+    on the float32 table), the one-shard Orion table: the wrapper alone
+    in one call over the shard (``ms``, CUDA events; ``shard``: with its
+    host and device time and the device split by kernel, B5's five
+    steps), ``kernels.ops``' one call with its column prep (``ops_ms``),
+    the twins' chain over the shard (``plain_ms``), and in the same run
+    the old chain of one call per ``MESH_TILE``-row tile through ``ops``'
+    cut (:func:`tile_chain`, ``tile_chain_ms``) and of the wrapper alone
+    over the pre-cut tiles (``per_tile``); the bound of one shard call."""
+    from repro_torch.insitu.mesh_reduce import MESH_TILE
+    (shard,) = mesh_shard_table(arrays, device, 1, dtype)
     fx = "_f32" if dtype else ""
-    coords, levels, values, ok = next(mt.shards("density"))
-    x = {"coords": coords, "levels": levels, "values": values, "ok": ok,
-         "n_levels": mt.n_levels}
-    tiles = [{"coords2": ops.plane_coords(coords[a:a + MESH_TILE], 2),
-              "c_axis": coords[a:a + MESH_TILE, 2],
-              "levels": levels[a:a + MESH_TILE],
-              "values": values[a:a + MESH_TILE], "ok": ok[a:a + MESH_TILE],
-              "n_levels": mt.n_levels}
-             for a in range(0, values.shape[0], MESH_TILE)]
+    n = shard["values"].shape[0]
+    tiles = [cut_rows(shard, a, a + MESH_TILE) for a in range(0, n, MESH_TILE)]
     geo = dict(resolution=LIVE_RESOLUTION, tile_n=MESH_TILE)
     out = {}
     for kind, name in (("slice", "slice_raster_carry" + fx),
                        ("projection", "projection_raster_carry" + fx)):
-        chain = time_ms(lambda: carry_chain(x, kind, None, **geo), reps=5)
-        plain = time_ms(lambda: carry_chain(x, kind, "ref", **geo), reps=1,
-                        warm=1)
-        out[name] = {"ms": chain / len(tiles), "plain_ms": plain / len(tiles),
-                     "chain_ms": chain, "plain_chain_ms": plain}
-    out["slice_raster_carry" + fx].update(slice_carry_calls(tiles, device))
+        one = time_ms(lambda: carry_chain(shard, kind, None, **geo), reps=20)
+        chain = time_ms(lambda: tile_chain(shard, kind, **geo), reps=5)
+        plain = time_ms(lambda: carry_chain(shard, kind, "ref", **geo),
+                        reps=1, warm=1)
+        out[name] = {"ops_ms": one, "plain_ms": plain,
+                     "tile_chain_ms": chain, "tiles": len(tiles)}
+    out["slice_raster_carry" + fx].update(
+        shard=slice_carry_calls([shard], device),
+        per_tile=slice_carry_calls(tiles, device))
     out["projection_raster_carry" + fx].update(
-        projection_calls(tiles, device, carry=True))
-    return out, carry_bounds(tiles, LIVE_RESOLUTION)
+        shard=projection_calls([shard], device, carry=True,
+                               tile_n=MESH_TILE),
+        per_tile=projection_calls(tiles, device, carry=True))
+    for t in out.values():
+        t["ms"] = t["shard"]["wrapper_ms"]
+    return out, carry_bounds([shard], LIVE_RESOLUTION)
 
 
 def time_hist_f32(arrays: dict, device) -> tuple:
@@ -2672,7 +2802,8 @@ def time_hist_reducer(arrays: dict, on_card: dict, device) -> dict:
 
 def wrapper_calls(chain, n_calls: int, reps: int = 20) -> dict:
     """A kernel's wrapper alone, ``chain`` making ``n_calls`` calls of it
-    (chained carries over pre-cut tiles, no ``_run_tiles`` slicing): ms
+    (a carry over a shard, or chained over its pre-cut tiles with no
+    ``_run_tiles`` slicing): ms
     per call with CUDA events, the host's own ms per call (a loop with no
     sync, then one sync), and the device ms per call by kernel and the
     host account from ``torch.profiler``."""
@@ -2684,68 +2815,75 @@ def wrapper_calls(chain, n_calls: int, reps: int = 20) -> dict:
             "device_split_ms": split, "profiled_host_ms": host_split}
 
 
-def slice_carry_calls(tiles: list, device, reps: int = 20) -> dict:
-    """B4's wrapper alone over the pre-cut tiles (:func:`wrapper_calls`;
-    device split: paint, resolve) and its host steps."""
+def slice_carry_calls(tables: list, device, reps: int = 20) -> dict:
+    """B4's wrapper alone, one call a table chained over ``tables`` (the
+    shard alone, or its pre-cut tiles; :func:`wrapper_calls`; device
+    split: paint, resolve) and its host steps on the first table."""
     import torch
 
     from repro_torch.kernels import raster
     r = LIVE_RESOLUTION
-    seed = (torch.full((r, r), float("nan"), dtype=tiles[0]["values"].dtype,
+    seed = (torch.full((r, r), float("nan"), dtype=tables[0]["values"].dtype,
                        device=device),
             torch.full((r, r), -1, dtype=torch.int32, device=device))
 
     def chain():
         carry = seed
-        for t in tiles:
+        for t in tables:
             carry = raster.slice_raster_carry(
                 t["coords2"], t["c_axis"], t["levels"], t["values"], t["ok"],
                 position=0.5, resolution=r, n_levels=t["n_levels"],
                 init=carry)
         return carry
 
-    return {**wrapper_calls(chain, len(tiles), reps),
-            "host_steps_us": slice_carry_steps(tiles[0], seed)}
+    return {**wrapper_calls(chain, len(tables), reps),
+            "host_steps_us": slice_carry_steps(tables[0], seed)}
 
 
-def projection_calls(tiles: list, device, *, carry: bool,
-                     reps: int = 20) -> dict:
-    """B5's wrapper alone over the pre-cut tiles (``carry``), or B2's on
-    the one table in ``tiles`` (:func:`wrapper_calls`; device split: key
-    and count, scan, place, order, projection), its host steps, and the
-    longest (level, cell) segment of the tables."""
+def projection_calls(tables: list, device, *, carry: bool,
+                     tile_n: int | None = None, reps: int = 20) -> dict:
+    """B5's wrapper alone, one call a table chained over ``tables`` (the
+    shard alone with the chain's ``tile_n``, or its pre-cut tiles;
+    ``carry``), or B2's on the one table in ``tables``
+    (:func:`wrapper_calls`; device split: key and count, scan, place,
+    order, projection), its host steps, and the longest (level, cell)
+    segment of the tables."""
     import torch
 
     from repro_torch.kernels import raster
     r = LIVE_RESOLUTION
-    seed = torch.zeros((r, r), dtype=tiles[0]["values"].dtype, device=device)
+    seed = torch.zeros((r, r), dtype=tables[0]["values"].dtype,
+                       device=device)
 
     def cols(t):
         return t["coords2"], t["levels"], t["values"], t["ok"]
 
     def chain():
         img = seed
-        for t in tiles:
+        for t in tables:
             img = raster.projection_raster_carry(
-                *cols(t), resolution=r, n_levels=t["n_levels"], init=img) \
+                *cols(t), resolution=r, n_levels=t["n_levels"], init=img,
+                tile_n=tile_n) \
                 if carry else raster.projection_raster(
                     *cols(t), resolution=r, n_levels=t["n_levels"])
         return img
 
-    return {**wrapper_calls(chain, len(tiles), reps),
-            "host_steps_us": projection_steps(tiles[0],
-                                              seed if carry else None),
+    return {**wrapper_calls(chain, len(tables), reps),
+            "host_steps_us": projection_steps(tables[0],
+                                              seed if carry else None,
+                                              tile_n),
             "longest_segment": max(longest_segment(
                 t["coords2"], t["levels"], t["ok"], resolution=r,
-                n_levels=t["n_levels"]) for t in tiles)}
+                n_levels=t["n_levels"]) for t in tables)}
 
 
-def projection_steps(t: dict, seed) -> dict:
-    """Host µs per call of each step of B5's wrapper (``seed`` the carry)
-    or B2's (``seed`` None), alone, on one table: the device and seed
-    checks, the casts (none: the columns come in their dtypes), the
-    scratch lookup, the one output allocation, the ctypes call with its
-    five launches, and the whole wrapper."""
+def projection_steps(t: dict, seed, tile_n: int | None = None) -> dict:
+    """Host µs per call of each step of B5's wrapper (``seed`` the carry,
+    ``tile_n`` the chain's tile rows) or B2's (``seed`` None), alone, on
+    one table: the device and seed checks, the casts (none: the columns
+    come in their dtypes), the scratch lookup, the one output
+    allocation, the ctypes call with its five launches, and the whole
+    wrapper."""
     import torch
 
     from repro_torch.kernels import cudalib, raster
@@ -2760,13 +2898,15 @@ def projection_steps(t: dict, seed) -> dict:
     args = (*(c.data_ptr() for c in cols[:2]), cols[3].data_ptr(),
             cols[2].data_ptr(), n, r, L, zeros.data_ptr(),
             offsets.data_ptr(), rows.data_ptr(),
-            *(s.data_ptr() for s in seeds), img.data_ptr())
+            *((seeds[0].data_ptr(), tile_n or 0) if seeds else ()),
+            img.data_ptr())
     cudalib.lib()
     entry = cudalib._FNS["raster_projection_carry" + raster._SUFFIX[vd]
                          if seeds else "raster_projection_f64"]
     stream = cudalib.current_stream(i)
     wrapper = (lambda: raster.projection_raster_carry(
-        *cols, resolution=r, n_levels=L, init=seed)) if seeds else \
+        *cols, resolution=r, n_levels=L, init=seed, tile_n=tile_n)) \
+        if seeds else \
         (lambda: raster.projection_raster(*cols, resolution=r, n_levels=L))
     steps = {
         "checks": lambda: (cudalib.device_index(*cols, *seeds),
@@ -2784,10 +2924,9 @@ def projection_steps(t: dict, seed) -> dict:
 
 
 def slice_carry_steps(t: dict, seed) -> dict:
-    """Host µs per call of each step of B4's wrapper, alone, on one tile:
+    """Host µs per call of each step of B4's wrapper, alone, on one table:
     the device and seed checks, one output allocation (it makes two),
-    the ctypes call with its two launches, the whole wrapper, and
-    ``_run_tiles``' cut of one tile's five columns."""
+    the ctypes call with its two launches, and the whole wrapper."""
     import torch
 
     from repro_torch.kernels import cudalib, raster
@@ -2805,7 +2944,6 @@ def slice_carry_steps(t: dict, seed) -> dict:
     vd = t["values"].dtype
     entry = cudalib._FNS["raster_slice_carry" + raster._SUFFIX[vd]]
     stream = cudalib.current_stream(i)
-    whole = torch.cat(cols[3:4] * 35)
     steps = {
         "checks": lambda: (cudalib.device_index(*cols, *seed),
                            raster._seed(seed, r, (vd, torch.int32))),
@@ -2814,7 +2952,6 @@ def slice_carry_steps(t: dict, seed) -> dict:
         "whole wrapper": lambda: raster.slice_raster_carry(
             *cols, position=0.5, resolution=r, n_levels=t["n_levels"],
             init=seed),
-        "tile cut (5 slices)": lambda: [whole[:16384] for _ in range(5)],
     }
     return {name: host_us(fn, 500) for name, fn in steps.items()}
 
@@ -3031,6 +3168,45 @@ def time_stream_handles(device) -> dict:
 
 # ----------------------------------------------------------------- main
 
+def print_carry(name: str, t: dict, b: dict) -> None:
+    """One line of :func:`time_carries`' numbers for B4/B5 (or -f32): the
+    one call a shard beside the old chain of per-tile calls."""
+    sh, pt = t["shard"], t["per_tile"]
+    n = t["tiles"]
+    print(f"time {name} per shard call (one-shard Orion table): wrapper "
+          f"alone {sh['wrapper_ms']!r} ms (CUDA events), through "
+          f"kernels.ops with its column prep {t['ops_ms']!r} ms; wrapper "
+          f"host {sh['host_ms']!r} ms, device "
+          f"{sh['device_ms']!r} ms {sh['device_split_ms']!r}; host us per "
+          f"call of each step {sh['host_steps_us']!r}"
+          + (f"; longest cell segment {sh['longest_segment']} rows"
+             if "longest_segment" in sh else ""))
+    print(f"time {name} old chain of {n} per-tile calls ({n} x "
+          f"MESH_TILE rows, same run): {t['tile_chain_ms']!r} ms (CUDA "
+          f"events); wrapper alone {pt['wrapper_ms']!r} ms a tile "
+          f"({pt['wrapper_ms'] * n!r} a chain), host {pt['host_ms']!r} ms "
+          f"a tile, device {pt['device_ms']!r} ms a tile "
+          f"({(pt['device_ms'] or 0.0) * n!r} a chain) "
+          f"{pt['device_split_ms']!r}; plain twins' chain "
+          f"{t['plain_ms']!r} ms; bound of one shard call "
+          f"{b['bound_ms']!r} ms by {b['bound_by']} ({b['bytes']} bytes, "
+          f"{b['ops']} {b['ops_type']} ops)")
+
+
+def projection_kernel_split(carries: dict) -> dict:
+    """``projection_kernel``'s device ms a call, float32 and float64, in
+    one shard call and in one tile call of the old chain."""
+    out = {}
+    for fx, dt in (("", "double"), ("_f32", "float")):
+        t = carries["projection_raster_carry" + fx]
+        for where in ("shard", "per_tile"):
+            split = t[where]["device_split_ms"]
+            out[f"{dt} {where}"] = next(
+                (v for k, v in split.items()
+                 if f"projection_kernel<{dt[:2]}" in k), None)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3100,6 +3276,8 @@ def main() -> int:
     errs.update(check_parity_f32("orion full size", x, edges, n_hist,
                                  resolution=LIVE_RESOLUTION,
                                  tile_n=MESH_TILE))
+    for name, err in check_shard_chain(tree.to_arrays(), device).items():
+        errs[name] = max(errs[name], err)
     errs.update(check_codec_parity("orion full size", tree, device))
     errs["slice_raster"] = max(errs["slice_raster"], coarse_err)
     for name in ("level_hist", "level_hist_f32"):
@@ -3154,10 +3332,8 @@ def main() -> int:
     times.update(codec_times)
     bnd.update(codec_bnd)
     wall["stream_handle_us"] = time_stream_handles(device)
-    b1, b3, b4, b6, b7 = (times[k] for k in ("slice_raster", "level_hist",
-                                             "slice_raster_carry",
-                                             "encode_groups",
-                                             "decode_groups"))
+    b1, b3, b6, b7 = (times[k] for k in ("slice_raster", "level_hist",
+                                         "encode_groups", "decode_groups"))
     print(f"time slice_raster wrapper alone on the Orion table: "
           f"{b1['wrapper_ms']!r} ms a call (CUDA events), host "
           f"{b1['host_ms']!r} ms a call, device {b1['device_ms']!r} ms a "
@@ -3175,53 +3351,38 @@ def main() -> int:
           f"{b6['device_ms']!r} ms; host us per call of each step "
           f"{b6['host_steps_us']!r}; compress_bits stage per Orion snapshot "
           f"{wall['codec']['encode_split_ms'].get('compress_bits')!r} ms")
-    print(f"time slice_raster_carry wrapper alone over "
-          f"{bnd['slice_raster_carry']['tiles']} pre-cut tiles: "
-          f"{b4['wrapper_ms']!r} ms a call (CUDA events), host "
-          f"{b4['host_ms']!r} ms a call, device {b4['device_ms']!r} ms a "
-          f"call {b4['device_split_ms']!r}; the "
-          f"{bnd['slice_raster_carry']['tiles']}-tile chain through "
-          f"ops.raster_slice_partial {b4['chain_ms']!r} ms")
     print(f"time decode_groups: wrapper {b7['ms']!r} ms a call (CUDA "
           f"events), host {b7['host_ms']!r} ms a call, device "
           f"{b7['device_ms']!r} ms; library torch.bitwise_xor "
           f"{b7['library_ms']!r} ms")
-    b2, b5 = times["projection_raster"], times["projection_raster_carry"]
+    b2 = times["projection_raster"]
     print(f"time projection_raster wrapper alone on the Orion table: "
           f"{b2['wrapper_ms']!r} ms a call (CUDA events), host "
           f"{b2['host_ms']!r} ms a call, device {b2['device_ms']!r} ms a "
           f"call {b2['device_split_ms']!r}; longest cell segment "
-          f"{b2['longest_segment']} rows")
-    print(f"time projection_raster_carry wrapper alone over "
-          f"{bnd['projection_raster_carry']['tiles']} pre-cut tiles: "
-          f"{b5['wrapper_ms']!r} ms a call (CUDA events), host "
-          f"{b5['host_ms']!r} ms a call, device {b5['device_ms']!r} ms a "
-          f"call {b5['device_split_ms']!r}; the "
-          f"{bnd['projection_raster_carry']['tiles']}-tile chain through "
-          f"ops.raster_projection_partial {b5['chain_ms']!r} ms; longest "
-          f"cell segment of a tile {b5['longest_segment']} rows, of the "
-          f"adversarial tables {table_segment}")
-    print(f"time host us per call of each step: slice_raster_carry "
-          f"{b4['host_steps_us']!r}; projection_raster "
-          f"{b2['host_steps_us']!r}; projection_raster_carry "
-          f"{b5['host_steps_us']!r}; decode_groups {b7['host_steps_us']!r}")
-    f32 = {name: times[name] for name in ("slice_raster_carry_f32",
-                                          "projection_raster_carry_f32",
-                                          "level_hist_f32")}
+          f"{b2['longest_segment']} rows, of the adversarial tables "
+          f"{table_segment}")
+    print(f"time host us per call of each step: projection_raster "
+          f"{b2['host_steps_us']!r}; decode_groups {b7['host_steps_us']!r}")
+    carries = {name: times[name] for name in (
+        "slice_raster_carry", "projection_raster_carry",
+        "slice_raster_carry_f32", "projection_raster_carry_f32")}
+    for name, t in carries.items():
+        print_carry(name, t, bnd[name])
+    wall["projection_kernel_ms"] = projection_kernel_split(carries)
+    print(f"time projection_kernel float32 against float64 (device ms a "
+          f"call, torch.profiler): {wall['projection_kernel_ms']!r}")
+    f32 = {name: times[name] for name in ("level_hist_f32",)}
     for name, t in f32.items():
-        per = f"over {bnd[name]['tiles']} pre-cut tiles" \
-            if "tiles" in bnd[name] else "on the one-shard float32 table"
-        print(f"time {name} wrapper alone {per}: {t['wrapper_ms']!r} ms a "
-              f"call (CUDA events), host {t['host_ms']!r} ms a call, device "
-              f"{t['device_ms']!r} ms a call {t['device_split_ms']!r}"
-              + (f"; host us per call of each step {t['host_steps_us']!r}"
-                 if "host_steps_us" in t else ""))
+        print(f"time {name} wrapper alone on the one-shard float32 table: "
+              f"{t['wrapper_ms']!r} ms a call (CUDA events), host "
+              f"{t['host_ms']!r} ms a call, device {t['device_ms']!r} ms a "
+              f"call {t['device_split_ms']!r}; host us per call of each "
+              f"step {t['host_steps_us']!r}")
     wall["wrapper_calls"] = {"slice_raster": b1, "level_hist": b3,
                              "encode_groups": b6,
-                             "slice_raster_carry": b4,
                              "projection_raster": b2,
-                             "projection_raster_carry": b5,
-                             "decode_groups": b7, **f32}
+                             "decode_groups": b7, **carries, **f32}
     for name in ("slice_raster_carry", "projection_raster_carry"):
         launches[name] = mesh_launches[name]     # the mesh path's (S=1)
     launches.update({k: v for k, v in               # the float32 path's
@@ -3231,13 +3392,14 @@ def main() -> int:
     records = []
     for name, (replaces, source) in KERNELS.items():
         t, b = times[name], bnd[name]
-        per = f"per tile call (mean of {b['tiles']} tiles), " \
-            if "tiles" in b else ""
+        per = "per shard call (the one-shard Orion table), " \
+            if "calls" in b else ""
         where = "per Orion codec snapshot" if source == CODEC_SRC else \
             f"on the main path over {wall['steps']} steps"
         lib_ms = t.get("library_ms")
-        if "device_ms" in t:
-            dev_ms = t["device_ms"]
+        if "device_ms" in t or "shard" in t:
+            dev_ms = t["device_ms"] if "device_ms" in t else \
+                t["shard"]["device_ms"]
             per += (f"device time {dev_ms!r} ms a call, "
                     if dev_ms is not None else "device time not measured, ")
         print(f"time {name}: {per}kernel {t['ms']!r} ms, plain "

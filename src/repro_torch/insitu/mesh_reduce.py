@@ -48,8 +48,11 @@ bit-equal to the reference's float32 mesh runner; against the float64
 host reducers the slice holds to rtol 1e-6 and the projection to 1e-4,
 and the histogram is exact on the cast values (DESIGN.md "f32 policy").
 
-A shard longer than ``tile_n`` rows streams through the carry kernels in
-BFS-ordered tiles without changing a single output bit.
+On the card each shard is one call of each carry kernel (B4, B5), and
+``tile_n`` tiles only the twins (``backend="ref"`` and CPU tables): they
+chain a shard longer than ``tile_n`` rows in BFS-ordered tiles, and the
+one call gives that chain's bits (a shard's rows are BFS-ascending
+leaves, so its kept rows are level-sorted; ``kernels.ops``).
 
 Select with ``InTransitEngine(device_reduce="mesh", mesh_devices=...)``
 or ``python -m repro_torch.launch.insitu --device-mesh N [--device D]``.
@@ -71,8 +74,8 @@ __all__ = ["MeshDAGRunner", "MeshRunStats", "MeshTable",
            "register_mesh_impl", "mesh_impl_for", "mesh_devices",
            "MESH_TILE"]
 
-#: per-shard padded row budget before the tiled formulation kicks in
-#: (a multiple of ``ops.BLOCK_N``)
+#: rows of the twins' tiles over a shard (a multiple of ``ops.BLOCK_N``);
+#: on the card a shard is one kernel call whatever its rows
 MESH_TILE = 16384
 
 

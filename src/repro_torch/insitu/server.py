@@ -400,6 +400,24 @@ def _make_handler(catalog: Catalog, compress: bool,
             pass
 
         # ------------------------------------------------------ responses
+        def _observe(self) -> None:
+            """Record this request's metrics, once, before its response
+            is complete on the wire: a client that reads the response
+            and then asks ``/v1/stats`` (a new connection, so another
+            worker) finds the request counted. Recording after the last
+            write, as the reference server does, races that worker."""
+            if self._obs_done:
+                return
+            self._obs_done = True
+            if obs_metrics.ENABLED:
+                endpoint = self._obs_endpoint
+                m_requests.labels(endpoint, self._obs_status or
+                                  "aborted").inc()
+                m_seconds.labels(endpoint).observe(
+                    time.perf_counter() - self._obs_t0)
+                if self._obs_bytes:
+                    m_bytes.labels(endpoint).inc(self._obs_bytes)
+
         def _send(self, code: int, body: bytes, ctype: str,
                   headers: dict | None = None) -> None:
             self._obs_status = code
@@ -409,6 +427,7 @@ def _make_handler(catalog: Catalog, compress: bool,
             self.send_header("Content-Length", str(len(body)))
             for k, v in (headers or {}).items():
                 self.send_header(k, v)
+            self._observe()
             self.end_headers()
             self.wfile.write(body)
 
@@ -449,6 +468,7 @@ def _make_handler(catalog: Catalog, compress: bool,
                 self.wfile.write(b"%X\r\n" % len(data) + data + b"\r\n")
                 self.wfile.flush()
                 self._obs_bytes += len(data)
+            self._observe()
             self.wfile.write(b"0\r\n\r\n")
             if engine is not None:
                 engine.observe_stage("write", time.perf_counter() - t1)
@@ -496,10 +516,12 @@ def _make_handler(catalog: Catalog, compress: bool,
         # --------------------------------------------------------- routes
         def do_GET(self):   # noqa: N802  (http.server API)
             url = urllib.parse.urlsplit(self.path)
-            endpoint = url.path if url.path in _KNOWN_ENDPOINTS else "other"
+            self._obs_endpoint = url.path if url.path in _KNOWN_ENDPOINTS \
+                else "other"
             self._obs_status = 0      # 0 = aborted before any response
             self._obs_bytes = 0
-            t0 = time.perf_counter()
+            self._obs_done = False
+            self._obs_t0 = time.perf_counter()
             q = {k: v[-1] for k, v in
                  urllib.parse.parse_qs(url.query).items()}
             try:
@@ -533,13 +555,7 @@ def _make_handler(catalog: Catalog, compress: bool,
                 self._json({"error": "internal", "message": repr(e)},
                            code=500)
             finally:
-                if obs_metrics.ENABLED:
-                    m_requests.labels(endpoint, self._obs_status or
-                                      "aborted").inc()
-                    m_seconds.labels(endpoint).observe(
-                        time.perf_counter() - t0)
-                    if self._obs_bytes:
-                        m_bytes.labels(endpoint).inc(self._obs_bytes)
+                self._observe()       # aborted before any response
 
         @staticmethod
         def _param(q: dict, name: str) -> str:
@@ -594,6 +610,7 @@ def _make_handler(catalog: Catalog, compress: bool,
                     self.send_response(304)
                     self.send_header("ETag", tag)
                     self.send_header("Content-Length", "0")
+                    self._observe()
                     self.end_headers()
                     return
                 if engine is not None:

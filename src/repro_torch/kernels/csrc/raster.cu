@@ -58,13 +58,17 @@
 //     is a guess from the uniform spacing corrected against the edges (no
 //     binary search); up to 257 edges cross by value as a kernel
 //     parameter, so the caller uploads nothing.
-//   * carries (B4/B5): one leaf-table tile painted over the partial image of
-//     the earlier tiles. B4 resolves each pixel's tile winner against the
-//     seed depth: the sequential rule ``lvl >= depth`` lets the tile win at
-//     equal level (its rows come later in BFS order), so the tile's key wins
-//     iff its level >= depth0. B5 starts each pixel's sum at img0 instead of
-//     0.0; the tile's CSR keeps the adds in row order after it. Both read
-//     the seed once and write the outputs once (24 resp. 16 bytes a pixel).
+//   * carries (B4/B5): a leaf table painted over a partial image. The mesh
+//     path makes one call per shard; the twins chain the same shard in BFS
+//     tiles, and the one call gives the chain's bits. B4 resolves each
+//     pixel's winner against the seed depth: the chain's rule ``lvl >=
+//     depth`` lets a later tile win at equal level, so the winner is the
+//     largest (level, row), which the global row in the key gives. B5 starts
+//     each pixel's sum at img0 instead of 0.0; the chain adds in (tile,
+//     level, row) order, the CSR walk in (level, row) order, and the two
+//     agree on every level-sorted table (see projection_kernel, which keeps
+//     the chain's order on any other). Both read the seed once and write
+//     the outputs once (24 resp. 16 bytes a pixel).
 //   * B1/B4's leaf table and B2/B5's CSR are built on the card from the
 //     raw columns (coords, levels, ok; B1/B4 also the strided slice-axis
 //     column): a call's device work is a few us, so the ~10-15 torch ops
@@ -72,17 +76,20 @@
 //     searchsorted over every pyramid cell) cost far more than the kernels
 //     did. One C call launches every step on the stream; the scratch is
 //     kept by the wrapper and left all zero where the next call needs zeros
-//     (B1/B4's resolve clears every key it finds set; B2/B5's place step
-//     counts each cell back down to zero), so no call allocates scratch or
+//     (B1/B4's resolve clears every key it finds set; B2/B5's scan zeroes
+//     the cell counts it has read), so no call allocates scratch or
 //     memsets.
 //   * B2/B5's CSR in five launches: key/count (one thread per row, the
 //     cell base[l] + (c0 >> dn) * g + (c1 >> dn) with base[l] in closed
-//     form, integer atomics, warp-aggregated counts per 4096-cell chunk);
-//     an exclusive scan of the cell counts (each block adds the chunk
-//     counts before it, then scans its chunk); place (offset plus the
-//     atomically decremented count); order (each row's rank in its cell =
-//     the rows of the cell below it, so the segment is in row order,
-//     exactly the stable sort's permutation); the projection.
+//     form, an integer atomic whose old value is the row's arrival index
+//     in its cell, warp-aggregated counts per 4096-cell chunk); an
+//     exclusive scan of the cell counts (each block adds the chunk counts
+//     before it, then scans its chunk); place (offset plus arrival index,
+//     no atomics); order (each row's rank in its cell = the rows of the
+//     cell below it, so the segment is in row order, exactly the stable
+//     sort's permutation; ranked segment-major in shared memory, with the
+//     row's value * 2^-l written beside it, see proj_order_kernel); the
+//     projection, which reads those contributions contiguously.
 //
 // Plain C interface (loaded with ctypes); every entry takes the tensors'
 // device index (see device_guard.cuh), launches on the given stream, never
@@ -339,30 +346,41 @@ int64_t scan_cells(int64_t total) { return (total / kScanChunk + 1) * kScanChunk
 
 // Step 1, one thread per row: the row's pyramid cell (ref.level_cells), or
 // -1 for a row that is not ok, of a level outside [0, n_levels) or of a
-// cell outside the pyramid; one count per cell, and the rows per
-// kScanChunk-cell chunk counted once per warp and chunk.
+// cell outside the pyramid; the cell's count, counted once per warp and
+// cell, gives each row its arrival index in the cell (``sub``); and the
+// rows per kScanChunk-cell chunk counted once per warp and chunk.
 __global__ void proj_key_kernel(const int32_t* __restrict__ coords2,
                                 const int32_t* __restrict__ lvl,
                                 const uint8_t* __restrict__ ok, int64_t n,
                                 int32_t k, int32_t n_levels, int64_t total,
                                 int32_t* __restrict__ key,
+                                int32_t* __restrict__ sub,
                                 int32_t* __restrict__ count,
                                 int32_t* __restrict__ chunk_count) {
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   int32_t cell = -1;
-  if (row < n && ok[row]) {
+  if (row < n) {
+    // the row's loads issued together, not one behind the other's test
+    const bool good = ok[row];
     const int32_t l = lvl[row];
-    if (l >= 0 && l < n_levels) {
+    const int32_t c0 = coords2[2 * row], c1 = coords2[2 * row + 1];
+    if (good && l >= 0 && l < n_levels) {
       const int dn = max(l - k, 0);
       const int64_t g = 1ll << min(l, k);
-      const int64_t c = level_base(l, k)
-                        + (int64_t)(coords2[2 * row] >> dn) * g
-                        + (coords2[2 * row + 1] >> dn);
+      const int64_t c = level_base(l, k) + (int64_t)(c0 >> dn) * g
+                        + (c1 >> dn);
       if (c >= 0 && c < total) cell = (int32_t)c;
     }
   }
   if (row < n) key[row] = cell;
-  if (cell >= 0) atomicAdd(&count[cell], 1);
+  // the warp's rows of one cell take one atomic: the first adds their
+  // number, and each gets the old count plus its rank among them
+  const unsigned same = __match_any_sync(0xffffffffu, cell);
+  const int lane = threadIdx.x % kWarp, head = __ffs(same) - 1;
+  int32_t at = 0;
+  if (cell >= 0 && lane == head) at = atomicAdd(&count[cell], __popc(same));
+  at = __shfl_sync(0xffffffffu, at, head);
+  if (cell >= 0) sub[row] = at + __popc(same & ((1u << lane) - 1u));
   const int chunk = cell >= 0 ? cell / kScanChunk : -1;
   const unsigned peers = __match_any_sync(0xffffffffu, chunk);
   if (chunk >= 0 && threadIdx.x % kWarp == __ffs(peers) - 1)
@@ -399,9 +417,11 @@ __device__ int32_t block_exclusive_scan(int32_t x, int32_t* s_warp,
 
 // Step 2, one block per chunk: offsets[c] = the rows of every cell < c.
 // The block first adds the chunk counts of the chunks before its own,
-// then scans its chunk's kScanItems cells a thread. The scratch is padded
-// with zero cells past the pyramid, so offsets[total] is the valid rows.
-__global__ void proj_scan_kernel(const int32_t* __restrict__ count,
+// then scans its chunk's kScanItems cells a thread, and zeroes the counts
+// it read (no later step reads them), so the count scratch is all zero for
+// the next call. The scratch is padded with zero cells past the pyramid,
+// so offsets[total] is the valid rows.
+__global__ void proj_scan_kernel(int32_t* __restrict__ count,
                                  const int32_t* __restrict__ chunk_count,
                                  int64_t* __restrict__ offsets) {
   __shared__ int32_t s_warp[kThreads / kWarp];
@@ -415,12 +435,13 @@ __global__ void proj_scan_kernel(const int32_t* __restrict__ count,
                         + (int64_t)threadIdx.x * kScanItems;
   int32_t v[kScanItems];
   int32_t mine = 0;
-  const int4* c4 = reinterpret_cast<const int4*>(count + first);
+  int4* c4 = reinterpret_cast<int4*>(count + first);
 #pragma unroll
   for (int i = 0; i < kScanItems / 4; ++i) {
     const int4 q = c4[i];
     v[4 * i] = q.x; v[4 * i + 1] = q.y; v[4 * i + 2] = q.z; v[4 * i + 3] = q.w;
     mine += q.x + q.y + q.z + q.w;
+    if (q.x | q.y | q.z | q.w) c4[i] = make_int4(0, 0, 0, 0);
   }
   int32_t block_sum;
   int64_t run = base + block_exclusive_scan(mine, s_warp, &block_sum);
@@ -434,12 +455,12 @@ __global__ void proj_scan_kernel(const int32_t* __restrict__ count,
   }
 }
 
-// Step 3, one thread per row: a slot in its cell's segment, by counting
-// the cell down (which leaves the count scratch all zero again); block 0
-// zeroes the chunk counts, which the scan has read.
-__global__ void proj_place_kernel(const int32_t* __restrict__ key, int64_t n,
+// Step 3, one thread per row: its slot in its cell's segment is the
+// cell's offset plus the row's arrival index from step 1; block 0 zeroes
+// the chunk counts, which the scan has read.
+__global__ void proj_place_kernel(const int32_t* __restrict__ key,
+                                  const int32_t* __restrict__ sub, int64_t n,
                                   const int64_t* __restrict__ offsets,
-                                  int32_t* __restrict__ count,
                                   int32_t* __restrict__ chunk_count,
                                   int32_t n_chunks,
                                   int32_t* __restrict__ slot_row) {
@@ -448,59 +469,172 @@ __global__ void proj_place_kernel(const int32_t* __restrict__ key, int64_t n,
       chunk_count[c] = 0;
   const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= n) return;
-  const int32_t cell = key[row];
+  const int32_t cell = key[row], at = sub[row];
   if (cell < 0) return;
-  slot_row[offsets[cell] + atomicSub(&count[cell], 1) - 1] = (int32_t)row;
+  slot_row[offsets[cell] + at] = (int32_t)row;
 }
 
-// Step 4, one thread per row: its rank in the segment is the number of
-// the segment's rows below it (rows are unique), so ``order`` lists each
-// segment in row order whatever order the atomics placed it in.
-__global__ void proj_order_kernel(const int32_t* __restrict__ key, int64_t n,
-                                  const int64_t* __restrict__ offsets,
-                                  const int32_t* __restrict__ slot_row,
-                                  int32_t* __restrict__ order) {
-  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  const int32_t cell = key[row];
-  if (cell < 0) return;
-  const int64_t lo = offsets[cell], hi = offsets[cell + 1];
-  int64_t rank = 0;
-  for (int64_t e = lo; e < hi; ++e) rank += slot_row[e] < row;
-  order[lo + rank] = (int32_t)row;
+// Step 4, segment-major. Block b ranks the placed entries [b * kThreads,
+// (b + 1) * kThreads) of ``slot_row``, one a thread (a warp holds 32
+// consecutive entries, mostly of one segment, since ``slot_row`` is
+// grouped by cell). An entry's rank in its segment is the number of the
+// segment's rows below its row (rows are unique), so the entry goes to
+// ``lo + rank``: each segment in row order, exactly the stable sort's
+// permutation, whatever order the rows arrived in. The block's window is
+// its entries widened to whole segments (from the start of the first
+// entry's segment to the end of the last one's); it is staged in shared
+// memory kOrderStage entries at a time with coalesced loads, and each
+// thread counts its entry's rank against the staged part of its own
+// segment. The compares stay O(sum of seg^2) but read shared memory;
+// global memory is read once per window entry, plus a key and two offsets
+// per entry. A segment longer than a stage takes several stages of the
+// same loop, so any segment length is ranked exactly. Besides the row, the
+// entry's contribution value * 2^-l is written in the same order, rounded
+// to T as the reference's ``contrib`` (one multiply per row, not per
+// pixel), for the projection to read contiguously. (Four entries a thread
+// measured 1.5 us slower on the Orion shard, PERF.md.)
+constexpr int kOrderStage = 4096;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+proj_order_kernel(const int32_t* __restrict__ key,
+                  const int64_t* __restrict__ offsets, int64_t total,
+                  const int32_t* __restrict__ slot_row,
+                  const int32_t* __restrict__ lvl, const T* __restrict__ val,
+                  int32_t* __restrict__ order, T* __restrict__ contrib) {
+  __shared__ int32_t s_row[kOrderStage];
+  __shared__ int32_t s_window[2];
+  // entries and offsets are below 2^31 (raster.py bounds the rows)
+  const int32_t valid = (int32_t)offsets[total];   // placed entries
+  const int32_t first = blockIdx.x * kThreads;
+  if (first >= valid) return;                      // the whole block
+  const int32_t last = min(first + kThreads, valid);
+  const int32_t e = first + threadIdx.x;
+  int32_t row = 0, lo = 0, hi = 0, rank = 0;       // no entry: empty range
+  if (e < last) {
+    row = slot_row[e];
+    const int32_t cell = key[row];
+    lo = (int32_t)offsets[cell];
+    hi = (int32_t)offsets[cell + 1];
+    if (e == first) s_window[0] = lo;
+    if (e == last - 1) s_window[1] = hi;
+  }
+  __syncthreads();
+  const int32_t w_lo = s_window[0], w_hi = s_window[1];
+  for (int32_t c = w_lo; c < w_hi; c += kOrderStage) {
+    const int32_t m = min(kOrderStage, w_hi - c);
+    if (c != w_lo) __syncthreads();                // the last stage is read
+    for (int32_t t = threadIdx.x; t < m; t += kThreads) s_row[t] = slot_row[c + t];
+    __syncthreads();
+    const int32_t a = max(lo, c) - c, b = min(hi, c + m) - c;
+    for (int32_t x = a; x < b; ++x) rank += s_row[x] < row;
+  }
+  if (e < last) {
+    order[lo + rank] = row;
+    contrib[lo + rank] = Arith<T>::mul(val[row], Arith<T>::pow2(-lvl[row]));
+  }
+}
+
+// A pixel's sum in the chain's order when its (level, row) walk meets a row
+// of an earlier tile (a table whose kept rows are not level-sorted): from
+// the seed, tile by tile in ascending order, each tile's rows in (level,
+// row) order, as the per-tile calls add them. Each pass finds the next tile
+// present at the pixel (each segment is in row order, so its first row past
+// the done tiles is its least) and adds that tile's rows.
+template <typename T>
+__device__ __noinline__ T chain_sum(const T* __restrict__ contrib,
+                                    const int32_t* __restrict__ order,
+                                    const int64_t* __restrict__ offsets,
+                                    T acc, int32_t i, int32_t j, int32_t k,
+                                    int32_t n_levels, int64_t tile) {
+  for (int64_t done = -1;;) {
+    int64_t next = INT64_MAX, base = 0;
+    for (int l = 0; l < n_levels; ++l) {
+      const int sh = k - min(l, k);
+      const int64_t g = (int64_t)1 << (k - sh);
+      const int64_t cell = base + (i >> sh) * g + (j >> sh);
+      const int64_t end = offsets[cell + 1];
+      for (int64_t e = offsets[cell]; e < end; ++e) {
+        const int64_t t = order[e] / tile;
+        if (t > done) {
+          next = min(next, t);
+          break;
+        }
+      }
+      base += g * g;
+    }
+    if (next == INT64_MAX) return acc;
+    base = 0;
+    for (int l = 0; l < n_levels; ++l) {
+      const int sh = k - min(l, k);
+      const int64_t g = (int64_t)1 << (k - sh);
+      const int64_t cell = base + (i >> sh) * g + (j >> sh);
+      const int64_t end = offsets[cell + 1];
+      for (int64_t e = offsets[cell]; e < end; ++e) {
+        const int64_t t = order[e] / tile;
+        if (t > next) break;
+        if (t == next) acc = Arith<T>::add(acc, contrib[e]);
+      }
+      base += g * g;
+    }
+    done = next;
+  }
 }
 
 // Step 5, one thread per pixel; the sum starts at ``img0[p]`` (B5) or 0
-// (B2, ``img0`` null) and runs in T: in float32 each contribution
-// value * 2^-l and each add round to float32, as the reference's float32
-// ``contrib`` and adds do (no double accumulator, no float atomics).
-// ``offsets`` is the CSR over buckets base[l] + cell,
-// cell = (i >> sh) * g + (j >> sh), sh = k - min(l, k), g = res >> sh;
-// ``order`` lists the rows of each bucket in row order.
+// (B2, ``img0`` null) and runs in T: each add rounds to T, as the
+// reference's float32 or float64 adds do (no wider accumulator, no float
+// atomics). ``offsets`` is the CSR over buckets base[l] + cell, cell =
+// (i >> sh) * g + (j >> sh), sh = k - min(l, k), g = res >> sh; ``contrib``
+// holds each bucket's value * 2^-l in row order, so a pixel reads its
+// segments contiguously: no gather through the rows. Cells, offsets and
+// rows fit int32 (raster.py bounds the pyramid and the rows).
+//
+// ``tile`` > 0 (below the rows, so below 2^31): the twins chain this
+// table in tiles of ``tile`` rows and add in (tile, level, row) order. The
+// walk's (level, row) order is that order while the rows' tiles never
+// decrease along it, which holds on every table whose kept rows are
+// level-sorted (an AMR tree's BFS rows, every MeshTable shard). A segment
+// is in row order, so the walk checks only each segment's first row
+// against the tile of the last row before it; a pixel that meets a row of
+// an earlier tile starts again from its seed in chain_sum, so no table
+// gives other bits.
 template <typename T>
-__global__ void projection_kernel(const T* __restrict__ val,
+__global__ void projection_kernel(const T* __restrict__ contrib,
                                   const int32_t* __restrict__ order,
                                   const int64_t* __restrict__ offsets,
                                   const T* __restrict__ img0,
                                   int32_t res, int32_t k, int32_t n_levels,
-                                  T* __restrict__ img) {
+                                  int64_t tile, T* __restrict__ img) {
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t npix = (int64_t)res * res;
-  if (p >= npix) return;
-  const int64_t i = p / res, j = p % res;
-  T acc = img0 ? img0[p] : T(0);
-  int64_t base = 0;
+  if (p >= (int64_t)res * res) return;
+  const int32_t i = (int32_t)(p >> k), j = (int32_t)(p & (res - 1));
+  const int32_t rows = (int32_t)tile;
+  const T seed = img0 ? img0[p] : T(0);
+  T acc = seed;
+  int32_t base = 0, tile_lo = 0;       // first row of the last row's tile
+  bool again = false;
   for (int l = 0; l < n_levels; ++l) {
-    const int sh = k - (l < k ? l : k);
-    const int64_t g = (int64_t)res >> sh;
-    const int64_t cell = base + (i >> sh) * g + (j >> sh);
-    const T scale = Arith<T>::pow2(-l);       // exact path length 2^-l
-    const int64_t end = offsets[cell + 1];
-    for (int64_t e = offsets[cell]; e < end; ++e)
-      acc = Arith<T>::add(acc, Arith<T>::mul(val[order[e]], scale));
+    const int sh = k - min(l, k);
+    const int32_t g = res >> sh;
+    const int32_t cell = base + (i >> sh) * g + (j >> sh);
     base += g * g;
+    const int32_t end = (int32_t)offsets[cell + 1];
+    int32_t e = (int32_t)offsets[cell];
+    if (e == end) continue;
+    if (rows > 0) {
+      if (order[e] < tile_lo) {
+        again = true;
+        break;
+      }
+      const int32_t r = order[end - 1];
+      tile_lo = r - r % rows;
+    }
+    for (; e < end; ++e) acc = Arith<T>::add(acc, contrib[e]);
   }
-  img[p] = acc;
+  img[p] = again ? chain_sum<T>(contrib, order, offsets, seed, i, j, k,
+                                n_levels, tile)
+                 : acc;
 }
 
 // ------------------------------------------------------------ B3 histogram
@@ -647,15 +781,18 @@ cudaError_t paint_slice(const int32_t* coords2, const int32_t* c_axis,
 
 // B2/B5: the five steps on ``s``. ``zero_scratch`` holds scan_cells()
 // int32 counts then their chunk counts, all zero on entry and on return;
-// ``offsets_scratch`` scan_cells() int64; ``row_scratch`` three int32 rows
-// per table row (key, placed row, ordered row). Only the last step reads
-// the values of type T.
+// ``offsets_scratch`` scan_cells() int64; ``row_scratch`` five int32 words
+// per table row: the ordered contributions (T, at the start, so aligned),
+// then the key, the placed row and the ordered row (which holds the
+// arrival indices until the order step writes it). The order step reads
+// the values of type T. ``tile``: the twins' tile rows (0: one tile; see
+// projection_kernel).
 template <typename T>
 cudaError_t projection(const int32_t* coords2, const int32_t* lvl,
                        const uint8_t* ok, const T* val, int64_t n,
                        int32_t res, int32_t n_levels, void* zero_scratch,
                        void* offsets_scratch, void* row_scratch,
-                       const T* img0, T* img, cudaStream_t s) {
+                       const T* img0, int64_t tile, T* img, cudaStream_t s) {
   const int k = 31 - __builtin_clz(res);
   const int64_t total = level_base(n_levels, k);
   const int64_t cells = scan_cells(total);
@@ -663,13 +800,15 @@ cudaError_t projection(const int32_t* coords2, const int32_t* lvl,
   auto* count = static_cast<int32_t*>(zero_scratch);
   int32_t* chunk_count = count + cells;
   auto* offsets = static_cast<int64_t*>(offsets_scratch);
-  auto* key = static_cast<int32_t*>(row_scratch);
+  T* contrib = static_cast<T*>(row_scratch);
+  auto* key = reinterpret_cast<int32_t*>(contrib + n);
   int32_t* slot_row = key + n;
   int32_t* order = slot_row + n;
   const int64_t row_blocks = ceil_div(n, kThreads);
   if (n > 0) {
     proj_key_kernel<<<row_blocks, kThreads, 0, s>>>(
-        coords2, lvl, ok, n, k, n_levels, total, key, count, chunk_count);
+        coords2, lvl, ok, n, k, n_levels, total, key, order, count,
+        chunk_count);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -678,17 +817,18 @@ cudaError_t projection(const int32_t* coords2, const int32_t* lvl,
   if (err != cudaSuccess) return err;
   if (n > 0) {
     proj_place_kernel<<<row_blocks, kThreads, 0, s>>>(
-        key, n, offsets, count, chunk_count, n_chunks, slot_row);
+        key, order, n, offsets, chunk_count, n_chunks, slot_row);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    proj_order_kernel<<<row_blocks, kThreads, 0, s>>>(key, n, offsets,
-                                                       slot_row, order);
+    proj_order_kernel<T><<<row_blocks, kThreads, 0, s>>>(
+        key, offsets, total, slot_row, lvl, val, order, contrib);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   const int64_t npix = (int64_t)res * res;
   projection_kernel<T><<<ceil_div(npix, kThreads), kThreads, 0, s>>>(
-      val, order, offsets, img0, res, k, n_levels, img);
+      contrib, order, offsets, img0, res, k, n_levels, tile < n ? tile : 0,
+      img);
   return cudaGetLastError();
 }
 
@@ -845,20 +985,23 @@ int raster_projection_f64(const int32_t* coords2, const int32_t* lvl,
   if (guard.error() != cudaSuccess) return guard.error();
   return projection<double>(coords2, lvl, ok, val, n, res, n_levels,
                            zero_scratch, offsets_scratch, row_scratch, nullptr,
-                           img, static_cast<cudaStream_t>(stream));
+                           0, img, static_cast<cudaStream_t>(stream));
 }
 
+// B5 over ``img0``: ``tile`` is the twins' tile rows (0: one tile), whose
+// chain order the projection keeps on any table (projection_kernel).
 int raster_projection_carry_f64(const int32_t* coords2, const int32_t* lvl,
                                 const uint8_t* ok, const double* val,
                                 int64_t n, int32_t res, int32_t n_levels,
                                 void* zero_scratch, void* offsets_scratch,
                                 void* row_scratch, const double* img0,
-                                double* img, int32_t device, void* stream) {
+                                int64_t tile, double* img, int32_t device,
+                                void* stream) {
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
   return projection<double>(coords2, lvl, ok, val, n, res, n_levels,
                            zero_scratch, offsets_scratch, row_scratch, img0,
-                           img, static_cast<cudaStream_t>(stream));
+                           tile, img, static_cast<cudaStream_t>(stream));
 }
 
 int raster_projection_carry_f32(const int32_t* coords2, const int32_t* lvl,
@@ -866,12 +1009,13 @@ int raster_projection_carry_f32(const int32_t* coords2, const int32_t* lvl,
                                 int64_t n, int32_t res, int32_t n_levels,
                                 void* zero_scratch, void* offsets_scratch,
                                 void* row_scratch, const float* img0,
-                                float* img, int32_t device, void* stream) {
+                                int64_t tile, float* img, int32_t device,
+                                void* stream) {
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
   return projection<float>(coords2, lvl, ok, val, n, res, n_levels,
                            zero_scratch, offsets_scratch, row_scratch, img0,
-                           img, static_cast<cudaStream_t>(stream));
+                           tile, img, static_cast<cudaStream_t>(stream));
 }
 
 // B3 (see level_hist above): ``hist`` is the output the previous call

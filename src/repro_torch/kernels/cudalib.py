@@ -50,11 +50,11 @@ SIGNATURES = {
     "raster_slice_carry_f64": [_p, _p, _i64, _p, _p, _p, _i64, _i32, _i32,
                                _f64, _p, _p, _p, _p, _p, _i32, _p],
     "raster_projection_carry_f64": [_p, _p, _p, _p, _i64, _i32, _i32, _p,
-                                    _p, _p, _p, _p, _i32, _p],
+                                    _p, _p, _p, _i64, _p, _i32, _p],
     "raster_slice_carry_f32": [_p, _p, _i64, _p, _p, _p, _i64, _i32, _i32,
                                _f32, _p, _p, _p, _p, _p, _i32, _p],
     "raster_projection_carry_f32": [_p, _p, _p, _p, _i64, _i32, _i32, _p,
-                                    _p, _p, _p, _p, _i32, _p],
+                                    _p, _p, _p, _i64, _p, _i32, _p],
     "raster_level_hist_f32": [_p, _p, _p, _p, _i32, _i64, _i32, _i32, _p,
                               _p, _i32, _p],
     # csrc/codec.cu

@@ -117,6 +117,11 @@ def raster_slice_partial(coords, levels, values, ok, *, axis: int,
     ``depth`` is the painting leaf's level (-1 where uncovered), the
     mesh merge's depth-resolve key. Over the whole table the image is
     :func:`raster_slice`'s, bit for bit.
+
+    On the card B4 paints the whole subset in one call (see
+    :func:`_run_shard`): its winner is the largest (level, row), which is
+    the tile chain's rule, so ``tile_n`` changes no bit; the twins chain
+    ``tile_n``-row tiles.
     """
     fn = _pick(backend, values, raster.slice_raster_carry,
                ref.slice_raster_depth_ref)
@@ -132,11 +137,13 @@ def raster_slice_partial(coords, levels, values, ok, *, axis: int,
                        dtype=values.dtype, device=dev),
             torch.full((resolution, resolution), -1, dtype=torch.int32,
                        device=dev))
+    run = _run_shard if fn is raster.slice_raster_carry and values.is_cuda \
+        else _run_tiles
     # int32 coords keep their strided axis column (B4 reads it in place)
-    return _run_tiles(tile, (plane_coords(coords, axis),
-                             coords[:, axis].to(torch.int32),
-                             levels.to(torch.int32), values, ok), seed,
-                      tile_n=tile_n, block_n=block_n)
+    return run(tile, (plane_coords(coords, axis),
+                      coords[:, axis].to(torch.int32),
+                      levels.to(torch.int32), values, ok), seed,
+               tile_n=tile_n, block_n=block_n)
 
 
 def raster_projection_partial(coords, levels, values, ok, *, axis: int,
@@ -144,20 +151,32 @@ def raster_projection_partial(coords, levels, values, ok, *, axis: int,
                               backend: str | None = None,
                               block_n: int = BLOCK_N,
                               tile_n: int | None = None):
-    """Partial projection raster: a leaf subset's column-density image."""
+    """Partial projection raster: a leaf subset's column-density image.
+
+    On the card B5 projects the whole subset in one call (see
+    :func:`_run_shard`) and keeps the ``tile_n``-row chain's add order
+    per pixel, so its bits are the twins' chain's for any table. The
+    call adds in (level, row) order, which is the chain's when the kept
+    rows (ok, 0 <= level < n_levels) are level-sorted, as every AMR
+    tree's BFS table and every ``MeshTable`` shard is; a pixel where it
+    is not re-adds in the chain's order on the card.
+    """
     fn = _pick(backend, values, raster.projection_raster_carry,
                ref.projection_raster_ref)
     _assert_pow2(resolution)
+    run = _run_shard if fn is raster.projection_raster_carry and \
+        values.is_cuda else _run_tiles
 
+    # the one call keeps the chain's order from ``tile_n``; a twin call
+    # of ``_run_tiles`` is one tile already
     def tile(c2, lv, val, okk, img):
         return (fn(c2, lv, val, okk, resolution=resolution,
-                   n_levels=n_levels, init=img),)
+                   n_levels=n_levels, init=img, tile_n=tile_n),)
 
     seed = (torch.zeros((resolution, resolution), dtype=values.dtype,
                         device=values.device),)
-    return _run_tiles(tile, (plane_coords(coords, axis),
-                             levels.to(torch.int32), values, ok), seed,
-                      tile_n=tile_n, block_n=block_n)[0]
+    return run(tile, (plane_coords(coords, axis), levels.to(torch.int32),
+                      values, ok), seed, tile_n=tile_n, block_n=block_n)[0]
 
 
 def raster_level_hist_partial(values, levels, ok, edges, *, n_levels: int,
@@ -170,16 +189,26 @@ def raster_level_hist_partial(values, levels, ok, edges, *, n_levels: int,
     return _level_hist(backend, values, levels, ok, edges, n_levels)
 
 
-def _run_tiles(tile_fn, arrays, seed, *, tile_n: int | None, block_n: int):
-    """Drive ``tile_fn`` over the table once, or tile by tile in BFS
-    order with the carry threaded through; the last tile is padded with
-    ``ok=False`` rows so every tile has ``tile_n`` rows."""
-    n = arrays[0].shape[0]
+def _check_tile(n: int, tile_n: int | None, block_n: int) -> bool:
+    """Whether ``n`` rows make several ``tile_n``-row tiles; raises for a
+    ``tile_n`` that is not a multiple of ``block_n`` where it would."""
     if tile_n is None or n <= tile_n:
-        return tile_fn(*arrays, *seed)
+        return False
     if tile_n % block_n:
         raise ValueError(f"tile_n={tile_n} not a multiple of "
                          f"block_n={block_n}")
+    return True
+
+
+def _run_tiles(tile_fn, arrays, seed, *, tile_n: int | None, block_n: int):
+    """The twins' chain: drive ``tile_fn`` over the table once, or tile by
+    tile in BFS order with the carry threaded through; the last tile is
+    padded with ``ok=False`` rows so every tile has ``tile_n`` rows.
+    ``tile_n`` tiles only the twins (``backend="ref"`` or CPU tensors): on
+    the card a shard is one call (:func:`_run_shard`)."""
+    if not _check_tile(arrays[0].shape[0], tile_n, block_n):
+        return tile_fn(*arrays, *seed)
+    n = arrays[0].shape[0]
     carry = tuple(seed)
     for start in range(0, n, tile_n):
         cut = [a[start:start + tile_n] for a in arrays]
@@ -188,6 +217,28 @@ def _run_tiles(tile_fn, arrays, seed, *, tile_n: int | None, block_n: int):
             cut = [torch.cat([a, a.new_zeros((short, *a.shape[1:]))])
                    for a in cut]
         carry = tuple(tile_fn(*cut, *carry))
+    return carry
+
+
+def _run_shard(call_fn, arrays, seed, *, tile_n: int | None, block_n: int):
+    """The kernels' route: ``call_fn`` over the whole table in one call.
+
+    Only the kernels' int32 row index cuts it: a table of more than
+    ``raster.MAX_ROWS`` rows goes in calls of whole ``tile_n``-row tiles,
+    chained through the carry (the calls keep the chain's order, so the
+    bits stay the twins'); without ``tile_n`` the call raises there.
+    Nothing pads the table, and a failed launch raises.
+    """
+    n = arrays[0].shape[0]
+    _check_tile(n, tile_n, block_n)
+    step = raster.MAX_ROWS
+    if tile_n is None or n <= step:
+        return tuple(call_fn(*arrays, *seed))
+    step -= step % tile_n
+    carry = tuple(seed)
+    for start in range(0, n, step):
+        carry = tuple(call_fn(*(a[start:start + step] for a in arrays),
+                              *carry))
     return carry
 
 

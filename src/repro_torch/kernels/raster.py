@@ -15,7 +15,9 @@ tables), counted apart under ``<name>_f32``. Any other dtype raises.
 B1, B2, B4 and B5 each make one C call from the raw columns; the leaf
 table or CSR is built on the card, over scratch the module keeps per
 (device, stream). B3 makes one C call and one launch into an output the
-previous call zeroed, with its edges by value from the CPU.
+previous call zeroed, with its edges by value from the CPU. The mesh
+path calls B4 and B5 once per shard (``kernels.ops``); B5 takes the
+twins' ``tile_n`` so that the call keeps their tile chain's add order.
 """
 from __future__ import annotations
 
@@ -54,8 +56,9 @@ SLICE_OWN_AREA = 16
 #: B2/B5's CSR scratch per (device, raw stream, R, n_levels), shared by
 #: the two on the same terms as ``_SLICE_KEYS``: ``[zeros, offsets,
 #: rows]`` — the int32 cell counts and their per-chunk counts (all zero
-#: between calls: the place step counts every cell back down), the int64
-#: offsets, and three int32 rows per table row (grown with N).
+#: between calls: the scan zeroes the counts it reads, the place step the
+#: chunk counts), the int64 offsets, and ``ROW_WORDS`` int32 words per
+#: table row (grown with N).
 _PROJ_SCRATCH: dict = {}
 
 #: B3's next output per (device, raw stream, L, B): an all-zero (L, B)
@@ -73,6 +76,14 @@ HIST_PARAM_EDGES = 257
 #: cells per scan block of the CSR (``kScanChunk`` in csrc/raster.cu); the
 #: count and offsets scratch are padded to a multiple of it
 SCAN_CHUNK = 4096
+
+#: most table rows one C call takes: the kernels index rows in int32
+MAX_ROWS = 2 ** 31 - 1
+
+#: int32 words of B2/B5's row scratch per table row: the ordered
+#: contributions (a float64 each, at most), the key, the placed row and
+#: the ordered row (first the arrival index in the cell)
+ROW_WORDS = 5
 
 
 def reset_launches() -> None:
@@ -167,6 +178,9 @@ def _slice_columns(name: str, coords2, c_axis, levels, values, ok):
     uint8 ``ok`` (N,) — with every column but ``c_axis`` contiguous;
     raises TypeError for anything else."""
     n = values.shape[0]
+    if n > MAX_ROWS:
+        raise ValueError(f"{name} of {n} rows exceeds the kernels' int32 "
+                         f"row index")
     if not (coords2.dtype == c_axis.dtype == levels.dtype == torch.int32
             and ok.dtype in (torch.bool, torch.uint8)
             and coords2.shape == (n, 2)
@@ -243,9 +257,11 @@ def slice_raster(coords2, c_axis, levels, values, ok, *, position: float,
 def slice_raster_carry(coords2, c_axis, levels, values, ok, *,
                        position: float, resolution: int, n_levels: int,
                        init=None):
-    """B4: one tile painted over ``init=(img0, depth0)``; returns the
+    """B4: the table painted over ``init=(img0, depth0)``; returns the
     ``(image, depth)`` pair (the values' dtype, int32). Same contract as
     :func:`.ref.slice_raster_depth_ref`; ``init=None`` seeds NaN / -1.
+    The winner is the largest (level, row), so one call over a shard
+    gives the bits of any chain of its tiles.
 
     On the card the kernel reads the raw columns — int32 ``coords2`` (N,
     2), ``c_axis`` (any stride) and ``levels``, float64 or float32
@@ -303,8 +319,8 @@ def _projection_scratch(device: torch.device, resolution: int,
             torch.zeros(cells + cells // SCAN_CHUNK, dtype=torch.int32,
                         device=device),
             torch.empty(cells, dtype=torch.int64, device=device), None]
-    if scratch[2] is None or scratch[2].numel() < 3 * n:
-        scratch[2] = torch.empty(3 * max(n, 1), dtype=torch.int32,
+    if scratch[2] is None or scratch[2].numel() < ROW_WORDS * n:
+        scratch[2] = torch.empty(ROW_WORDS * max(n, 1), dtype=torch.int32,
                                  device=device)
     return key, scratch
 
@@ -316,19 +332,21 @@ def _as(t: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _projection(entry: str, dev: int, coords2, levels, values, ok,
-                resolution: int, n_levels: int, *seed) -> torch.Tensor:
-    """One C call of B2 (``seed`` empty) or B5 (``seed`` the (R, R)
-    ``img0`` in the values' dtype): the CSR is built on the card from the
-    raw columns — int32 coords2 (N, 2) and levels, the values in the
-    entry's dtype, bool or uint8 ok — then projected; only the output is
-    allocated, in the values' dtype."""
+                resolution: int, n_levels: int, img0=None,
+                tile: int = 0) -> torch.Tensor:
+    """One C call of B2 (``img0`` None) or B5 (``img0`` the (R, R) seed
+    in the values' dtype, ``tile`` the chain's tile rows, 0 for none):
+    the CSR is built on the card from the raw columns — int32 coords2
+    (N, 2) and levels, the values in the entry's dtype, bool or uint8 ok
+    — then projected; only the output is allocated, in the values'
+    dtype."""
     n = values.shape[0]
     if coords2.shape != (n, 2) or not \
             (levels.shape == ok.shape == values.shape == (n,)):
         got = [tuple(t.shape) for t in (coords2, levels, values, ok)]
         raise ValueError(f"projection takes coords2 (N, 2) and levels, "
                          f"values, ok (N,); got {got}")
-    if n >= 2 ** 31:
+    if n > MAX_ROWS:
         raise ValueError(f"projection of {n} rows exceeds the kernels' "
                          f"int32 row index")
     # the casts' results stay referenced until the call has returned
@@ -344,7 +362,8 @@ def _projection(entry: str, dev: int, coords2, levels, values, ok,
         launch(entry, dev, c2.data_ptr(), lvl.data_ptr(), okb.data_ptr(),
                val.data_ptr(), n, resolution, n_levels, zeros.data_ptr(),
                offsets.data_ptr(), rows.data_ptr(),
-               *(t.data_ptr() for t in seed), img.data_ptr())
+               *(() if img0 is None else (img0.data_ptr(), tile)),
+               img.data_ptr())
     except RuntimeError:
         _PROJ_SCRATCH.pop(key, None)       # its counts may not be zero
         raise
@@ -369,23 +388,35 @@ def projection_raster(coords2, levels, values, ok, *, resolution: int,
 
 
 def projection_raster_carry(coords2, levels, values, ok, *, resolution: int,
-                            n_levels: int, init=None) -> torch.Tensor:
-    """B5: one tile's column density added over the seed ``init`` (in
+                            n_levels: int, init=None,
+                            tile_n: int | None = None) -> torch.Tensor:
+    """B5: the table's column density added over the seed ``init`` (in
     the values' dtype, zeros if None); same contract as
-    :func:`.ref.projection_raster_ref` with ``init``, and B2's one C
-    call on the card, in float64 or float32."""
+    :func:`.ref.projection_raster_ref` with ``init`` and ``tile_n``, and
+    B2's one C call on the card, in float64 or float32.
+
+    ``tile_n``: the bits of the table chained in ``tile_n``-row tiles
+    (the twins' chain). On the card it is one call all the same: the
+    per-pixel adds run in (level, row) order, which is the chain's
+    (tile, level, row) order whenever the kept rows (ok, 0 <= level <
+    n_levels) are level-sorted — every AMR tree's BFS table and every
+    ``MeshTable`` shard; a pixel where it is not re-adds from its seed in
+    the chain's order (``projection_kernel`` in csrc/raster.cu)."""
     if init is None:
         init = torch.zeros((resolution, resolution), dtype=values.dtype,
                            device=values.device)
+    if tile_n is not None and tile_n < 1:
+        raise ValueError(f"tile_n must be positive, got {tile_n}")
     dev = device_index(coords2, levels, values, ok, init)
     if dev < 0:
         return ref.projection_raster_ref(coords2, levels, values, ok,
                                          resolution=resolution,
-                                         n_levels=n_levels, init=init)
+                                         n_levels=n_levels, init=init,
+                                         tile_n=tile_n)
     fx = _suffix("projection_raster_carry", values)
     (img0,) = _seed((init,), resolution, (values.dtype,))
     img = _projection("raster_projection_carry" + fx, dev, coords2, levels,
-                      values, ok, resolution, n_levels, img0)
+                      values, ok, resolution, n_levels, img0, tile_n or 0)
     _count("projection_raster_carry", fx)
     return img
 

@@ -145,7 +145,8 @@ def slice_raster_depth_ref(coords2, c_axis, levels, values, ok, *,
 
 
 def projection_raster_ref(coords2, levels, values, ok, *,
-                          resolution: int, n_levels: int, init=None):
+                          resolution: int, n_levels: int, init=None,
+                          tile_n: int | None = None):
     """Column density: per-leaf value * 2^-level summed along the axis.
 
     Several leaves of one level can land on one pixel (they differ along
@@ -156,7 +157,18 @@ def projection_raster_ref(coords2, levels, values, ok, *,
     accumulation order exactly. ``init`` seeds the accumulator (the
     earlier tiles' partial of a tiled raster); the adds run per pixel,
     so any seed is exact and pixels no leaf covers keep its bits.
+    ``tile_n``: the table chained in ``tile_n``-row tiles, each seeded
+    with the partial of the tiles before it (B5's one call over a shard
+    gives this chain's bits).
     """
+    if tile_n is not None and values.shape[0] > tile_n:
+        img = init
+        for a in range(0, values.shape[0], tile_n):
+            img = projection_raster_ref(
+                coords2[a:a + tile_n], levels[a:a + tile_n],
+                values[a:a + tile_n], ok[a:a + tile_n],
+                resolution=resolution, n_levels=n_levels, init=img)
+        return img
     r = resolution
     k = r.bit_length() - 1
     dev = values.device

@@ -289,10 +289,13 @@ def test_projection_scratch_sizes_and_reuse(monkeypatch):
     assert total + 1 <= cells < total + 1 + raster.SCAN_CHUNK
     assert zeros.numel() == cells + cells // raster.SCAN_CHUNK
     assert not zeros.any() and zeros.dtype == torch.int32
-    assert offsets.dtype == torch.int64 and rows.numel() == 300
+    # five int32 words a row: the ordered contribution (float64 at most),
+    # the key, the placed row and the ordered row
+    assert raster.ROW_WORDS == 5
+    assert offsets.dtype == torch.int64 and rows.numel() == 500
     assert raster._projection_scratch(cpu, 512, 10, 50)[1][2] is rows
     assert raster._projection_scratch(cpu, 512, 10, 1000)[1][2].numel() \
-        == 3000
+        == 5000
     assert len(raster._PROJ_SCRATCH) == 1
     with pytest.raises(ValueError, match="int32 cell index"):
         raster._projection_scratch(cpu, 2 ** 15, 20, 1)

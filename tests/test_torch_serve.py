@@ -618,6 +618,30 @@ def test_server_metrics_and_stats(served_db):
         srv.close()
 
 
+def test_server_counts_a_request_before_its_response_completes(
+        served_db, monkeypatch):
+    """A request's metrics land before its response is complete on the
+    wire: the client's next request (a new connection, so another
+    worker) counts it even when the first worker is slow to finish."""
+    srv = CatalogServer(served_db, port=0).start()
+    handler = srv.httpd.RequestHandlerClass
+    send = handler._send
+
+    def slow_send(self, *args, **kw):
+        send(self, *args, **kw)
+        time.sleep(0.3)      # the worker loses the CPU after its write
+
+    monkeypatch.setattr(handler, "_send", slow_send)
+    try:
+        rc = RemoteCatalog(srv.url)
+        rc.query(1, rc.reducers(1)[0])
+        q = rc.cache_info()["server"]["requests"]
+        assert q["/v1/reducers"] == {"200": 1}
+        assert q["/v1/query"] == {"200": 1}
+    finally:
+        srv.close()
+
+
 # --------------------------------------------------- across the packages
 
 def _cross_reducers(mod, res):
