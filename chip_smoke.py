@@ -136,7 +136,35 @@ non-zero (and prints no result) otherwise, or on any failure.
      ``device.fallback`` event. Stall, gather, commit, encode and
      device-to-host rates, stored bytes, restore rates and the cut's
      device time against its bound are printed beside the card's name
-     and power limit.
+     and power limit;
+  9. the LM stack (``repro_torch.models``, ``configs``, ``train``; it
+     reaches none of B1-B9), with TF32 off for float32 matmuls and the
+     matmul flags printed: (a) each of the ten smoke configs, its
+     parameters drawn on the CPU from a seeded generator, forward on the
+     card against the port's CPU path at float32 (max rel err 5e-4) and
+     bf16 compute (2e-2) - for MoE, a token whose top-k experts differ
+     between the runs at a router near-tie (gap below 1e-4) and every
+     token after it are left out, and any other difference in routing
+     fails - then the grads of one batch twice on the card, bitwise
+     equal, and one AdamW step (finite loss and grad norm, ``step ==
+     1``, every parameter moved); (b) ``stablelm-1.6b``,
+     ``granite-moe-1b-a400m`` and ``mamba2-1.3b`` at their published
+     configs (bf16 compute, float32 params, remat), initialized on the
+     card from a seeded generator by the reference's rule: on a (1, 16)
+     prompt at float32 compute, each stage (embedding, block, head) on
+     the card from the CPU run's own input against the CPU, forward and
+     backward under a seeded cotangent (5e-4); ``LM.forward`` bitwise
+     the layer walk on each device, and free-running on the card against
+     the CPU within 5e-4 for stablelm, printed by layer for granite and
+     mamba2, whose dynamics at this init grow float32 rounding until
+     granite's routing differs; then three AdamW steps
+     (``warmup_steps=1``) on one seeded batch of B = 2 and S = 4,096,
+     whose losses and grad norms must stay finite. Whether the loss
+     fell is printed, not held: at the reference's init granite's and
+     mamba2's barely move in three steps (PERF.md section 5). Per model:
+     step ms (median of steps 2-3), tokens/s, peak memory and the model
+     FLOPs (6 x active parameters x tokens) as a share of 989 TFLOP/s
+     bf16, beside the card's name and power limit; the phase's seconds.
 
 The line before the last is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -2263,6 +2291,441 @@ def hprot_phase(tree, tmp: Path, device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------- 9. the LM stack
+
+#: phase 9's full-width configs (``configs/<arch>.py`` ``CONFIG``, uncut)
+LM_FULL = ("stablelm_1_6b", "granite_moe_1b_a400m", "mamba2_1_3b")
+#: full-width configs whose float32 prompt is held only layer by layer
+#: (each block on the CPU run's own input), not free-running: at the
+#: reference's init their dynamics grow float32 rounding layer by layer,
+#: granite's until MoE routing differs (PERF.md section 5)
+LM_PER_LAYER = ("granite_moe_1b_a400m", "mamba2_1_3b")
+LM_BATCH, LM_SEQ = 2, 4096     # B = 2 at train_4k's sequence length
+LM_STEPS = 3                   # AdamW steps on one batch
+LM_PROMPT = 16                 # the float32 card-against-CPU prompt
+#: max |logit difference| / max |CPU logit| (tests/test_torch_models.py)
+LM_TOL = {"float32": 5e-4, "bfloat16": 2e-2}
+#: a router gap (k-th less (k+1)-th probability) below which float32 sums
+#: in another order may pick another expert
+LM_ROUTE_TIE = 1e-4
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+BF16_FLOPS_PER_S = 989e12
+
+
+def lm_matmul_flags() -> str:
+    import torch
+    m = torch.backends.cuda.matmul
+    return (f"matmul.allow_tf32={m.allow_tf32}, cudnn.allow_tf32="
+            f"{torch.backends.cudnn.allow_tf32}, "
+            f"allow_bf16_reduced_precision_reduction="
+            f"{m.allow_bf16_reduced_precision_reduction}, "
+            f"float32_matmul_precision="
+            f"{torch.get_float32_matmul_precision()}")
+
+
+def lm_batch(cfg, b: int, s: int, device, seed: int) -> dict:
+    """A seeded batch on ``device``: tokens, next-token labels (the last
+    masked) and the family's extras."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device=device)
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -1
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = 0.1 * torch.randn(
+            (b, cfg.n_patches, cfg.d_model), generator=g, device=device)
+    if cfg.family == "encdec":
+        batch["frames"] = 0.1 * torch.randn(
+            (b, cfg.n_frames, cfg.d_model), generator=g, device=device)
+    return batch
+
+
+def lm_logits(cfg, params, batch: dict, device, routing=None):
+    """``cfg``'s logits (``LM.forward``) on ``device`` for ``params`` (any
+    device); with ``routing`` a list, each MoE layer's router
+    probabilities are appended to it (``moe.register_router_hook``)."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import LM
+    lm = LM(cfg, device=device)
+    lm.load_param_tree(params)
+    extras = {k: v.to(device) for k, v in batch.items()
+              if k in ("patch_embeds", "frames")}
+    hook = contextlib.nullcontext() if routing is None else \
+        moe.register_router_hook(lambda p: routing.append(p.cpu()))
+    with hook, torch.no_grad():
+        logits, _ = lm(batch["tokens"].to(device), extras)
+    del lm
+    return logits.float().cpu()
+
+
+def lm_route_flips(cpu_routing: list, card_routing: list, k: int) -> list:
+    """(layer, token, margin) of every token whose top-k experts differ
+    between the runs; margin is the CPU run's gap between its k-th and
+    (k+1)-th router probabilities."""
+    import torch
+    flips = []
+    for layer, (a, b) in enumerate(zip(cpu_routing, card_routing)):
+        a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+        top = lambda p: torch.sort(p, dim=-1, descending=True, stable=True)
+        ia = top(a).indices[:, :k].sort(-1).values
+        ib = top(b).indices[:, :k].sort(-1).values
+        for t in (ia != ib).any(-1).nonzero().flatten().tolist():
+            va = top(a[t]).values
+            flips.append((layer, t, float(va[k - 1] - va[k])))
+    return flips
+
+
+def lm_card_vs_cpu(cfg, params, batch: dict, device, label: str) -> dict:
+    """max |card - CPU| / max |CPU| of ``cfg``'s logits; raises past
+    LM_TOL or on a non-finite logit. For MoE, a token whose top-k
+    experts differ between the runs at a near-tie (margin below
+    LM_ROUTE_TIE) routes differently from there on: it and every later
+    token in (row, position) order (causal attention; capacity is taken
+    in that order) are left out, and any other flip raises."""
+    import torch
+    cpu_r, card_r = [], []
+    moe = cfg.n_experts > 0
+    cpu = lm_logits(cfg, params, batch, torch.device("cpu"),
+                    cpu_r if moe else None)
+    card = lm_logits(cfg, params, batch, device, card_r if moe else None)
+    if not torch.isfinite(card).all():
+        raise AssertionError(f"{label}: non-finite logits on the card")
+    flips = lm_route_flips(cpu_r, card_r, cfg.top_k) if moe else []
+    if any(margin > LM_ROUTE_TIE for _, _, margin in flips):
+        raise AssertionError(f"{label}: routing differs past a near-tie: "
+                             f"{flips}")
+    # tokens in (row, position) order: dispatch and capacity take them so
+    first = min([t for _, t, _ in flips], default=batch["tokens"].numel())
+    cpu = cpu.reshape(-1, cpu.shape[-1])[:first]
+    card = card.reshape(-1, card.shape[-1])[:first]
+    err = float((card - cpu).abs().max() / cpu.abs().max()) if first else 0.0
+    if not err <= LM_TOL[cfg.compute_dtype]:
+        raise AssertionError(f"{label} {cfg.compute_dtype}: card against "
+                             f"CPU {err!r} > {LM_TOL[cfg.compute_dtype]} "
+                             f"over {first} positions")
+    return {"rel_err": err, "positions": first, "route_flips": flips}
+
+
+def lm_step_once(cfg, params, batch: dict, device, label: str) -> dict:
+    """One train step on the card from ``params``: the grads bitwise the
+    same in two runs, finite loss and grad norm, ``step == 1``, every
+    parameter moved."""
+    import torch
+    from repro_torch.models.transformer import LM, tree_leaves
+    from repro_torch.train import optim, step
+    lm = LM(cfg, device=device)
+    lm.load_param_tree(params)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    runs = [tree_leaves(step.loss_and_grads(lm, lm.param_tree(), batch)[1])
+            for _ in range(2)]
+    differ = [name for (name, a), (_, b) in zip(*runs)
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"{label}: grads differ between two runs: "
+                             f"{differ}")
+    before = {k: v.detach().clone() for k, v in lm.named_parameters()}
+    state = {"params": lm.param_tree(),
+             **optim.init_opt_state(lm.param_tree())}
+    state, m = step.make_train_step(lm, optim.OptConfig(warmup_steps=1))(
+        state, batch)
+    if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+        raise AssertionError(f"{label}: loss {m['loss']} grad norm "
+                             f"{m['grad_norm']}")
+    if int(state["step"]) != 1 or state["step"].dtype != torch.int32:
+        raise AssertionError(f"{label}: step {state['step']}")
+    still = [k for k, v in lm.named_parameters()
+             if torch.equal(v, before[k])]
+    if still:
+        raise AssertionError(f"{label}: parameters did not move: {still}")
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+
+
+def lm_smoke_configs(device, card: str) -> dict:
+    """Phase 9(a): each smoke config's forward on the card against the
+    CPU at float32 and bf16 compute, and one train step on the card."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCHS, get_smoke_config
+    from repro_torch.models.transformer import LM
+    out = {}
+    for i, arch in enumerate(ARCHS):
+        base = get_smoke_config(arch)
+        params = LM(base, device=torch.device("cpu")).init(
+            torch.Generator().manual_seed(90 + i))
+        batch = lm_batch(base, 2, 16, torch.device("cpu"), 90 + i)
+        errs = {dt: lm_card_vs_cpu(dataclasses.replace(base, compute_dtype=dt),
+                                   params, batch, device, f"lm {arch}")
+                for dt in ("float32", "bfloat16")}
+        out[arch] = {"card_vs_cpu": errs,
+                     **lm_step_once(base, params, batch, device,
+                                    f"lm {arch}")}
+        said = ", ".join(
+            f"{dt} {e['rel_err']!r} (tol {LM_TOL[dt]}; {e['positions']} "
+            f"tokens, {len(e['route_flips'])} near-tie route flips)"
+            for dt, e in errs.items())
+        print(f"lm smoke {arch}: card against CPU, max rel err {said}; train "
+              f"step: loss {out[arch]['loss']!r}, grad norm "
+              f"{out[arch]['grad_norm']!r}, grads bitwise equal in two runs, step "
+              f"1, every parameter moved; "
+              f"[{card}]")
+    return out
+
+
+def lm_hidden(lm, tokens, inputs=None) -> list:
+    """The embedding, each block's output and the logits of a stacked
+    (dense, MoE or SSM) model on ``tokens``, as float32 CPU tensors.
+    With ``inputs`` (another run's list), block i runs on its input
+    there and the logits come from its last hidden state."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import _unstack
+    cfg, params = lm.cfg, lm.param_tree()
+    dev = lm.device
+    tokens = tokens.to(dev)
+    pos = torch.arange(tokens.shape[1], dtype=torch.int32,
+                       device=dev)[None].repeat(tokens.shape[0], 1)
+    take = (lambda i, x: x) if inputs is None else \
+        (lambda i, x: inputs[i].to(dev, layers.dtype_of(cfg.compute_dtype)))
+    with torch.no_grad():
+        x = layers.embed(params["embed"], tokens, cfg)
+        out = [x]
+        for i, lp in enumerate(_unstack(params["blocks"])):
+            x, _ = lm._apply_block(lm.kinds[0], lp, take(i, x), pos)
+            out.append(x)
+        x = layers.apply_norm(params["final_norm"], take(len(out) - 1, x),
+                              cfg)
+        out.append(layers.unembed(params["embed"], x, cfg))
+    return [t.float().cpu() for t in out]
+
+
+def lm_stage_grads(lm, batch: dict, inputs: list, seed: int) -> list:
+    """Each stage of a stacked model alone, on its input in ``inputs`` (a
+    :func:`lm_hidden` list): the embedding, each block, and the head
+    (final norm, unembed and the float32 NLL of ``batch["labels"]``).
+    The embedding and blocks take a seeded normal cotangent on their
+    output. Returns per stage the grads of its input and of every
+    parameter it reads (a leaf it does not read has none), as float32
+    CPU tensors."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import _unstack, map_tree, tree_leaves
+    cfg, params = lm.cfg, lm.param_tree()
+    dev = lm.device
+    dt = layers.dtype_of(cfg.compute_dtype)
+    tokens = batch["tokens"].to(dev)
+    labels = batch["labels"].to(dev).long()
+    pos = torch.arange(tokens.shape[1], dtype=torch.int32,
+                       device=dev)[None].repeat(tokens.shape[0], 1)
+    g = torch.Generator().manual_seed(seed)
+    leaf = lambda t: t.detach().clone().requires_grad_(True)
+
+    def grads(y, wrt: dict) -> dict:
+        if y.dim():
+            y = (y.float() * torch.randn(y.shape, generator=g).to(dev)).sum()
+        names, flat = zip(*tree_leaves(wrt))
+        return {n: t.float().cpu() for n, t in zip(
+            names, torch.autograd.grad(y, flat, allow_unused=True))
+            if t is not None}
+    emb = map_tree(leaf, params["embed"])
+    out = [grads(layers.embed(emb, tokens, cfg), {"embed": emb})]
+    for i, lp in enumerate(_unstack(params["blocks"])):
+        x = leaf(inputs[i].to(dev, dt))
+        lp = map_tree(leaf, lp)
+        y, _ = lm._apply_block(lm.kinds[0], lp, x, pos)
+        out.append(grads(y, {"x": x, "block": lp}))
+    x = leaf(inputs[len(out) - 1].to(dev, dt))
+    head = {"final_norm": map_tree(leaf, params["final_norm"]),
+            "embed": map_tree(leaf, params["embed"])}
+    logits = layers.unembed(head["embed"], layers.apply_norm(
+        head["final_norm"], x, cfg), cfg).float()
+    nll = torch.logsumexp(logits, -1) - torch.gather(
+        logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    out.append(grads(nll[labels >= 0].mean(), {"x": x, **head}))
+    return out
+
+
+def lm_layers_card_vs_cpu(cfg, params, batch: dict, device, label: str,
+                          free: bool) -> dict:
+    """The port's layers on the card against the CPU at full width: each
+    block, and the final norm and unembed, on the CPU run's own input
+    (max |card - CPU| / max |CPU| within LM_TOL, or raise), forward and
+    backward (:func:`lm_stage_grads`, each grad within LM_TOL of its
+    largest CPU value); and ``LM.forward``'s logits free-running, which
+    must be the layer walk's bitwise on each device, and with ``free``
+    must agree within LM_TOL (else the divergence by layer, which the
+    model's own dynamics grow, is only printed). Also returns the CPU
+    logits."""
+    import torch
+    from repro_torch.models.transformer import LM
+    tokens = batch["tokens"]
+
+    def rel(a, b):
+        top = float(b.abs().max())
+        return float((a - b).abs().max()) / (top if top > 0 else 1.0)
+    runs = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", device)):
+        lm = LM(cfg, device=dev)
+        lm.load_param_tree(params)
+        walk = lm_hidden(lm, tokens)
+        with torch.no_grad():
+            forward = lm(tokens.to(dev))[0].float().cpu()
+        if not torch.equal(forward, walk[-1]):
+            raise AssertionError(f"{label}: LM.forward's logits on {name} "
+                                 f"differ from the layer walk's by "
+                                 f"{rel(forward, walk[-1])!r}")
+        cpu = runs["cpu"]["walk"] if runs else walk
+        runs[name] = {"walk": walk,
+                      "forced": lm_hidden(lm, tokens, inputs=cpu),
+                      "grads": lm_stage_grads(lm, batch, cpu, seed=9)}
+        del lm
+    cpu, card = runs["cpu"], runs["card"]
+    if not all(torch.isfinite(t).all() for t in card["forced"] + card["walk"]
+               + [t for st in card["grads"] for t in st.values()]):
+        raise AssertionError(f"{label}: non-finite values on the card")
+    tol = LM_TOL[cfg.compute_dtype]
+    errs = [rel(a, b) for a, b in zip(card["forced"][1:], cpu["walk"][1:])]
+    if not max(errs) <= tol:
+        raise AssertionError(f"{label}: card against CPU on the same "
+                             f"inputs {errs!r} > {tol}")
+    grad_errs = [max(rel(st[k], cst[k]) for k in cst)
+                 for st, cst in zip(card["grads"], cpu["grads"])]
+    if not max(grad_errs) <= tol:
+        raise AssertionError(f"{label}: grads, card against CPU on the "
+                             f"same inputs, by stage {grad_errs!r} > {tol}")
+    out = {"layers": errs[:-1], "logits": errs[-1], "grads": grad_errs,
+           "free": [rel(a, b) for a, b in zip(card["walk"][1:-1],
+                                             cpu["walk"][1:-1])],
+           "free_logits": rel(card["walk"][-1], cpu["walk"][-1]),
+           "cpu_logits": cpu["walk"][-1]}
+    if free and not out["free_logits"] <= tol:
+        raise AssertionError(f"{label}: LM.forward, card against CPU "
+                             f"{out['free_logits']!r} > {tol}")
+    return out
+
+
+def lm_prompt_check(arch: str, cfg, params, device, seed: int) -> dict:
+    """Phase 9(b)'s float32 (1, LM_PROMPT) prompt, card against CPU on
+    the same parameters (TF32 off): :func:`lm_layers_card_vs_cpu`, with
+    ``LM.forward``'s free-running logits held to LM_TOL except for
+    LM_PER_LAYER. Also the CPU logits' spread, their largest value and
+    the label's, averaged over positions, and the NLL: a tied embedding
+    drawn at scale 1 (the reference's ``embed_spec``) unembeds a hidden
+    state of norm sqrt(d_model) onto rows of norm sqrt(d_model), so its
+    logits spread by about sqrt(d_model) and the loss is about the
+    largest of them."""
+    import dataclasses
+    import torch
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    prompt = lm_batch(cfg, 1, LM_PROMPT, torch.device("cpu"), seed)
+    out = lm_layers_card_vs_cpu(cfg32, params, prompt, device,
+                                f"lm {cfg.name} prompt",
+                                free=arch not in LM_PER_LAYER)
+    logits = out.pop("cpu_logits")[0, :-1]
+    labels = prompt["labels"][0, :-1]
+    pos = torch.arange(len(labels))
+    out["logit_std"] = float(logits.std())
+    out["max_logit"] = float(logits.max(-1).values.mean())
+    out["label_logit"] = float(logits[pos, labels].mean())
+    out["nll"] = float((torch.logsumexp(logits, -1)
+                        - logits[pos, labels]).mean())
+    return out
+
+
+def lm_full_width(arch: str, device, card: str, seed: int) -> dict:
+    """Phase 9(b) for one config: init on the card from a seeded
+    generator, the float32 prompt on the card against the CPU, then
+    LM_STEPS AdamW steps on one (LM_BATCH, LM_SEQ) batch at the config's
+    compute dtype, timed with a sync each. The losses must be finite;
+    whether they fall is printed (see the module docstring)."""
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+    from repro_torch.train import optim, step
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(device)
+    lm = LM(cfg, device=device)
+    state = step.init_state(lm, torch.Generator(device=device)
+                            .manual_seed(seed))
+    torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    f32 = lm_prompt_check(arch, cfg, lm.param_tree(), device, seed)
+    batch = lm_batch(cfg, LM_BATCH, LM_SEQ, device, seed + 1)
+    train_step = step.make_train_step(lm, optim.OptConfig(warmup_steps=1))
+    losses, grad_norms, step_ms = [], [], []
+    for _ in range(LM_STEPS):
+        torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        state, m = train_step(state, batch)
+        losses.append(float(m["loss"]))       # syncs
+        torch.cuda.synchronize(device)
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+        grad_norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated(device)
+    if not all(math.isfinite(x) for x in losses + grad_norms):
+        raise AssertionError(f"lm {cfg.name}: losses {losses}, grad norms "
+                             f"{grad_norms}")
+    if int(state["step"]) != LM_STEPS:
+        raise AssertionError(f"lm {cfg.name}: step {state['step']}")
+    ms = statistics.median(step_ms[1:])
+    tokens = LM_BATCH * LM_SEQ
+    flops = 6.0 * cfg.active_param_count() * tokens
+    fell = (losses[0] - losses[-1]) / losses[0]
+    out = {"layers": cfg.n_layers, "params": n_params,
+           "active_params": cfg.active_param_count(), "init_s": init_s,
+           "prompt_f32": f32, "losses": losses, "grad_norms": grad_norms,
+           "loss_fell": fell, "step_ms": step_ms, "step_ms_median_2_3": ms,
+           "tokens_per_s": tokens / (ms / 1e3), "peak_bytes": peak,
+           "model_flops_per_step": flops,
+           "bf16_peak_share": flops / (ms / 1e3) / BF16_FLOPS_PER_S}
+    del lm, state, train_step, batch, m
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    free = (f"free-running {f32['free_logits']!r} (by layer "
+            f"{[float('%.2g' % x) for x in f32['free']]}; "
+            + ("printed only: " + arch + "'s dynamics grow it)"
+               if arch in LM_PER_LAYER else f"tol {LM_TOL['float32']})"))
+    print(f"lm {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} parameters, {cfg.compute_dtype} compute, remat "
+          f"{cfg.remat}): B={LM_BATCH} S={LM_SEQ}, losses {losses!r} "
+          f"({'fell' if fell > 0 else 'did not fall'}: {fell!r} of the "
+          f"first), grad norms {grad_norms!r}; step {ms!r} ms (median of "
+          f"steps 2-{LM_STEPS}; all {step_ms!r}), "
+          f"{out['tokens_per_s']!r} tokens/s, peak memory {peak} bytes, "
+          f"model FLOPs {flops!r} a step (6 x {cfg.active_param_count()} "
+          f"active parameters x {tokens} tokens) = "
+          f"{out['bf16_peak_share']!r} of 989 TFLOP/s bf16; float32 "
+          f"(1, {LM_PROMPT}) prompt, card against CPU (tol "
+          f"{LM_TOL['float32']}): each layer on the CPU's input, max rel "
+          f"err {max(f32['layers'])!r} (logits {f32['logits']!r}), its "
+          f"grads {max(f32['grads'])!r}; LM.forward {free}; CPU logits "
+          f"spread {f32['logit_std']!r}, largest {f32['max_logit']!r}, "
+          f"label's {f32['label_logit']!r}, NLL {f32['nll']!r} (means over "
+          f"positions); {out['seconds']:.1f} s; [{card}]")
+    return out
+
+
+def lm_phase(device, card: str) -> dict:
+    """Phase 9 (see the module docstring)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"lm phase: {lm_matmul_flags()}")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"smoke": lm_smoke_configs(device, card)}
+    for i, arch in enumerate(LM_FULL):
+        out[arch] = lm_full_width(arch, device, card, 100 + 10 * i)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"lm phase 9 took {out['phase_s']!r} s")
+    return out
+
+
 # --------------------------------------------------------------- timing
 
 def time_ms(fn, reps: int, warm: int = 2) -> float:
@@ -3389,6 +3852,9 @@ def main() -> int:
                      wall["mesh_f32"][1]["float32"]["launches"].items()
                      if k.endswith("_f32")})
     launches.update(wall["codec"]["launches"])   # one Orion snapshot's
+
+    # -- 9. the LM stack (no kernel of B1-B9 on its path)
+    wall["lm"] = lm_phase(device, card)
     records = []
     for name, (replaces, source) in KERNELS.items():
         t, b = times[name], bnd[name]

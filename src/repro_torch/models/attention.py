@@ -1,0 +1,96 @@
+"""Attention: GQA/MQA, RoPE, sliding window, query-chunked scan and
+cross-attention, over full sequences (training and prefill).
+
+Long sequences never materialize the full S x S score matrix: queries
+are processed in ``cfg.attn_chunk`` blocks, each against the full K/V
+(the reference's ``lax.scan`` over query blocks, here a Python loop).
+The mask is additive (-1e30 in float32, added before a float32
+softmax), and the probabilities are cast to the compute dtype before
+the PV product, as in the reference. Single-token decode against a KV
+cache (the reference's ``decode_kv``/``decode_cross``) comes with LM
+serving.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import layers
+from .layers import ParamSpec, dot
+
+
+def attn_spec(cfg, cross: bool = False) -> dict:
+    d, hd, nh, nkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    return {
+        "wq": ParamSpec((d, nh, hd), ("fsdp", "heads", "head_dim")),
+        "wk": ParamSpec((d, nkv, hd), ("fsdp", "kv_heads", "head_dim")),
+        "wv": ParamSpec((d, nkv, hd), ("fsdp", "kv_heads", "head_dim")),
+        "wo": ParamSpec((nh, hd, d), ("heads", "head_dim", "fsdp")),
+    }
+
+
+def _repeat_kv(k, n_rep: int):
+    """``jnp.repeat`` on the head axis: each KV head n_rep times in a row."""
+    if n_rep == 1:
+        return k
+    return torch.repeat_interleave(k, n_rep, dim=2)
+
+
+def _mask_bias(q_pos, k_pos, window):
+    """(Sq, Sk) additive mask: causal + optional sliding window."""
+    ok = k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        ok &= k_pos[None, :] > (q_pos[:, None] - window)
+    zero = torch.zeros((), dtype=torch.float32, device=ok.device)
+    return torch.where(ok, zero, -1e30)
+
+
+def _sdpa(q, k, v, bias):
+    """q: (B,Sq,H,hd) k/v: (B,Sk,H,hd); bias: (Sq,Sk) or None."""
+    scale = q.shape[-1] ** -0.5
+    scores = dot("bqhd,bkhd->bhqk", q, k, f32=True) * scale
+    if bias is not None:
+        scores = scores + bias
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return dot("bhqk,bkhd->bqhd", probs, v, f32=False)
+
+
+def multihead(p, x, *, cfg, positions, kv_x=None, kv_positions=None,
+              causal=True, return_kv=False):
+    """Full attention over a sequence (training / prefill / cross).
+
+    x: (B, S, D). kv_x (cross-attention source) defaults to x.
+    With ``return_kv`` also returns the (pre-GQA-repeat, post-RoPE)
+    (B, S, nkv, hd) K/V for cache seeding at prefill.
+    """
+    b, s, _ = x.shape
+    q = dot("bsd,dhk->bshk", x, p["wq"], f32=False)
+    src = x if kv_x is None else kv_x
+    k = dot("bsd,dhk->bshk", src, p["wk"], f32=False)
+    v = dot("bsd,dhk->bshk", src, p["wv"], f32=False)
+    kpos = positions if kv_positions is None else kv_positions
+    if causal:  # cross-attention skips RoPE on purpose (whisper-style)
+        q = layers.rope(q, positions, cfg.rope_theta)
+        k = layers.rope(k, kpos, cfg.rope_theta)
+    kv_raw = (k, v)
+    k = _repeat_kv(k, cfg.n_heads // cfg.n_kv_heads)
+    v = _repeat_kv(v, cfg.n_heads // cfg.n_kv_heads)
+
+    pos1 = positions[0] if positions.ndim > 1 else positions
+    kpos1 = kpos[0] if kpos.ndim > 1 else kpos
+    if not causal:
+        out = _sdpa(q, k, v, None)
+    elif s <= cfg.attn_chunk:
+        out = _sdpa(q, k, v, _mask_bias(pos1, kpos1, cfg.window))
+    else:
+        # flash-style: loop over query blocks, full KV per block
+        c = cfg.attn_chunk
+        if s % c:
+            raise ValueError(f"sequence {s} is not a multiple of "
+                             f"attn_chunk {c}")
+        out = torch.cat([
+            _sdpa(q[:, i:i + c], k, v,
+                  _mask_bias(pos1[i:i + c], kpos1, cfg.window))
+            for i in range(0, s, c)], dim=1)
+
+    out = dot("bshk,hkd->bsd", out, p["wo"], f32=False)
+    return (out, kv_raw) if return_kv else out

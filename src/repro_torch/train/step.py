@@ -1,0 +1,72 @@
+"""train_step: microbatched grad accumulation + AdamW.
+
+``cfg.num_microbatches`` splits the global batch inside the step, so
+peak activation memory scales with the microbatch. Grads come from
+``torch.autograd.grad`` of the model's ``loss_fn`` with respect to
+detached leaves that share the parameters' storage; the AdamW update
+then writes the parameters and moments in place under
+``torch.no_grad()`` (``optim.adamw_step``). With more than one
+microbatch the float32 grads and losses are summed over the splits and
+divided by their count, and ``metrics["aux"]`` is 0, as in the
+reference.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..models.transformer import LM, map_paths, map_tree, tree_leaves
+from . import optim
+
+
+def loss_and_grads(lm: LM, params, batch):
+    """(loss metrics, float32 grads of the tree ``params``)."""
+    leaves = map_tree(lambda p: p.detach().requires_grad_(True), params)
+    paths, flat = zip(*tree_leaves(leaves))
+    loss, metrics = lm.loss_fn(leaves, batch)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    by_path = {path: (torch.zeros_like(x) if g is None else g).float()
+               for path, g, x in zip(paths, grads, flat)}
+    return ({k: v.detach() for k, v in metrics.items()},
+            map_paths(lambda path, _: by_path[path], params))
+
+
+def make_train_step(lm: LM, opt_cfg: optim.OptConfig):
+    cfg = lm.cfg
+
+    def train_step(state, batch):
+        params = state["params"]
+        nmb = max(1, cfg.num_microbatches)
+
+        if nmb == 1:
+            metrics, grads = loss_and_grads(lm, params, batch)
+        else:
+            def split(x, i):
+                mb = x.shape[0] // nmb
+                return x[i * mb:(i + 1) * mb]
+            grads = map_tree(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=tree_leaves(params)[0][1].device)
+            for i in range(nmb):
+                m, g = loss_and_grads(lm, params,
+                              {k: split(v, i) for k, v in batch.items()})
+                for (_, acc), (_, gi) in zip(tree_leaves(grads),
+                                             tree_leaves(g)):
+                    acc.add_(gi)
+                loss_sum = loss_sum + m["loss"]
+            grads = map_tree(lambda g: g / nmb, grads)
+            metrics = {"loss": loss_sum / nmb,
+                       "aux": torch.zeros_like(loss_sum)}
+
+        params, opt_state, opt_metrics = optim.adamw_step(
+            params, grads, {k: state[k] for k in ("mu", "nu", "step")},
+            opt_cfg)
+        new_state = {"params": params, **opt_state}
+        return new_state, {**metrics, **opt_metrics}
+
+    return train_step
+
+
+def init_state(lm: LM, generator: torch.Generator):
+    params = lm.init(generator)
+    return {"params": params, **optim.init_opt_state(params)}
