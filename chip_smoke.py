@@ -164,7 +164,59 @@ non-zero (and prints no result) otherwise, or on any failure.
      mamba2's barely move in three steps (PERF.md section 5). Per model:
      step ms (median of steps 2-3), tokens/s, peak memory and the model
      FLOPs (6 x active parameters x tokens) as a share of 989 TFLOP/s
-     bf16, beside the card's name and power limit; the phase's seconds.
+     bf16, beside the card's name and power limit; the phase's seconds;
+ 10. the trainer (``repro_torch.train.trainer``, ``launch.train``; no
+     kernel of B1-B9): (a) ``python -m repro_torch.launch.train --arch
+     minicpm_2b --smoke --steps 12 --seq-len 32 --global-batch 4
+     --ckpt-every 4 --ckpt-async --ckpt-delta-every 2 --insitu-dir ...
+     --insitu-every 2 --insitu-device-reduce --ledger`` (cuda, the
+     default) must exit 0, its in-transit catalog must hold tnorm and
+     spectra-k8 at steps 2-12 and its ledger's ``device_fallbacks`` read
+     0 in every flush; (b) the same command under ``run_supervised`` with
+     ``TRAIN_CRASH_AT=6`` on the first attempt must restart at least
+     once and exit 0 under the same checks, and its step-12 checkpoint
+     must restore onto the card bitwise equal to (a)'s; (c)
+     ``Trainer`` on stablelm-1.6b at its published widths and vocabulary
+     (d_model 2,048, 32 heads, d_ff 5,632, vocab 100,352) with its
+     depth cut 24 -> 2 (a train state of 513.8 M parameters x 12 bytes,
+     float32 params and moments; the uncut 19.7 GB state and its async
+     clone would not fit the phase's time), B = 2 and S = 4,096, async
+     full saves, ``TensorNormReducer`` and ``SpectraReducer(k=8)``
+     reduced on the card every 2 steps, the ledger on: 6 steps
+     uninterrupted with a save every 2 steps, then 4 steps saved at the
+     4th and a fresh ``Trainer`` resuming to 6, whose final state and
+     losses must equal the uninterrupted run's bitwise. Step ms (median
+     of steps 2-6, saves in flight; and of the interrupted run's steps
+     2-4, none in flight), tokens/s, each save's stall against the step
+     and its background seconds (``ckpt.snapshot`` to ``ckpt.commit``),
+     ``submit_state`` ms, the restore's seconds and MB/s, the losses and
+     peak memory are printed beside the card's name and power limit;
+ 11. LM serving (``repro_torch.models.serving``, ``launch.serve``; no
+     kernel of B1-B9): (a) ``python -m repro_torch.launch.serve --arch
+     mamba2_1_3b --smoke --batch 2 --prompt-len 8 --tokens 4`` (cuda, the
+     default) must exit 0 and print ``decode:``; (b) stablelm-1.6b (24
+     layers, KV cache), mamba2-1.3b (48 layers, SSM conv and state) and
+     recurrentgemma-2b (26 layers, RG-LRU and local attention, window
+     2,048) at their published configs, uncut, bf16 compute, parameters
+     drawn on the card from a seeded generator: ``prefill`` of 4 x 512
+     tokens, then 32 teacher-forced ``decode_step``s, and for
+     recurrentgemma also 2 x 2,040 prompt tokens + 32 steps, which wrap
+     the window's ring cache. Held, within 2e-2 (the reference's bound,
+     ``tests/test_models.py``): ``prefill`` and ``decode_step`` again
+     with every layer run on ``LM.forward``'s own input at that layer
+     and position (recorded from the forward), so that the embedding
+     (bitwise), the order of the layers, the cache slot each reads and
+     the head are those of the serving path, while no layer's rounding
+     feeds the next: each layer's output against the forward's, / its
+     largest, and the logits against the forward's, / the largest
+     logit. Printed: the free-running logits against ``LM.forward``
+     over the same tokens at bf16 and at float32 compute (TF32 off),
+     beside the forward over the prompt alone against it and the
+     forward's change under a relative 2^-7 on its embeddings: at the
+     reference's init these models turn a rounding difference into a
+     large share of the logits (PERF.md section 5). Prefill ms, decode
+     ms a step and tok/s, cache bytes, peak memory and the errors are
+     printed per model beside the card's name and power limit.
 
 The line before the last is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -1781,14 +1833,10 @@ def cli_serve_ledger(tmp: Path, device) -> dict:
                              f"\n{proc.stdout}\n{proc.stderr}")
     verdict = next(ln.strip() for ln in proc.stdout.splitlines()
                    if "verdict:" in ln)
+    flushes, fallbacks, run_verdict = ledger_signals(run)
     reader = LedgerReader(run)
     try:
-        flushes = reader.flushes()
-        signals = [next(iter(f["parts"]["meta"].values()))["signals"]
-                   for f in flushes]
-        fallbacks = [sig.get("device_fallbacks") for sig in signals]
         attributed = sorted(reader.attribs())
-        run_verdict = reader.verdict(flushes)
     finally:
         reader.close()
     if not fallbacks or any(v != 0.0 for v in fallbacks):
@@ -2493,7 +2541,7 @@ def lm_hidden(lm, tokens, inputs=None) -> list:
         x = layers.embed(params["embed"], tokens, cfg)
         out = [x]
         for i, lp in enumerate(_unstack(params["blocks"])):
-            x, _ = lm._apply_block(lm.kinds[0], lp, take(i, x), pos)
+            x, _, _ = lm._apply_block(lm.kinds[0], lp, take(i, x), pos)
             out.append(x)
         x = layers.apply_norm(params["final_norm"], take(len(out) - 1, x),
                               cfg)
@@ -2534,7 +2582,7 @@ def lm_stage_grads(lm, batch: dict, inputs: list, seed: int) -> list:
     for i, lp in enumerate(_unstack(params["blocks"])):
         x = leaf(inputs[i].to(dev, dt))
         lp = map_tree(leaf, lp)
-        y, _ = lm._apply_block(lm.kinds[0], lp, x, pos)
+        y, _, _ = lm._apply_block(lm.kinds[0], lp, x, pos)
         out.append(grads(y, {"x": x, "block": lp}))
     x = leaf(inputs[len(out) - 1].to(dev, dt))
     head = {"final_norm": map_tree(leaf, params["final_norm"]),
@@ -2723,6 +2771,625 @@ def lm_phase(device, card: str) -> dict:
         out[arch] = lm_full_width(arch, device, card, 100 + 10 * i)
     out["phase_s"] = time.perf_counter() - t0
     print(f"lm phase 9 took {out['phase_s']!r} s")
+    return out
+
+
+# ------------------------------------------ 10. the trainer on the card
+
+#: phase 10(a)/(b)'s command (``launch.train``'s flags; cuda by default)
+TRAIN_CLI = ["--arch", "minicpm_2b", "--smoke", "--steps", "12",
+             "--seq-len", "32", "--global-batch", "4", "--ckpt-every", "4",
+             "--ckpt-async", "--ckpt-delta-every", "2", "--insitu-every",
+             "2", "--insitu-device-reduce", "--ledger"]
+TRAIN_CRASH_AT = 6
+#: phase 10(c): stablelm-1.6b at its published widths and vocabulary,
+#: depth cut 24 -> 2 (the uncut state, 1.644 G params x 12 B, and its
+#: async clone would not fit the phase's time); phase 9's batch shape
+TRAIN_FULL_ARCH, TRAIN_FULL_DEPTH = "stablelm_1_6b", 2
+TRAIN_SEQ, TRAIN_BATCH = 4096, 2
+TRAIN_FULL_STEPS, TRAIN_RESUME_AT = 6, 4
+
+
+def ledger_signals(run: str) -> tuple:
+    """(flushes, device_fallbacks per flush, verdict) of a run ledger."""
+    from repro_torch.obs import LedgerReader
+    reader = LedgerReader(run)
+    try:
+        flushes = reader.flushes()
+        signals = [next(iter(f["parts"]["meta"].values()))["signals"]
+                   for f in flushes]
+        return (flushes, [sig.get("device_fallbacks") for sig in signals],
+                reader.verdict(flushes))
+    finally:
+        reader.close()
+
+
+def restore_state(root: str, lm, device):
+    """The latest complete step of an async HProt run, restored onto
+    ``device`` (the trainer's template), and that step."""
+    from repro_torch.ckpt import AsyncCheckpointManager
+    from repro_torch.train import step as step_lib
+    mgr = AsyncCheckpointManager(root)
+    try:
+        latest = mgr.latest_step()
+        state, _ = mgr.restore(step_lib.abstract_state(lm, device))
+    finally:
+        mgr.close()
+    return state, latest
+
+
+def states_bitwise(label: str, got, want) -> int:
+    """Raise unless two train states hold the same bytes; their size."""
+    import torch
+
+    from repro_torch.models.transformer import tree_leaves
+    a, b = tree_leaves(got), tree_leaves(want)
+    if [n for n, _ in a] != [n for n, _ in b]:
+        raise AssertionError(f"{label}: state trees differ")
+    differ = [n for (n, x), (_, y) in zip(a, b)
+              if x.dtype != y.dtype or not torch.equal(x, y)]
+    if differ:
+        raise AssertionError(f"{label}: leaves differ bitwise: {differ}")
+    return sum(_nbytes(x) for _, x in a)
+
+
+def train_cli(tmp: Path, device, label: str, supervised: bool) -> dict:
+    """Phase 10(a), or (b) with ``supervised``: ``python -m
+    repro_torch.launch.train`` (TRAIN_CLI, no ``--device``: cuda) exits
+    0 (under ``run_supervised`` with TRAIN_CRASH_AT on the first attempt,
+    after at least one restart), its checkpoints end at step 12, its
+    in-transit catalog holds the reducers at every second step, and its
+    ledger's ``device_fallbacks`` reads 0 in every flush."""
+    from repro_torch.insitu import Catalog
+    from repro_torch.train.supervisor import run_supervised
+    run = tmp / label
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+           "--ckpt-dir", str(run / "ck"), "--insitu-dir", str(run / "ins")]
+    t0 = time.perf_counter()
+    if supervised:
+        rc, restarts = run_supervised(
+            cmd, max_restarts=3, env={"PYTHONPATH": str(ROOT / "src")},
+            env_first={"TRAIN_CRASH_AT": str(TRAIN_CRASH_AT)})
+        text = ""
+    else:
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                              env=_src_env(), timeout=600)
+        rc, restarts, text = proc.returncode, 0, proc.stdout + proc.stderr
+    wall = time.perf_counter() - t0
+    if rc != 0 or (supervised and restarts < 1):
+        raise AssertionError(f"train cli {label}: rc {rc}, {restarts} "
+                             f"restarts\n{text[-3000:]}")
+    cat = Catalog(str(run / "ins"))
+    steps = cat.steps()
+    reducers = sorted(cat.reducers(steps[-1])) if steps else []
+    if steps != list(range(2, 13, 2)) or reducers != ["spectra-k8", "tnorm"]:
+        raise AssertionError(f"train cli {label}: catalog steps {steps}, "
+                             f"reducers {reducers}")
+    flushes, fallbacks, verdict = ledger_signals(str(run / "ins"))
+    if not fallbacks or any(v != 0.0 for v in fallbacks):
+        raise AssertionError(f"train cli {label}: ledger device_fallbacks "
+                             f"{fallbacks}")
+    if verdict == "critical":
+        raise AssertionError(f"train cli {label}: ledger verdict critical")
+    return {"rc": rc, "restarts": restarts, "seconds": wall,
+            "catalog_steps": steps, "reducers": reducers,
+            "ledger_flushes": len(flushes), "device_fallbacks": fallbacks,
+            "verdict": verdict}
+
+
+def ckpt_saves(trainer) -> list:
+    """Wrap ``trainer.ckpt.save`` to record each call's step and its
+    stall on the train thread (host wall, ms)."""
+    saves = []
+    save = trainer.ckpt.save
+
+    def timed(step, state, **kw):
+        t0 = time.perf_counter()
+        save(step, state, **kw)
+        saves.append({"step": step,
+                      "stall_ms": 1e3 * (time.perf_counter() - t0)})
+    trainer.ckpt.save = timed
+    return saves
+
+
+def submit_calls(trainer) -> list:
+    """Wrap ``trainer.insitu.submit_state`` to record the ms of each call
+    that stages a step (the others return at once)."""
+    calls = []
+    submit = trainer.insitu.submit_state
+
+    def timed(step, state, **kw):
+        t0 = time.perf_counter()
+        staged = submit(step, state, **kw)
+        if step % trainer.insitu.output_every == 0:
+            calls.append({"step": step, "staged": staged,
+                          "ms": 1e3 * (time.perf_counter() - t0)})
+        return staged
+    trainer.insitu.submit_state = timed
+    return calls
+
+
+def save_backgrounds(spans: list) -> dict:
+    """Per saved step, seconds from the ``ckpt.snapshot`` span's start
+    to the end of its ``ckpt.commit`` (the save's work off the train
+    thread, the stall included)."""
+    start = {s["args"]["step"]: s["ts"] for s in spans
+             if s["name"] == "ckpt.snapshot"}
+    return {s["args"]["step"]: (s["ts"] + s["dur"] - start[s["args"]["step"]])
+            / 1e6 for s in spans if s["name"] == "ckpt.commit"}
+
+
+def train_full_run(root: Path, device, steps: int,
+                   ckpt_every: int = 2) -> tuple:
+    """Phase 10(c): one ``Trainer`` on the cut stablelm in ``root``, run
+    to ``steps`` (resuming from the latest checkpoint there) with a save
+    every ``ckpt_every`` steps and at the last; its final state and what
+    it measured."""
+    import dataclasses
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.insitu import SpectraReducer, TensorNormReducer
+    from repro_torch.models.transformer import LM
+    from repro_torch.obs import TRACER
+    from repro_torch.train import optim
+    from repro_torch.train.trainer import Trainer
+    cfg = dataclasses.replace(get_config(TRAIN_FULL_ARCH),
+                              n_layers=TRAIN_FULL_DEPTH)
+    TRACER.clear()
+    trainer = Trainer(
+        LM(cfg, device=device), opt_cfg=optim.OptConfig(warmup_steps=1),
+        data_cfg=DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                            global_batch=TRAIN_BATCH),
+        ckpt_dir=str(root / "ck"), ckpt_every=ckpt_every, ckpt_async=True,
+        ckpt_delta_every=0, insitu_dir=str(root / "ins"), insitu_every=2,
+        insitu_device_reduce=True,
+        insitu_reducers=[TensorNormReducer(), SpectraReducer(k=8)],
+        ledger=True, log_every=0, device=device)
+    saves, submits = ckpt_saves(trainer), submit_calls(trainer)
+    restore_s = None
+    if trainer.ckpt.latest_step() is not None:
+        init = trainer.init_or_restore
+
+        def timed_restore():
+            nonlocal restore_s
+            t0 = time.perf_counter()
+            out = init()
+            torch.cuda.synchronize(device)
+            restore_s = time.perf_counter() - t0
+            return out
+        trainer.init_or_restore = timed_restore
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = trainer.run(steps)
+    wall = time.perf_counter() - t0
+    bg = save_backgrounds(TRACER.spans())
+    TRACER.disable()
+    TRACER.clear()
+    for sv in saves:
+        sv["background_s"] = bg.get(sv["step"])
+    return state, {
+        "steps": [m["step"] for m in trainer.metrics_log],
+        "losses": [m["loss"] for m in trainer.metrics_log],
+        "step_ms": [1e3 * m["dt"] for m in trainer.metrics_log],
+        "saves": saves, "submits": submits, "restore_s": restore_s,
+        "peak_bytes": torch.cuda.max_memory_allocated(device),
+        "wall_s": wall, "params": sum(p.numel()
+                                      for p in trainer.lm.parameters()),
+        "ckpt": {k: v for k, v in trainer.ckpt.telemetry().items()
+                 if k in ("committed", "bytes_to_host", "d2h_seconds",
+                          "encode_seconds", "stall_seconds_total")},
+        "ledger": ledger_signals(str(root / "ins"))[1:]}
+
+
+def train_full_width(tmp: Path, device, card: str) -> dict:
+    """Phase 10(c): TRAIN_FULL_STEPS steps uninterrupted, then
+    TRAIN_RESUME_AT steps and a fresh ``Trainer`` resuming to
+    TRAIN_FULL_STEPS; the two final states must be equal bitwise. The
+    interrupted run saves only at its last step, so its steps 2 to
+    TRAIN_RESUME_AT run with no save in flight (the unimpeded step)."""
+    import statistics
+    import torch
+    whole, a = train_full_run(tmp / "full_a", device, TRAIN_FULL_STEPS)
+    shutil.rmtree(tmp / "full_a", ignore_errors=True)
+    _, b1 = train_full_run(tmp / "full_b", device, TRAIN_RESUME_AT,
+                           ckpt_every=TRAIN_RESUME_AT)
+    resumed, b2 = train_full_run(tmp / "full_b", device, TRAIN_FULL_STEPS)
+    shutil.rmtree(tmp / "full_b", ignore_errors=True)
+    nbytes = states_bitwise("train full width: resumed against whole",
+                            resumed, whole)
+    del whole, resumed
+    torch.cuda.empty_cache()
+    if b2["steps"] != list(range(TRAIN_RESUME_AT + 1,
+                                 TRAIN_FULL_STEPS + 1)):
+        raise AssertionError(f"train full width: resumed steps {b2['steps']}")
+    if not all(math.isfinite(x) for x in a["losses"]) or \
+            a["losses"] != b1["losses"] + b2["losses"]:
+        raise AssertionError(f"train full width: losses {a['losses']}, "
+                             f"interrupted {b1['losses']} and resumed "
+                             f"{b2['losses']}")
+    for run in (a, b1, b2):
+        fallbacks, verdict = run["ledger"]
+        if not fallbacks or any(v != 0.0 for v in fallbacks) or \
+                verdict == "critical":
+            raise AssertionError(f"train full width: ledger {run['ledger']}")
+    step_ms = statistics.median(a["step_ms"][1:])
+    free_ms = statistics.median(b1["step_ms"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"depth": TRAIN_FULL_DEPTH, "params": a["params"],
+           "state_bytes": nbytes, "step_ms_median": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "step_ms_no_save": free_ms,
+           "tokens_per_s_no_save": tokens / (free_ms / 1e3), "run": a,
+           "resume_first": b1, "resume": b2,
+           "restore_mb_per_s": nbytes / 1e6 / b2["restore_s"]}
+    tel = a["ckpt"]
+    saves = "; ".join(
+        f"step {sv['step']} stall {sv['stall_ms']:.2f} ms "
+        f"({sv['stall_ms'] / step_ms!r} of a step), background "
+        f"{sv['background_s']!r} s" for sv in a["saves"])
+    print(f"train full width: {TRAIN_FULL_ARCH} at its published widths "
+          f"and vocabulary, depth cut 24 -> {TRAIN_FULL_DEPTH}: {a['params']} "
+          f"parameters, a train state of {nbytes} bytes (float32 params, "
+          f"mu, nu); B={TRAIN_BATCH} S={TRAIN_SEQ}, bf16 compute, async "
+          f"full saves every 2 steps, device-reduced tnorm + spectra-k8 "
+          f"every 2, ledger on; step {step_ms!r} ms (median of steps "
+          f"2-{TRAIN_FULL_STEPS}, saves in flight from step 3; all "
+          f"{a['step_ms']!r}), {out['tokens_per_s']!r} tokens/s; with no "
+          f"save in flight (the interrupted run's steps "
+          f"2-{TRAIN_RESUME_AT}: {b1['step_ms'][1:]!r}) {free_ms!r} ms, "
+          f"{out['tokens_per_s_no_save']!r} tokens/s; losses "
+          f"{a['losses']!r}; "
+          f"saves: {saves}; submit_state ms "
+          f"{[round(c['ms'], 3) for c in a['submits']]}; run {a['wall_s']!r} "
+          f"s; peak memory {a['peak_bytes']} bytes; the saves' gathers: "
+          f"{tel['bytes_to_host']} bytes to the host at "
+          f"{hprot_rate(tel['bytes_to_host'], tel['d2h_seconds'])!r} MB/s, "
+          f"encoded at {hprot_rate(tel['bytes_to_host'], tel['encode_seconds'])!r}"
+          f" MB/s; [{card}]")
+    print(f"train full width: resumed from step {TRAIN_RESUME_AT} in a "
+          f"fresh Trainer to {TRAIN_FULL_STEPS}: restore {b2['restore_s']!r} "
+          f"s ({out['restore_mb_per_s']!r} MB/s, CRC-verified, onto the "
+          f"card), losses {b2['losses']!r}, final state bitwise the "
+          f"uninterrupted run's; its saves' stalls "
+          f"{[round(sv['stall_ms'], 2) for sv in b1['saves'] + b2['saves']]}"
+          f" ms; [{card}]")
+    return out
+
+
+def trainer_phase(tmp: Path, device, card: str) -> dict:
+    """Phase 10 (see the module docstring)."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.transformer import LM
+    t0 = time.perf_counter()
+    out = {"cli": train_cli(tmp, device, "cli", supervised=False),
+           "supervised": train_cli(tmp, device, "supervised",
+                                   supervised=True)}
+    lm = LM(get_smoke_config("minicpm_2b"), device=device)
+    (a, sa), (b, sb) = (restore_state(str(tmp / run / "ck"), lm, device)
+                        for run in ("cli", "supervised"))
+    if sa != 12 or sb != 12:
+        raise AssertionError(f"train cli: latest steps {sa}, {sb}")
+    nbytes = states_bitwise("train cli: supervised crash against "
+                            "uninterrupted", b, a)
+    print(f"train cli: python -m repro_torch.launch.train "
+          f"{' '.join(TRAIN_CLI)} on cuda: rc 0 in "
+          f"{out['cli']['seconds']:.1f} s, catalog steps "
+          f"{out['cli']['catalog_steps']} ({out['cli']['reducers']}), "
+          f"{out['cli']['ledger_flushes']} ledger flushes, device_fallbacks "
+          f"{out['cli']['device_fallbacks']}, verdict "
+          f"{out['cli']['verdict']}; under run_supervised with "
+          f"TRAIN_CRASH_AT={TRAIN_CRASH_AT}: rc 0 after "
+          f"{out['supervised']['restarts']} restart(s) in "
+          f"{out['supervised']['seconds']:.1f} s, its step-12 checkpoint "
+          f"({nbytes} bytes) restores bitwise the uninterrupted run's; "
+          f"[{card}]")
+    del a, b, lm
+    torch.cuda.empty_cache()
+    out["full_width"] = train_full_width(tmp, device, card)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"trainer phase 10 took {out['phase_s']!r} s")
+    return out
+
+
+# ---------------------------------------------------- 11. LM serving
+
+#: phase 11(b)'s published configs, uncut
+SERVE_FULL = ("stablelm_1_6b", "mamba2_1_3b", "recurrentgemma_2b")
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 512, 32
+#: recurrentgemma's ring case: 2,040 + 32 positions pass its 2,048 window
+SERVE_RING_BATCH, SERVE_RING_PROMPT = 2, 2040
+#: max |decode - forward| / max |forward logit| (tests/test_models.py:74)
+SERVE_TOL = 2e-2
+
+
+def serve_cli(device) -> dict:
+    """Phase 11(a): ``python -m repro_torch.launch.serve`` on the mamba2
+    smoke config (no ``--device``: cuda) exits 0 and prints ``decode:``."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "mamba2_1_3b", "--smoke", "--batch", "2", "--prompt-len", "8",
+           "--tokens", "4"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                          env=_src_env(), timeout=600)
+    if proc.returncode != 0 or "decode:" not in proc.stdout:
+        raise AssertionError(f"serve cli: rc {proc.returncode}\n"
+                             f"{proc.stdout}\n{proc.stderr[-3000:]}")
+    lines = [ln.strip() for ln in proc.stdout.splitlines() if ln.strip()]
+    print(f"serve cli: python -m repro_torch.launch.serve "
+          f"{' '.join(cmd[3:])} on cuda: rc 0; {' | '.join(lines)}")
+    return {"rc": 0, "stdout": lines}
+
+
+def forward_walk(lm, tokens, prompt: int, embed=None) -> tuple:
+    """``LM.forward`` over all of ``tokens``, with ``LM._apply_block``
+    wrapped to record, in the forward's own order, each layer's input
+    and output at the decoded positions (prompt ..); ``embed``, if set,
+    maps the embeddings first. Returns (those per-layer (input, output)
+    pairs, the logits of positions prompt-1 .. end as float32)."""
+    import torch
+
+    from repro_torch.models import layers
+    block, emb = lm._apply_block, layers.embed
+    seen = []
+
+    def recorded(kind, p, x, positions, **kw):
+        out = block(kind, p, x, positions, **kw)
+        seen.append((x[:, prompt:].clone(), out[0][:, prompt:].clone()))
+        return out
+    lm._apply_block = recorded
+    if embed is not None:
+        layers.embed = lambda *a: embed(emb(*a))
+    try:
+        with torch.no_grad():
+            logits = lm(tokens)[0][:, prompt - 1:].float()
+    finally:
+        del lm._apply_block
+        layers.embed = emb
+    return seen, logits
+
+
+def teacher_forced(lm, params, tokens, prompt: int, seen, logits) -> dict:
+    """``prefill`` over the prompt, then one ``decode_step`` a remaining
+    token, with ``serving.decode_block`` wrapped so that the k-th layer
+    ``decode_step`` calls takes the forward's k-th layer input at that
+    position (:func:`forward_walk`) and hands the forward's output on.
+    So every layer runs on the forward's own inputs while ``prefill``
+    and ``decode_step`` assemble the model: the embedding (the first
+    layer's input must be the forward's bitwise), the order of the
+    layers, the cache slot each reads (as ``prefill`` placed it, the
+    window's ring included) and the head. Per layer, max |its decode
+    output - the forward's| / max |the forward's| over the decoded
+    positions; and the head's logits against the forward's, / max
+    |logit|. The step count must be the forward's layer count."""
+    import torch
+
+    from repro_torch.models import serving
+    inner = serving.decode_block
+    errs = [0.0] * len(seen)
+    at = {}
+
+    def forced(lm_, kind, p, x, lc, pos):
+        k, i = at["layer"], pos - prompt
+        at["layer"] += 1
+        x_in, y_out = (t[:, i:i + 1] for t in seen[k])
+        if k == 0 and not torch.equal(x, x_in):
+            raise AssertionError(f"serve {lm.cfg.name}: decode_step's "
+                                 f"embedding at position {pos} is not the "
+                                 f"forward's")
+        y = inner(lm_, kind, p, x_in, lc, pos)
+        errs[k] = max(errs[k], float((y.float() - y_out.float()).abs().max())
+                      / float(seen[k][1].float().abs().max()))
+        return y_out
+    head = 0.0
+    scale = float(logits.abs().max())
+    serving.decode_block = forced
+    try:
+        _, cache = serving.prefill(lm, params, tokens[:, :prompt],
+                                   max_seq=tokens.shape[1])
+        for i in range(tokens.shape[1] - prompt):
+            at["layer"] = 0
+            lg, cache = serving.decode_step(lm, params, tokens[:, prompt + i],
+                                            prompt + i, cache)
+            if at["layer"] != len(seen):
+                raise AssertionError(f"serve {lm.cfg.name}: decode_step ran "
+                                     f"{at['layer']} layers, the forward "
+                                     f"{len(seen)}")
+            head = max(head, float((lg.float() - logits[:, i + 1]).abs()
+                                   .max()) / scale)
+    finally:
+        serving.decode_block = inner
+    return {"layer_errs": errs, "head_err": head}
+
+
+def free_running(lm, params, tokens, prompt: int):
+    """``prefill`` of ``tokens[:, :prompt]`` and one teacher-forced
+    ``decode_step`` per remaining token: the logits of positions
+    prompt-1 .. end, (B, steps + 1, V) float32."""
+    import torch
+
+    from repro_torch.models import serving
+    logits, cache = serving.prefill(lm, params, tokens[:, :prompt],
+                                    max_seq=tokens.shape[1])
+    out = [logits]
+    for i in range(prompt, tokens.shape[1]):
+        logits, cache = serving.decode_step(lm, params, tokens[:, i], i,
+                                            cache)
+        out.append(logits)
+    return torch.stack(out, 1).float()
+
+
+def forward_readings(lm, tokens, prompt: int, got, full) -> dict:
+    """Free-running decode logits ``got`` against ``LM.forward``'s
+    ``full`` (positions prompt-1 ..), / max |logit|: the largest, and
+    step 0's (``prefill``'s logits, no decode step); and the forward
+    over the prompt alone against ``full`` at the prompt's last position
+    (the forward against itself at another sequence length)."""
+    import torch
+    with torch.no_grad():
+        short = lm(tokens[:, :prompt])[0][:, -1].float()
+    scale = float(full.abs().max())
+    per = ((got - full).abs().amax(dim=(0, 2)) / scale).tolist()
+    return {"free_running": max(per), "step0": per[0],
+            "forward_prompt_only": float((short - full[:, 0]).abs().max())
+            / scale, "max_abs_logit": scale}
+
+
+def serve_f32(lm, tokens, prompt: int, device) -> dict:
+    """:func:`forward_readings` at float32 compute (TF32 off, as in
+    phase 9): ``lm``'s parameters in an LM of the same config computing
+    in float32, free-running against its ``LM.forward`` over all of
+    ``tokens``. Printed, not held (PERF.md section 5)."""
+    import dataclasses
+    import torch
+
+    from repro_torch.models.transformer import LM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lm32 = LM(dataclasses.replace(lm.cfg, compute_dtype="float32"),
+              device=device)
+    lm32.load_param_tree(lm.param_tree())
+    with torch.no_grad():
+        got = free_running(lm32, lm32.param_tree(), tokens, prompt)
+        full = lm32(tokens)[0][:, prompt - 1:].float()
+    if not (torch.isfinite(got).all() and torch.isfinite(full).all()):
+        raise AssertionError(f"serve f32 {lm.cfg.name}: non-finite logits")
+    return forward_readings(lm32, tokens, prompt, got, full)
+
+
+def serve_decode(lm, params, tokens, prompt: int, device) -> dict:
+    """Prefill ``tokens[:, :prompt]`` (twice: the second timed warm),
+    then one ``decode_step`` per remaining token, teacher-forced, at the
+    config's bf16 compute. Held: :func:`teacher_forced` against the
+    forward, every layer and the head within SERVE_TOL. Printed: the
+    free-running logits against ``LM.forward`` over all of ``tokens``
+    (:func:`forward_readings`, also at float32 by :func:`serve_f32`),
+    and the forward's own sensitivity to one rounding of its input: the
+    forward from the embeddings moved by a relative 2^-7 (one to two
+    bf16 ulps) up or down at random, max |its logits - the forward's| /
+    max |the forward's| over the decoded positions."""
+    import torch
+
+    from repro_torch.models import serving
+    from repro_torch.models.transformer import tree_leaves
+    b, total = tokens.shape
+    steps = total - prompt
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    prefill_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        logits, cache = serving.prefill(lm, params, tokens[:, :prompt],
+                                        max_seq=total)
+        torch.cuda.synchronize(device)
+        prefill_ms.append(1e3 * (time.perf_counter() - t0))
+    out = [logits]
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = serving.decode_step(lm, params, tokens[:, prompt + i],
+                                            prompt + i, cache)
+        out.append(logits)
+    torch.cuda.synchronize(device)
+    decode_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    got = torch.stack(out, 1).float()
+    cache_bytes = _nbytes(*(t for _, t in tree_leaves(cache)))
+    del cache, out
+    seen, full = forward_walk(lm, tokens, prompt)
+    if not (torch.isfinite(got).all() and torch.isfinite(full).all()):
+        raise AssertionError(f"serve {lm.cfg.name}: non-finite logits")
+    readings = forward_readings(lm, tokens, prompt, got, full)
+    del got
+    forced = teacher_forced(lm, params, tokens, prompt, seen, full)
+    del seen
+    if not max(forced["layer_errs"] + [forced["head_err"]]) < SERVE_TOL:
+        raise AssertionError(f"serve {lm.cfg.name} B={b} prompt={prompt}: "
+                             f"teacher-forced decode against the forward, "
+                             f"by layer {forced['layer_errs']}, head "
+                             f"{forced['head_err']}, not all < {SERVE_TOL}")
+
+    def rounded(x):
+        up = torch.rand(x.shape, device=device, generator=torch.Generator(
+            device=device).manual_seed(7)) < 0.5
+        return (x.float() * torch.where(up, 1 + 2 ** -7, 1 - 2 ** -7)).to(
+            x.dtype)
+    _, moved = forward_walk(lm, tokens, prompt, embed=rounded)
+    spread = float((moved - full).abs().max() / full.abs().max())
+    del moved, full
+    return {"batch": b, "prompt": prompt, "steps": steps,
+            "prefill_ms": prefill_ms[1], "prefill_cold_ms": prefill_ms[0],
+            "decode_ms_per_token": 1e3 * decode_s / steps,
+            "tokens_per_s": steps * b / decode_s,
+            "cache_bytes": cache_bytes, "peak_bytes": peak,
+            "max_layer_err": max(forced["layer_errs"]),
+            "layer_errs": forced["layer_errs"],
+            "head_err": forced["head_err"], **readings,
+            "forward_ulp_spread": spread,
+            "f32": serve_f32(lm, tokens, prompt, device)}
+
+
+def serve_full(arch: str, device, card: str, seed: int) -> dict:
+    """Phase 11(b) for one config: parameters drawn on the card from a
+    seeded generator, SERVE_BATCH x SERVE_PROMPT prompt tokens and
+    SERVE_STEPS decode steps; recurrentgemma also the ring case, its
+    forward in one query block (2,040 and 2,072 are not multiples of its
+    ``attn_chunk`` of 1,024; the chunks split only the queries)."""
+    import dataclasses
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import LM
+    cfg = get_config(arch)
+    runs = [(SERVE_BATCH, SERVE_PROMPT, cfg)]
+    if cfg.window:
+        runs.append((SERVE_RING_BATCH, SERVE_RING_PROMPT,
+                     dataclasses.replace(cfg, attn_chunk=4096)))
+    out = {"layers": cfg.n_layers, "runs": []}
+    for b, prompt, c in runs:
+        lm = LM(c, device=device)
+        params = lm.init(torch.Generator(device=device).manual_seed(seed))
+        g = torch.Generator(device=device).manual_seed(seed + 1)
+        tokens = torch.randint(0, c.vocab_size, (b, prompt + SERVE_STEPS),
+                               generator=g, device=device)
+        r = serve_decode(lm, params, tokens, prompt, device)
+        out["params"] = sum(p.numel() for p in lm.parameters())
+        out["runs"].append(r)
+        del lm, params, tokens
+        torch.cuda.empty_cache()
+        ring = (f", window {c.window}: the ring wraps at position "
+                f"{c.window}") if c.window and prompt + SERVE_STEPS > \
+            c.window else ""
+        print(f"serve {cfg.name} ({cfg.n_layers} layers, {out['params']} "
+              f"parameters, {c.compute_dtype} compute, uncut): B={b} "
+              f"prompt {prompt} + {SERVE_STEPS} decode steps{ring}; prefill "
+              f"{r['prefill_ms']!r} ms (first call {r['prefill_cold_ms']!r}); "
+              f"decode {r['decode_ms_per_token']!r} ms a step, "
+              f"{r['tokens_per_s']!r} tok/s; cache {r['cache_bytes']} bytes, "
+              f"peak memory {r['peak_bytes']} bytes; prefill + decode_step "
+              f"teacher-forced on the forward's layer inputs: max rel err "
+              f"by layer {r['max_layer_err']!r}, head {r['head_err']!r} "
+              f"(tol {SERVE_TOL}); printed: free-running logits against "
+              f"LM.forward max {r['free_running']!r} (step 0, prefill "
+              f"alone, {r['step0']!r}), the forward over the prompt alone "
+              f"against it {r['forward_prompt_only']!r}, a relative 2^-7 "
+              f"on the embeddings moves it by {r['forward_ulp_spread']!r}; "
+              f"at float32 compute (TF32 off) free-running "
+              f"{r['f32']['free_running']!r} (step 0 "
+              f"{r['f32']['step0']!r}), the forward over the prompt alone "
+              f"{r['f32']['forward_prompt_only']!r}; [{card}]")
+    return out
+
+
+def serve_phase(device, card: str) -> dict:
+    """Phase 11 (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {"cli": serve_cli(device)}
+    for i, arch in enumerate(SERVE_FULL):
+        out[arch] = serve_full(arch, device, card, 110 + 10 * i)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"serving phase 11 took {out['phase_s']!r} s")
     return out
 
 
@@ -3855,6 +4522,11 @@ def main() -> int:
 
     # -- 9. the LM stack (no kernel of B1-B9 on its path)
     wall["lm"] = lm_phase(device, card)
+    # -- 10. the trainer on the card; 11. LM serving (no kernel of B1-B9)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                     dir=ROOT / "build") as d:
+        wall["trainer"] = trainer_phase(Path(d), device, card)
+    wall["serve_lm"] = serve_phase(device, card)
     records = []
     for name, (replaces, source) in KERNELS.items():
         t, b = times[name], bnd[name]

@@ -6,9 +6,13 @@ are processed in ``cfg.attn_chunk`` blocks, each against the full K/V
 (the reference's ``lax.scan`` over query blocks, here a Python loop).
 The mask is additive (-1e30 in float32, added before a float32
 softmax), and the probabilities are cast to the compute dtype before
-the PV product, as in the reference. Single-token decode against a KV
-cache (the reference's ``decode_kv``/``decode_cross``) comes with LM
-serving.
+the PV product, as in the reference.
+
+Single-token decode (:func:`decode_kv`) writes the new K/V into the
+cache in place at one slot (``pos``, or ``pos % capacity`` for a
+window's ring) and attends over the cache with the GQA groups kept
+apart (no repeat of the cache). ``pos`` is a Python int: the host knows
+it, and a device scalar would make every step wait for the device.
 """
 from __future__ import annotations
 
@@ -94,3 +98,60 @@ def multihead(p, x, *, cfg, positions, kv_x=None, kv_positions=None,
 
     out = dot("bshk,hkd->bsd", out, p["wo"], f32=False)
     return (out, kv_raw) if return_kv else out
+
+
+# ------------------------------------------------------------------ decode
+
+def decode_kv(p, x, *, cfg, cache_k, cache_v, pos: int):
+    """One-token attention against a KV cache.
+
+    x: (B, 1, D); cache_k/v: (B, S_cache, nkv, hd), written in place at
+    slot ``pos`` (``pos % S_cache`` when cfg.window is set: a ring).
+    Returns (out (B,1,D), cache_k, cache_v).
+    """
+    b = x.shape[0]
+    dt = x.dtype
+    s_cache = cache_k.shape[1]
+    pos = int(pos)
+    q = dot("bsd,dhk->bshk", x, p["wq"], f32=False)
+    k_new = dot("bsd,dhk->bshk", x, p["wk"], f32=False)
+    v_new = dot("bsd,dhk->bshk", x, p["wv"], f32=False)
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q = layers.rope(q, posv, cfg.rope_theta)
+    k_new = layers.rope(k_new, posv, cfg.rope_theta)
+    slot = pos % s_cache if cfg.window is not None else pos
+    if not 0 <= slot < s_cache:
+        raise IndexError(f"decode position {pos} past a cache of "
+                         f"{s_cache} positions")
+    cache_k[:, slot] = k_new[:, 0]
+    cache_v[:, slot] = v_new[:, 0]
+
+    # grouped-query attention without materializing the GQA repeat: the
+    # (kv head, group) axes stay apart in both products
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(b, 1, cfg.n_kv_heads, n_rep, q.shape[-1])
+    scale = q.shape[-1] ** -0.5
+    scores = dot("bqhrd,bkhd->bhrqk", qg, cache_k, f32=True) * scale
+    kidx = torch.arange(s_cache, device=x.device)
+    if cfg.window is not None:
+        # ring buffer: slot j holds the token written `(slot - j) % W` steps
+        # ago; valid iff that age is within the number of tokens seen so far
+        valid = (slot - kidx) % s_cache < min(pos + 1, s_cache)
+    else:
+        valid = kidx <= pos
+    scores = torch.where(valid, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(dt)          # (b,h,r,1,S)
+    out = dot("bhrqk,bkhd->bqhrd", probs, cache_v, f32=False)
+    out = out.reshape(b, 1, cfg.n_heads, q.shape[-1])
+    out = dot("bshk,hkd->bsd", out, p["wo"], f32=False)
+    return out, cache_k, cache_v
+
+
+def decode_cross(p, x, *, cfg, enc_k, enc_v):
+    """One-token cross-attention against precomputed encoder K/V."""
+    dt = x.dtype
+    q = dot("bsd,dhk->bshk", x, p["wq"], f32=False)
+    k = _repeat_kv(enc_k, cfg.n_heads // cfg.n_kv_heads)
+    v = _repeat_kv(enc_v, cfg.n_heads // cfg.n_kv_heads)
+    out = _sdpa(q, k.to(dt), v.to(dt), None)
+    return dot("bshk,hkd->bsd", out, p["wo"], f32=False)

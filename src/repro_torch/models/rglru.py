@@ -6,7 +6,8 @@ Training scans the (a, b) pairs in log2(S) doubling steps in float32
 (the reference's ``lax.associative_scan``; a loop over S positions would
 be S tiny launches a layer on the card). The doubling scan sums in
 another order than XLA's tree, so the two agree to float32 rounding, not
-bit for bit. The single-step decode update comes with LM serving.
+bit for bit. Decode is the single-step update ``h = a h_prev + b`` of
+one token against the cache ``{"conv": (B, 3, W), "h": (B, W)}``.
 
 The input's weight sqrt(1 - a_t^2) is the reference's ``1 - a * a``.
 Where a_t is near 1 (r_t near 0) that keeps only the digits of a_t that
@@ -20,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import ParamSpec, dot, gelu, sigmoid, softplus
+from .layers import ParamSpec, dot, dtype_of, gelu, sigmoid, softplus
 
 _C = 8.0
 
@@ -53,10 +54,10 @@ def _gates(p, xw):
     return a, b
 
 
-def _causal_conv(x, w):
+def _causal_conv(x, w, state=None):
     k = w.shape[0]
     pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
-                      device=x.device)
+                      device=x.device) if state is None else state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)
     out = sum(xp[:, i:i + x.shape[1], :] * w[i].to(x.dtype) for i in range(k))
     return out, xp[:, -(k - 1):, :]
@@ -76,14 +77,23 @@ def linear_scan(a, b):
     return b
 
 
-def rglru_block(p, x, cfg):
-    """x: (B, S, D), full sequence. Returns (y, final cache)
-    ({"conv": (B,3,W), "h": (B,W)})."""
+def rglru_block(p, x, cfg, cache=None, pos=None):
+    """x: (B, S, D) full-seq, or (B, 1, D) decode with cache
+    {"conv": (B,3,W), "h": (B,W)} (not written). Returns (y, new cache)."""
     gate_in = gelu(_proj(x, p["in_gate"]).float())
-    xw = _proj(x, p["in_x"])
-    xw, conv_state = _causal_conv(xw, p["conv_w"])
+    xw, conv_state = _causal_conv(_proj(x, p["in_x"]), p["conv_w"],
+                                  None if cache is None else cache["conv"])
     a, b = _gates(p, xw)
-    h = linear_scan(a, b)
+    h = linear_scan(a, b) if cache is None else a * cache["h"][:, None] + b
     y = (h * gate_in).to(x.dtype)
-    out = _proj(y, p["out"])
-    return out, {"conv": conv_state, "h": h[:, -1].float()}
+    return _proj(y, p["out"]), {"conv": conv_state, "h": h[:, -1]}
+
+
+def rglru_cache_spec(cfg, batch: int, device) -> dict:
+    """One layer's decode cache, allocated as zeros on ``device``."""
+    w = cfg.lru_width or cfg.d_model
+    return {
+        "conv": torch.zeros((batch, 3, w), dtype=dtype_of(cfg.compute_dtype),
+                            device=device),
+        "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+    }

@@ -4,7 +4,8 @@ Chunked SSD algorithm: within-chunk "attention-like" term via the decay
 matrix L, cross-chunk linear recurrence on the (H, P, N) state, here a
 Python loop over the chunks (the reference's ``lax.scan``). S is padded
 up to a multiple of the chunk with ``dt = 0`` pads, which leave the
-state as it is. The single-token decode update comes with LM serving.
+state as it is. Decode is the O(1) recurrent update of one token against
+the cache ``{"conv": (B, K-1, DI), "state": (B, H, P, N)}``.
 
 Layout: x (B, S, H, P) with H = d_inner/head_dim heads, P = head_dim,
 shared B/C of state size N (single group), scalar-per-head A.
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import ParamSpec, dot, silu, softplus
+from .layers import ParamSpec, dot, dtype_of, silu, softplus
 
 
 def ssm_spec(cfg) -> dict:
@@ -38,11 +39,15 @@ def _proj(x, w):
     return dot("...d,dk->...k", x, w, f32=False)
 
 
-def _causal_conv(x, w):
-    """Depthwise causal conv over seq. x: (B,S,DI), w: (K,DI)."""
+def _causal_conv(x, w, conv_state=None):
+    """Depthwise causal conv over seq. x: (B,S,DI), w: (K,DI); the
+    K-1 inputs before x are zeros, or ``conv_state`` (decode)."""
     k = w.shape[0]
-    pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
-                      device=x.device)
+    if conv_state is None:
+        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = conv_state.to(x.dtype)
     xp = torch.cat([pad, x], dim=1)
     out = sum(xp[:, i:i + x.shape[1], :] * w[i].to(x.dtype)
               for i in range(k))
@@ -104,33 +109,66 @@ def ssd_chunked(xh, dt, a, bmat, cmat, chunk: int):
     return y.to(xh.dtype), state
 
 
-def ssm_block(p, x, cfg):
-    """Full-sequence SSM block. Returns (y, final cache)
-    ({"conv": (B, K-1, DI), "state": (B, H, P, N)})."""
+def ssm_block(p, x, cfg, cache=None, pos=None):
+    """Full-sequence (cache=None) or one-step decode (cache set).
+
+    cache: {"conv": (B, K-1, DI), "state": (B, H, P, N)}.
+    Returns (y, new cache); the input cache is not written.
+    """
+    bsz = x.shape[0]
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
     xin = _proj(x, p["in_x"])
     z = _proj(x, p["in_z"])
     a = -torch.exp(p["a_log"].float())
 
-    xin, conv_state = _causal_conv(xin, p["conv_w"])
-    dt = softplus(_proj(x, p["in_dt"]).float() + p["dt_bias"].float())
-    bmat = _proj(x, p["in_b"]).float()
-    cmat = _proj(x, p["in_c"]).float()
-    xh = xin.reshape(*xin.shape[:2], h, pdim)
-    # pad S to the chunk multiple: dt=0 pads are exact no-ops on the
-    # state (decay exp(0)=1, contribution 0)
-    s_len = xh.shape[1]
-    pad = (-s_len) % cfg.ssm_chunk
-    if pad:
-        xh_p = F.pad(xh, (0, 0, 0, 0, 0, pad))
-        dt_p = F.pad(dt, (0, 0, 0, pad))
-        b_p = F.pad(bmat, (0, 0, 0, pad))
-        c_p = F.pad(cmat, (0, 0, 0, pad))
-    else:
-        xh_p, dt_p, b_p, c_p = xh, dt, bmat, cmat
-    y, state = ssd_chunked(xh_p, dt_p, a, b_p, c_p, cfg.ssm_chunk)
-    y = y[:, :s_len]
-    y = y + xh * p["d_skip"].to(y.dtype)[None, None, :, None]
-    y = y.reshape(*xin.shape)
+    if cache is None:
+        xin, conv_state = _causal_conv(xin, p["conv_w"])
+        dt = softplus(_proj(x, p["in_dt"]).float() + p["dt_bias"].float())
+        bmat = _proj(x, p["in_b"]).float()
+        cmat = _proj(x, p["in_c"]).float()
+        xh = xin.reshape(*xin.shape[:2], h, pdim)
+        # pad S to the chunk multiple: dt=0 pads are exact no-ops on the
+        # state (decay exp(0)=1, contribution 0)
+        s_len = xh.shape[1]
+        pad = (-s_len) % cfg.ssm_chunk
+        if pad:
+            xh_p = F.pad(xh, (0, 0, 0, 0, 0, pad))
+            dt_p = F.pad(dt, (0, 0, 0, pad))
+            b_p = F.pad(bmat, (0, 0, 0, pad))
+            c_p = F.pad(cmat, (0, 0, 0, pad))
+        else:
+            xh_p, dt_p, b_p, c_p = xh, dt, bmat, cmat
+        y, state = ssd_chunked(xh_p, dt_p, a, b_p, c_p, cfg.ssm_chunk)
+        y = y[:, :s_len]
+        y = y + xh * p["d_skip"].to(y.dtype)[None, None, :, None]
+        y = y.reshape(*xin.shape)
+        out = _proj(_rmsnorm_gated(y, z, p["norm_scale"]), p["out"])
+        return out, {"conv": conv_state, "state": state.float()}
+
+    # ---- decode: single token, O(1) state update
+    xin1, conv_state = _causal_conv(xin, p["conv_w"], cache["conv"])
+    dt = softplus(_proj(x, p["in_dt"]).float()
+                  + p["dt_bias"].float())[:, 0]                 # (B,H)
+    bmat = _proj(x, p["in_b"]).float()[:, 0]                    # (B,N)
+    cmat = _proj(x, p["in_c"]).float()[:, 0]
+    xh = xin1.reshape(bsz, h, pdim).float()
+    decay = torch.exp(dt * a[None, :])                          # (B,H)
+    upd = (dt[:, :, None] * xh)[..., None] * bmat[:, None, None, :]
+    state = cache["state"] * decay[:, :, None, None] + upd
+    y = torch.einsum("bn,bhpn->bhp", cmat, state)
+    y = y + xh * p["d_skip"].float()[None, :, None]
+    y = y.reshape(bsz, 1, -1).to(x.dtype)
     out = _proj(_rmsnorm_gated(y, z, p["norm_scale"]), p["out"])
-    return out, {"conv": conv_state, "state": state.float()}
+    return out, {"conv": conv_state, "state": state}
+
+
+def ssm_cache_spec(cfg, batch: int, device) -> dict:
+    """One layer's decode cache, allocated as zeros on ``device``."""
+    h, pdim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner),
+                            dtype=dtype_of(cfg.compute_dtype),
+                            device=device),
+        "state": torch.zeros((batch, h, pdim, n), dtype=torch.float32,
+                             device=device),
+    }

@@ -218,17 +218,26 @@ class LM(nn.Module):
     # ------------------------------------------------------------ blocks
     def _apply_block(self, kind: str, p, x, positions, *, enc_out=None,
                      enc_pos=None):
+        """One layer over the full sequence -> (x, aux, the layer's cache
+        as prefill seeds it: attention's K/V over every position ("k",
+        "v"; an enc-dec block also its cross K/V "xk", "xv"), or the SSM's
+        or RG-LRU's final conv and state)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if kind in ("attn", "moe", "xattn"):
             h = layers.apply_norm(p["ln1"], x, cfg)
-            x = x + attention.multihead(p["attn"], h, cfg=cfg,
-                                        positions=positions)
+            y, (k, v) = attention.multihead(p["attn"], h, cfg=cfg,
+                                            positions=positions,
+                                            return_kv=True)
+            x = x + y
+            cache = {"k": k, "v": v}
             if kind == "xattn":
                 h = layers.apply_norm(p["lnx"], x, cfg)
-                x = x + attention.multihead(
+                y, (cache["xk"], cache["xv"]) = attention.multihead(
                     p["xattn"], h, cfg=cfg, positions=positions,
-                    kv_x=enc_out, kv_positions=enc_pos, causal=False)
+                    kv_x=enc_out, kv_positions=enc_pos, causal=False,
+                    return_kv=True)
+                x = x + y
             h = layers.apply_norm(p["ln2"], x, cfg)
             if kind == "moe":
                 y, aux = moe.moe_mlp(p["moe"], h, cfg)
@@ -237,17 +246,17 @@ class LM(nn.Module):
                 x = x + layers.mlp(p["mlp"], h, cfg)
         elif kind == "ssm":
             h = layers.apply_norm(p["ln1"], x, cfg)
-            y, _ = ssm.ssm_block(p["ssm"], h, cfg)
+            y, cache = ssm.ssm_block(p["ssm"], h, cfg)
             x = x + y
         elif kind == "rec":
             h = layers.apply_norm(p["ln1"], x, cfg)
-            y, _ = rglru.rglru_block(p["rec"], h, cfg)
+            y, cache = rglru.rglru_block(p["rec"], h, cfg)
             x = x + y
             h = layers.apply_norm(p["ln2"], x, cfg)
             x = x + layers.mlp(p["mlp"], h, cfg)
         else:
             raise ValueError(kind)
-        return x, aux
+        return x, aux, cache
 
     # ----------------------------------------------------------- forward
     def forward(self, tokens, extras=None):
@@ -285,7 +294,7 @@ class LM(nn.Module):
                 body = maybe_checkpoint(
                     lambda h, lp=lp: self._apply_block(
                         kind, lp, h, positions, enc_out=enc_out,
-                        enc_pos=enc_pos), remat)
+                        enc_pos=enc_pos)[:2], remat)
                 x, a = body(x)
                 aux_total = aux_total + a
         x = layers.apply_norm(params["final_norm"], x, cfg)
@@ -319,7 +328,8 @@ class LM(nn.Module):
         def body(h, lp):
             a = torch.zeros((), dtype=torch.float32, device=h.device)
             for i, k in enumerate(pat):
-                h, ai = self._apply_block(k, lp[f"sub{i}_{k}"], h, positions)
+                h, ai, _ = self._apply_block(k, lp[f"sub{i}_{k}"], h,
+                                             positions)
                 a = a + ai
             return h, a
         for lp in _unstack(params["blocks"]):
@@ -327,7 +337,8 @@ class LM(nn.Module):
                                     cfg.remat == "full")(x)
             aux = aux + a
         for i, k in enumerate(self.tail_kinds):
-            x, ai = self._apply_block(k, params[f"tail{i}"], x, positions)
+            x, ai, _ = self._apply_block(k, params[f"tail{i}"], x,
+                                         positions)
             aux = aux + ai
         return x, aux
 

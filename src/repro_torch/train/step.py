@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..models import layers
 from ..models.transformer import LM, map_paths, map_tree, tree_leaves
 from . import optim
 
@@ -70,3 +71,20 @@ def make_train_step(lm: LM, opt_cfg: optim.OptConfig):
 def init_state(lm: LM, generator: torch.Generator):
     params = lm.init(generator)
     return {"params": params, **optim.init_opt_state(params)}
+
+
+def abstract_state(lm: LM, device) -> dict:
+    """The train state's layout as empty tensors on ``device``: the
+    restore template (``lm.param_specs()``' shapes in
+    ``cfg.param_dtype``, float32 moments, an int32 step). ``device`` is
+    explicit: a ``meta`` template would restore onto the GPU wherever
+    the trainer runs."""
+    dtype = layers.dtype_of(lm.cfg.param_dtype)
+    specs = lm.param_specs()
+
+    def empty(dt):
+        return layers.map_specs(lambda _, s: torch.empty(
+            s.shape, dtype=dt, device=device), specs)
+    return {"params": empty(dtype), "mu": empty(torch.float32),
+            "nu": empty(torch.float32),
+            "step": torch.empty((), dtype=torch.int32, device=device)}

@@ -1,5 +1,6 @@
 """Shared inputs and runners for the LM tests of the port
-(``test_torch_models*.py``, ``test_torch_train_step.py``).
+(``test_torch_models*.py``, ``test_torch_train_step.py``,
+``test_torch_trainer.py``, ``test_torch_serving.py``).
 
 The reference runs compiled with ``xla_allow_excess_precision`` off, so
 XLA rounds every bf16 op to bf16 as the program is written (with it on,
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from repro.configs import get_smoke_config as ref_smoke
+from repro.models.layers import ParamSpec as RefParamSpec
 from repro.models.transformer import LM as RefLM
 from repro_torch.models.transformer import LM, params_from_numpy
 
@@ -75,6 +77,21 @@ def ref_init(cfg, seed: int):
 
 def smoke_params(arch: str, seed: int = 0):
     return ref_init(ref_smoke(arch), seed)
+
+
+def spec_params(cfg, seed: int):
+    """Parameters drawn with numpy from the reference's own ParamSpecs
+    (its shapes, inits and scales), without a jax.random compile."""
+    rng = np.random.default_rng(seed)
+
+    def draw(spec):
+        if spec.init in ("zeros", "ones"):
+            return np.full(spec.shape, spec.init == "ones", np.float32)
+        scale = spec.scale if spec.scale is not None else \
+            1.0 / np.sqrt(max(1, spec.shape[0]))
+        return (rng.standard_normal(spec.shape) * scale).astype(np.float32)
+    return jax.tree.map(draw, RefLM(cfg).param_specs(),
+                        is_leaf=lambda x: isinstance(x, RefParamSpec))
 
 
 def compiled(fn, *args):

@@ -14,10 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from lm_cases import (CPU, batch_np, compiled, leaves, to_jax, to_torch,
-                      with_dtype)
+from lm_cases import (CPU, batch_np, compiled, leaves, spec_params, to_jax,
+                      to_torch, with_dtype)
 from repro.configs import ARCHS, get_smoke_config as ref_smoke
-from repro.models.layers import ParamSpec as RefParamSpec
 from repro.models.transformer import LM as RefLM
 from repro.train import optim as ref_optim
 from repro.train import step as ref_step
@@ -28,21 +27,6 @@ from repro_torch.train import optim, step
 
 def f32(cfg):
     return with_dtype(cfg, "float32")
-
-
-def spec_params(cfg, seed: int):
-    """Parameters drawn with numpy from the reference's own ParamSpecs
-    (its shapes, inits and scales), without a jax.random compile."""
-    rng = np.random.default_rng(seed)
-
-    def draw(spec):
-        if spec.init in ("zeros", "ones"):
-            return np.full(spec.shape, spec.init == "ones", np.float32)
-        scale = spec.scale if spec.scale is not None else \
-            1.0 / np.sqrt(max(1, spec.shape[0]))
-        return (rng.standard_normal(spec.shape) * scale).astype(np.float32)
-    return jax.tree.map(draw, RefLM(cfg).param_specs(),
-                        is_leaf=lambda x: isinstance(x, RefParamSpec))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
