@@ -218,6 +218,34 @@ non-zero (and prints no result) otherwise, or on any failure.
      ms a step and tok/s, cache bytes, peak memory and the errors are
      printed per model beside the card's name and power limit.
 
+ 12. sharding, the dry-run, the roofline and GPipe
+     (``repro_torch.sharding``, ``launch.{mesh,rules,specs,dryrun,
+     roofline,pipeline}``; no kernel of B1-B9): (a) ``python -m
+     repro_torch.launch.dryrun`` in subprocesses, all started at once
+     beside (b) and (c) (a fake process group must not share a process
+     with NCCL): stablelm-1.6b x train_4k on the (16, 16) and
+     (2, 16, 16) meshes and mixtral-8x22b x decode_32k on the (16, 16)
+     mesh at their full configs, and the (1, 1) cell of (b); each
+     must exit 0 and write its JSON, whose per-device argument bytes,
+     peak, flops, collectives by type, dominant term and H100 bound are
+     printed; (b) stablelm-1.6b uncut (24 layers, B = 2, S = 4,096,
+     phase 9's shape): three AdamW steps of the plain step, then the
+     same from the same init on a (1, 1) ``("data", "model")`` mesh of
+     a real NCCL group of one rank, the train state and batch placed as
+     DTensors by ``rules_for(..., "train_4k")`` and the steps run under
+     ``sharding.use_rules``: losses and updated parameters must equal
+     the plain step's bitwise; the placed state's ``memory_allocated``
+     is printed beside the dry-run's argument bytes, the step's peak
+     beside the dry-run's, the traced flops
+     beside the model flops, and the H100 roofline bound, which must
+     not exceed the measured step, beside it; the group is destroyed in
+     a ``finally``; (c) the same model's 24 blocks (the plain step's
+     parameters) as 4 stages of 6 on ``[cuda:0] * 4``
+     (``pipeline.gpipe_forward``: a stream per stage), 8 microbatches of
+     (1, 4,096, 2,048) bf16 activations, twice, each bitwise the
+     sequential forward; the ticks (11), the bubble (3/11) and the walls
+     are printed beside the card's name and power limit.
+
 The line before the last is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -3393,6 +3421,284 @@ def serve_phase(device, card: str) -> dict:
     return out
 
 
+# ------------------- 12. sharding, the dry-run, the roofline and GPipe
+
+#: phase 12(a)'s dry-run cells (full configs): (arch, shape, mesh flags),
+#: one subprocess each
+DRYRUN_CELLS = (("stablelm_1_6b", "train_4k", ["--mesh", "single"]),
+                ("stablelm_1_6b", "train_4k", ["--mesh", "multi"]),
+                ("mixtral_8x22b", "decode_32k", ["--mesh", "single"]))
+MESH_ARCH = "stablelm_1_6b"    # phase 12(b)'s and (c)'s model, uncut
+GPIPE_STAGES, GPIPE_MICRO = 4, 8
+
+
+def dryrun_start(out: Path) -> list:
+    """Start phase 12(a)'s dry-runs (and the (1, 1) cell of (b)) as
+    subprocesses, all at once: a fake process group must not share a
+    process with the NCCL group of (b)."""
+    cmds = [[*c[:2], *c[2]] for c in DRYRUN_CELLS]
+    cmds.append([MESH_ARCH, "train_4k", "--mesh-shape", "1,1", "--batch",
+                 str(LM_BATCH), "--seq", str(LM_SEQ)])
+    procs = []
+    for i, (arch, shape, *flags) in enumerate(cmds):
+        log = open(out / f"dryrun{i}.log", "w")
+        procs.append((log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, *flags, "--out", str(out)],
+            stdout=log, stderr=subprocess.STDOUT, env=_src_env(),
+            cwd=ROOT)))
+    return procs
+
+
+def dryrun_finish(procs: list, out: Path, t0: float, card: str) -> dict:
+    """Wait for the dry-runs, print every cell (argument bytes, peak,
+    flops, collectives by type, the dominant term, the H100 bound)."""
+    for log, proc in procs:
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            log.close()
+        if rc != 0:
+            raise AssertionError(f"dryrun {proc.args} exited {rc}: "
+                                 f"{Path(log.name).read_text()[-3000:]}")
+    wall = time.perf_counter() - t0
+    cells = {}
+    for f in sorted(out.glob("*.json")):
+        t = json.loads(f.read_text())
+        cells[f.stem] = t
+        coll = {k: v["count"] for k, v in t["collectives"].items()
+                if v["count"]}
+        print(f"dryrun {t['arch']} x {t['shape']} mesh={t['mesh']} "
+              f"({t['kind']}, {t['chips']} devices, traced in "
+              f"{t['trace_s']!r} s): argument bytes/device "
+              f"{t['memory']['argument_bytes']}, peak "
+              f"{t['memory']['peak_bytes']}, flops/device "
+              f"{t['flops_per_device']!r} (model flops "
+              f"{t['model_flops']!r}), bytes/device "
+              f"{t['bytes_per_device']!r}, collectives {coll} "
+              f"({t['collective_bytes_per_device']} bytes/device); "
+              f"H100 roofline: compute {t['compute_s']!r} s, memory "
+              f"{t['memory_s']!r} s, collective {t['collective_s']!r} s, "
+              f"dominant {t['dominant']}, bound "
+              f"{t['step_time_lower_bound_s']!r} s [{card}]")
+    want = {f"{a}__{s}__{f[1]}" for a, s, f in DRYRUN_CELLS}
+    want.add(f"{MESH_ARCH}__train_4k__1x1")
+    if not want <= set(cells):
+        raise AssertionError(f"dryrun cells {sorted(cells)}, want "
+                             f"{sorted(want)}")
+    print(f"dryrun phase 12(a): {len(cells)} cells, all ended "
+          f"{wall!r} s after they started (beside (b) and (c)) [{card}]")
+    return {"cells": cells, "wall_s": wall}
+
+
+def mesh_step(device, card: str) -> dict:
+    """Phase 12(b): three AdamW steps of the uncut stablelm-1.6b on a
+    (1, 1) mesh of a real NCCL group of one rank, the train state placed
+    by ``rules_for``, against the plain step from the same init: losses
+    and updated parameters bitwise. Returns the plain parameters (for
+    (c)) with the readings."""
+    import socket
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import sharding
+    from repro_torch.configs import get_config
+    from repro_torch.launch.rules import rules_for
+    from repro_torch.models.transformer import LM, tree_leaves
+    from repro_torch.train import optim, step
+    cfg = get_config(MESH_ARCH)
+    seed = 120
+
+    def run(state, batch, train, place=None):
+        losses, ms = [], []
+        for _ in range(LM_STEPS):
+            torch.cuda.synchronize(device)
+            t1 = time.perf_counter()
+            if place is None:
+                state, m = train(state, batch)
+            else:
+                with sharding.use_rules(*place):
+                    state, m = train(state, batch)
+            loss = m["loss"]
+            losses.append((loss.full_tensor() if place else loss).clone())
+            torch.cuda.synchronize(device)
+            ms.append(1e3 * (time.perf_counter() - t1))
+        return state, losses, ms
+
+    def fresh():
+        lm = LM(cfg, device=device)
+        return lm, step.init_state(
+            lm, torch.Generator(device=device).manual_seed(seed))
+    lm, state = fresh()
+    batch = lm_batch(cfg, LM_BATCH, LM_SEQ, device, seed + 1)
+    opt = optim.OptConfig(warmup_steps=1)
+    state, want, plain_ms = run(state, batch,
+                                step.make_train_step(lm, opt))
+    params = state["params"]
+    del lm, state
+    torch.cuda.empty_cache()
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    cuda = device.type == "cuda"      # gloo on the CPU (a rehearsal)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0,
+                            device_id=device if cuda else None)
+    try:
+        mesh = init_device_mesh(device.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        rules = rules_for(MESH_ARCH, "train_4k", multi_pod=False)
+        torch.cuda.synchronize(device)
+        before = torch.cuda.memory_allocated(device)
+        lm2, state2 = fresh()
+        batch2 = lm_batch(cfg, LM_BATCH, LM_SEQ, device, seed + 1)
+        placed = sharding.tree_distribute(state2, step.state_axes(lm2),
+                                          rules, mesh)
+        pbatch = {k: sharding.distribute(v, ("batch", "seq"), rules, mesh)
+                  for k, v in batch2.items()}
+        del state2, batch2
+        torch.cuda.synchronize(device)
+        placed_bytes = torch.cuda.memory_allocated(device) - before
+        kinds = sorted({str(t.placements) for _, t in
+                        tree_leaves(placed["params"])})
+        torch.cuda.reset_peak_memory_stats(device)
+        placed, got, mesh_ms = run(
+            placed, pbatch, step.make_train_step(lm2, opt), (rules, mesh))
+        peak = torch.cuda.max_memory_allocated(device) - before
+        same_loss = all(torch.equal(a, b) for a, b in zip(got, want))
+        diff = [path for (path, a), (_, b) in zip(
+            tree_leaves(params), tree_leaves(placed["params"]))
+            if not torch.equal(a, b.full_tensor())]
+        del lm2, placed, pbatch
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out = {"losses": [float(x) for x in want],
+           "mesh_losses": [float(x) for x in got], "plain_ms": plain_ms,
+           "mesh_ms": mesh_ms,
+           "plain_ms_median_2_3": statistics.median(plain_ms[1:]),
+           "mesh_ms_median_2_3": statistics.median(mesh_ms[1:]),
+           "placed_bytes": placed_bytes, "peak_bytes": peak,
+           "placements": kinds,
+           "params_differ": diff}
+    print(f"mesh step {cfg.name} ({cfg.n_layers} layers, B={LM_BATCH} "
+          f"S={LM_SEQ}) on a (1, 1) NCCL mesh, state placed by "
+          f"rules_for (placements {kinds}): losses {out['mesh_losses']!r} "
+          f"against the plain step's {out['losses']!r} (bitwise "
+          f"{same_loss}), parameters differing {len(diff)} "
+          f"{diff[:4]}; step ms {mesh_ms!r} (median of 2-3 "
+          f"{out['mesh_ms_median_2_3']!r}) against the plain step's "
+          f"{plain_ms!r} ({out['plain_ms_median_2_3']!r}); "
+          f"memory_allocated by the placed state and batch {placed_bytes} "
+          f"bytes [{card}]")
+    if not same_loss or diff:
+        raise AssertionError(f"mesh step: losses {out['mesh_losses']} vs "
+                             f"{out['losses']}, {len(diff)} parameters "
+                             f"differ: {diff[:8]}")
+    return out, params
+
+
+def gpipe_phase(params, device, card: str) -> dict:
+    """Phase 12(c): the uncut stablelm-1.6b blocks as GPIPE_STAGES stages
+    of 6 layers on ``[device] * 4``, GPIPE_MICRO microbatches of 1 x
+    LM_SEQ bf16 activations, against the sequential forward, bitwise."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import pipeline
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import LM, _unstack
+    cfg = get_config(MESH_ARCH)
+    lm = LM(cfg, device="meta")     # the block code; no parameters
+    positions = torch.arange(LM_SEQ, dtype=torch.int32,
+                             device=device)[None, :]
+
+    def stage_fn(p, x):
+        for lp in _unstack(p):
+            x = lm._apply_block("attn", lp, x, positions)[0]
+        return x
+    g = torch.Generator(device=device).manual_seed(130)
+    x = torch.randn((GPIPE_MICRO, 1, LM_SEQ, cfg.d_model), generator=g,
+                    device=device).to(layers.dtype_of(cfg.compute_dtype))
+    stages = pipeline.stack_stages(params["blocks"], GPIPE_STAGES)
+    out = {}
+    with torch.no_grad():
+        for name, fn in (
+                ("sequential", lambda: pipeline.sequential_forward(
+                    stage_fn, stages, x, GPIPE_STAGES)),
+                ("gpipe", lambda: pipeline.gpipe_forward(
+                    stage_fn, stages, x, devices=[device] * GPIPE_STAGES)),
+                ("gpipe_again", lambda: pipeline.gpipe_forward(
+                    stage_fn, stages, x, devices=[device] * GPIPE_STAGES))):
+            torch.cuda.synchronize(device)
+            t1 = time.perf_counter()
+            out[name] = fn()
+            torch.cuda.synchronize(device)
+            out[name + "_ms"] = 1e3 * (time.perf_counter() - t1)
+    same = torch.equal(out["gpipe"], out["sequential"]) and \
+        torch.equal(out["gpipe_again"], out["sequential"])
+    finite = bool(torch.isfinite(out["gpipe"]).all())
+    ticks = len(pipeline.schedule(GPIPE_MICRO, GPIPE_STAGES))
+    bubble = pipeline.bubble_fraction(GPIPE_MICRO, GPIPE_STAGES)
+    res = {"ticks": ticks, "bubble": bubble, "bitwise": same,
+           **{k: v for k, v in out.items() if k.endswith("_ms")}}
+    print(f"gpipe {cfg.name} blocks: {GPIPE_STAGES} stages x "
+          f"{cfg.n_layers // GPIPE_STAGES} layers on [{device}] * "
+          f"{GPIPE_STAGES}, {GPIPE_MICRO} microbatches of (1, {LM_SEQ}, "
+          f"{cfg.d_model}) {cfg.compute_dtype}: {ticks} ticks, bubble "
+          f"{bubble!r}; bitwise the sequential forward {same}, finite "
+          f"{finite}; walls: sequential {res['sequential_ms']!r} ms, "
+          f"gpipe {res['gpipe_ms']!r} / {res['gpipe_again_ms']!r} ms "
+          f"[{card}]")
+    if not (same and finite) or ticks != GPIPE_MICRO + GPIPE_STAGES - 1:
+        raise AssertionError(f"gpipe: bitwise {same}, finite {finite}, "
+                             f"{ticks} ticks")
+    return res
+
+
+def mesh_phase(tmp: Path, device, card: str) -> dict:
+    """Phase 12 (see the module docstring)."""
+    t0 = time.perf_counter()
+    procs = dryrun_start(tmp)
+    try:
+        step_out, params = mesh_step(device, card)
+        gpipe = gpipe_phase(params, device, card)
+        del params
+    except BaseException:
+        for log, proc in procs:
+            proc.kill()
+            proc.wait()
+            log.close()
+        raise
+    dry = dryrun_finish(procs, tmp, t0, card)
+    one = dry["cells"][f"{MESH_ARCH}__train_4k__1x1"]
+    bound_ms = 1e3 * one["step_time_lower_bound_s"]
+    args = one["memory"]["argument_bytes"]
+    print(f"mesh step against the dry-run's (1, 1) cell: argument bytes "
+          f"{args} predicted, {step_out['placed_bytes']} allocated "
+          f"({step_out['placed_bytes'] / args!r} of it); peak bytes "
+          f"{one['memory']['peak_bytes']} predicted (the dry-run's eager "
+          f"count, arguments included), {step_out['peak_bytes']} "
+          f"allocated at the most over the three steps "
+          f"({step_out['peak_bytes'] / one['memory']['peak_bytes']!r} of "
+          f"it); traced flops "
+          f"{one['flops_per_device']!r} a step against model flops "
+          f"{one['model_flops']!r} ({one['useful_flops_ratio']!r}), by "
+          f"dtype {one['flops_by_dtype']!r}; H100 "
+          f"roofline bound {bound_ms!r} ms ({one['dominant']}) against the "
+          f"measured step {step_out['mesh_ms_median_2_3']!r} ms [{card}]")
+    if bound_ms > step_out["mesh_ms_median_2_3"]:
+        raise AssertionError(f"roofline bound {bound_ms} ms above the "
+                             f"measured {step_out['mesh_ms_median_2_3']} ms")
+    out = {"dryrun": dry, "mesh_step": step_out, "gpipe": gpipe,
+           "bound_ms": bound_ms, "phase_s": time.perf_counter() - t0}
+    print(f"mesh phase 12 took {out['phase_s']!r} s [{card}]")
+    return out
+
+
 # --------------------------------------------------------------- timing
 
 def time_ms(fn, reps: int, warm: int = 2) -> float:
@@ -4527,6 +4833,10 @@ def main() -> int:
                                      dir=ROOT / "build") as d:
         wall["trainer"] = trainer_phase(Path(d), device, card)
     wall["serve_lm"] = serve_phase(device, card)
+    # -- 12. sharding, the dry-run, the roofline and GPipe (no kernel)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_",
+                                     dir=ROOT / "build") as d:
+        wall["mesh_lm"] = mesh_phase(Path(d), device, card)
     records = []
     for name, (replaces, source) in KERNELS.items():
         t, b = times[name], bnd[name]

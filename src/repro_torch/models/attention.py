@@ -18,8 +18,9 @@ from __future__ import annotations
 
 import torch
 
+from .. import sharding
 from . import layers
-from .layers import ParamSpec, dot
+from .layers import ParamSpec, dot, wcast
 
 
 def attn_spec(cfg, cross: bool = False) -> dict:
@@ -67,14 +68,21 @@ def multihead(p, x, *, cfg, positions, kv_x=None, kv_positions=None,
     (B, S, nkv, hd) K/V for cache seeding at prefill.
     """
     b, s, _ = x.shape
-    q = dot("bsd,dhk->bshk", x, p["wq"], f32=False)
+    dt = x.dtype
+    q = dot("bsd,dhk->bshk", x, wcast(p["wq"], dt, "fsdp", "heads",
+                                      "head_dim"), f32=False)
     src = x if kv_x is None else kv_x
-    k = dot("bsd,dhk->bshk", src, p["wk"], f32=False)
-    v = dot("bsd,dhk->bshk", src, p["wv"], f32=False)
+    k = dot("bsd,dhk->bshk", src, wcast(p["wk"], dt, "fsdp", "kv_heads",
+                                        "head_dim"), f32=False)
+    v = dot("bsd,dhk->bshk", src, wcast(p["wv"], dt, "fsdp", "kv_heads",
+                                        "head_dim"), f32=False)
     kpos = positions if kv_positions is None else kv_positions
     if causal:  # cross-attention skips RoPE on purpose (whisper-style)
         q = layers.rope(q, positions, cfg.rope_theta)
         k = layers.rope(k, kpos, cfg.rope_theta)
+    q = sharding.constrain(q, "batch", "seq", "heads", "head_dim")
+    k = sharding.constrain(k, "batch", "seq", "kv_heads", "head_dim")
+    v = sharding.constrain(v, "batch", "seq", "kv_heads", "head_dim")
     kv_raw = (k, v)
     k = _repeat_kv(k, cfg.n_heads // cfg.n_kv_heads)
     v = _repeat_kv(v, cfg.n_heads // cfg.n_kv_heads)
@@ -96,7 +104,10 @@ def multihead(p, x, *, cfg, positions, kv_x=None, kv_positions=None,
                   _mask_bias(pos1[i:i + c], kpos1, cfg.window))
             for i in range(0, s, c)], dim=1)
 
-    out = dot("bshk,hkd->bsd", out, p["wo"], f32=False)
+    out = sharding.constrain(out, "batch", "seq", "heads", "head_dim")
+    # compute-dtype output: the TP partial sums cross ranks in bf16
+    out = layers.pin_out(dot("bshk,hkd->bsd", out, wcast(
+        p["wo"], dt, "heads", "head_dim", "fsdp"), f32=False))
     return (out, kv_raw) if return_kv else out
 
 
@@ -123,12 +134,21 @@ def decode_kv(p, x, *, cfg, cache_k, cache_v, pos: int):
     if not 0 <= slot < s_cache:
         raise IndexError(f"decode position {pos} past a cache of "
                          f"{s_cache} positions")
-    cache_k[:, slot] = k_new[:, 0]
-    cache_v[:, slot] = v_new[:, 0]
+    sharding.write_slice(cache_k, 1, slot, k_new)
+    sharding.write_slice(cache_v, 1, slot, v_new)
+    cache_k = sharding.constrain(cache_k, "batch", "kv_seq", "kv_heads",
+                                 "head_dim")
+    cache_v = sharding.constrain(cache_v, "batch", "kv_seq", "kv_heads",
+                                 "head_dim")
 
     # grouped-query attention without materializing the GQA repeat: the
     # (kv head, group) axes stay apart in both products
     n_rep = cfg.n_heads // cfg.n_kv_heads
+    # DTensor splits a model-sharded head dim into (kv head, group) only
+    # where the kv heads carry the split evenly; else q, one token, is
+    # gathered whole first (a port-only site: GSPMD reshards the reshape)
+    q = sharding.constrain(q, "batch", "seq", "kv_heads" if sharding.splits(
+        cfg.n_kv_heads, "kv_heads") else None, "head_dim")
     qg = q.reshape(b, 1, cfg.n_kv_heads, n_rep, q.shape[-1])
     scale = q.shape[-1] ** -0.5
     scores = dot("bqhrd,bkhd->bhrqk", qg, cache_k, f32=True) * scale
@@ -143,7 +163,8 @@ def decode_kv(p, x, *, cfg, cache_k, cache_v, pos: int):
     probs = torch.softmax(scores, dim=-1).to(dt)          # (b,h,r,1,S)
     out = dot("bhrqk,bkhd->bqhrd", probs, cache_v, f32=False)
     out = out.reshape(b, 1, cfg.n_heads, q.shape[-1])
-    out = dot("bshk,hkd->bsd", out, p["wo"], f32=False)
+    out = layers.pin_out(dot("bshk,hkd->bsd", out, wcast(
+        p["wo"], dt, "heads", "head_dim", "fsdp"), f32=False))
     return out, cache_k, cache_v
 
 
@@ -154,4 +175,4 @@ def decode_cross(p, x, *, cfg, enc_k, enc_v):
     k = _repeat_kv(enc_k, cfg.n_heads // cfg.n_kv_heads)
     v = _repeat_kv(enc_v, cfg.n_heads // cfg.n_kv_heads)
     out = _sdpa(q, k.to(dt), v.to(dt), None)
-    return dot("bshk,hkd->bsd", out, p["wo"], f32=False)
+    return layers.pin_out(dot("bshk,hkd->bsd", out, p["wo"], f32=False))

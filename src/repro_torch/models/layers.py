@@ -15,10 +15,14 @@ and no cast after), :func:`dot` multiplies float32 copies of the
 operands: bf16 products are exact in float32, so the result is the
 reference's up to the order of the sums. Where the reference casts the
 float32 result back to the compute dtype, the product runs in that
-dtype, whose kernels also accumulate in float32. The reference's
-``wcast``/``sharding.constrain`` pin a cast weight's layout on a mesh;
-on one card that has no meaning, so the port casts and drops the
-constraint.
+dtype, whose kernels also accumulate in float32.
+
+:func:`wcast` and the ``sharding.constrain`` calls stand where the
+reference's stand: inside ``sharding.use_rules`` they pin a DTensor's
+layout on the mesh; anywhere else (every path on one card) they return
+their input, so the plain forward is the one without them.
+:func:`axes_tree` and :func:`shapes_tree` give a spec tree's logical
+axes and its ``meta`` tensors (the reference's ``ShapeDtypeStruct``s).
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from .. import sharding
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -64,14 +70,43 @@ def map_specs(fn, specs, path: str = ""):
             for k in sorted(specs)}
 
 
+def axes_tree(specs):
+    return map_specs(lambda _, s: s.axes, specs)
+
+
+def shapes_tree(specs, dtype):
+    """``specs`` as ``meta`` tensors of ``dtype``: shapes, no storage."""
+    return map_specs(lambda _, s: torch.empty(s.shape, dtype=dtype,
+                                              device="meta"), specs)
+
+
+def wcast(w, dtype, *axes):
+    """Cast a sharded param to compute dtype, pinning the sharded layout.
+
+    Without the constraint the cast copy may be gathered whole; pinning
+    it to the parameter's own sharding makes the FSDP gather move the
+    compute dtype's bytes (the reference's §Perf i3)."""
+    return sharding.constrain(w.to(dtype), *axes)
+
+
+def pin_out(y):
+    """A block's output (a product summed over a model-sharded dim) pinned
+    to ("batch", ..., "embed"). DTensor keeps such a partial sum partial
+    until an op needs it whole, so the residual stream would carry each
+    model rank's partial through the next norm into the next products,
+    which then run whole on every rank; GSPMD reduces at the product. A
+    site of the port only (the reference needs none)."""
+    return sharding.constrain(y, "batch", *(None,) * (y.ndim - 2), "embed")
+
+
 def dot(eq: str, a, b, *, f32: bool):
     """``einsum(eq, a, b)`` with ``b`` cast to ``a``'s dtype; with ``f32``
     a float32 result, else one in ``a``'s dtype (see the module
     docstring)."""
     b = b.to(a.dtype)
     if f32:
-        return torch.einsum(eq, a.float(), b.float())
-    return torch.einsum(eq, a, b)
+        return sharding.einsum(eq, a.float(), b.float())
+    return sharding.einsum(eq, a, b)
 
 
 def gelu(x):
@@ -157,15 +192,22 @@ def mlp_spec(cfg, d_in=None) -> dict:
 
 
 def mlp(p, x, cfg):
-    h = dot("...d,df->...f", x, p["wi"], f32=True)
+    h = dot("...d,df->...f", x, wcast(p["wi"], x.dtype, "fsdp", "mlp"),
+            f32=True)
     if cfg.mlp_act in ("swiglu", "geglu"):
-        g = dot("...d,df->...f", x, p["wg"], f32=True)
+        g = dot("...d,df->...f", x, wcast(p["wg"], x.dtype, "fsdp", "mlp"),
+                f32=True)
         h = (silu(g) if cfg.mlp_act == "swiglu" else gelu(g)) * h
     elif cfg.mlp_act == "relu2":          # nemotron squared-ReLU
         h = torch.square(F.relu(h))
     else:
         h = gelu(h)
-    return dot("...f,fd->...d", h.to(x.dtype), p["wo"], f32=False)
+    h = sharding.constrain(h.to(x.dtype), "batch",
+                           *(None,) * (x.ndim - 2), "mlp")
+    # the output projection's partial sums cross the model ranks in the
+    # compute dtype (the reference's §Perf i6)
+    return pin_out(dot("...f,fd->...d", h, wcast(p["wo"], x.dtype, "mlp",
+                                                  "fsdp"), f32=False))
 
 
 # ------------------------------------------------------------- embeddings
@@ -179,15 +221,44 @@ def embed_spec(cfg) -> dict:
     return spec
 
 
+def _lookup(tokens, table):
+    """``F.embedding(tokens, table)``. Under ``sharding.use_rules`` with
+    DTensors, each rank looks up the rows its shard of the table holds
+    and zeroes the rest (``local_map``): the result is a plain partial
+    sum over the mesh dims that split the vocabulary. (DTensor's own
+    embedding rule gives a masked partial whose backward cannot take
+    the partial-sum gradient that a MoE or tied head sends back.)"""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    ctx = sharding.active()
+    if ctx is None or not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    mesh = table.device_mesh
+    cut = [m for m, q in enumerate(table.placements) if q == Shard(0)]
+    rows = table.to_local().shape[0]
+
+    def fn(ids, local):
+        idx = ids - sharding.shard_start(mesh, cut, rows)
+        hit = (idx >= 0) & (idx < rows)
+        out = F.embedding(torch.where(hit, idx, 0), local)
+        return out * hit[..., None].to(out.dtype)
+    out_place = tuple(Partial() if m in cut else q
+                      for m, q in enumerate(tokens.placements))
+    return sharding.local_call(fn, (tokens, table), (tokens.placements,
+                               table.placements), (out_place,), mesh)
+
+
 def embed(p, tokens, cfg):
     # F.embedding's backward on the card sums each row's duplicates in a
     # fixed order (no float atomics)
-    return F.embedding(tokens.long(), p["tok"].to(dtype_of(cfg.compute_dtype)))
+    x = _lookup(tokens.long(), p["tok"].to(dtype_of(cfg.compute_dtype)))
+    return sharding.constrain(x, "batch", "seq", "embed")
 
 
 def unembed(p, x, cfg):
     w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
-    return dot("...d,dv->...v", x, w, f32=True)
+    logits = dot("...d,dv->...v", x, w, f32=True)
+    return sharding.constrain(
+        logits, *("batch",) + (None,) * (x.ndim - 2) + ("vocab",))
 
 
 # ------------------------------------------------------------------- RoPE

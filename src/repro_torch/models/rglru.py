@@ -21,7 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import ParamSpec, dot, dtype_of, gelu, sigmoid, softplus
+from .. import sharding
+from .layers import ParamSpec, dot, dtype_of, gelu, pin_out, sigmoid, softplus
 
 _C = 8.0
 
@@ -66,7 +67,12 @@ def _causal_conv(x, w, state=None):
 def linear_scan(a, b):
     """h_t = a_t h_{t-1} + b_t with h_{-1} = 0, along axis 1, in
     ceil(log2 S) doubling steps: after the step of offset o each
-    position holds the composition of the o-wide window ending there."""
+    position holds the composition of the o-wide window ending there.
+    Each rank scans its own shard (``sharding.along``)."""
+    return sharding.along(_doubling_scan, (a, b), 1)
+
+
+def _doubling_scan(a, b):
     s = a.shape[1]
     off = 1
     while off < s:
@@ -86,7 +92,7 @@ def rglru_block(p, x, cfg, cache=None, pos=None):
     a, b = _gates(p, xw)
     h = linear_scan(a, b) if cache is None else a * cache["h"][:, None] + b
     y = (h * gate_in).to(x.dtype)
-    return _proj(y, p["out"]), {"conv": conv_state, "h": h[:, -1]}
+    return pin_out(_proj(y, p["out"])), {"conv": conv_state, "h": h[:, -1]}
 
 
 def rglru_cache_spec(cfg, batch: int, device) -> dict:
@@ -97,3 +103,7 @@ def rglru_cache_spec(cfg, batch: int, device) -> dict:
                             device=device),
         "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
     }
+
+
+def rglru_cache_axes() -> dict:
+    return {"conv": ("batch", None, "state"), "h": ("batch", "state")}

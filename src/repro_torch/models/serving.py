@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import sharding
 from . import attention, layers, moe, rglru, ssm
 from .transformer import LM, _unstack
 
@@ -39,18 +40,46 @@ def attn_cache_spec(cfg, batch: int, cap: int, device) -> dict:
             for k in ("k", "v")}
 
 
+def attn_cache_axes() -> dict:
+    return {"k": ("batch", "kv_seq", "kv_heads", "head_dim"),
+            "v": ("batch", "kv_seq", "kv_heads", "head_dim")}
+
+
+def _stack_axes(axes: dict) -> dict:
+    return {k: (None, *a) for k, a in axes.items()}
+
+
+def cache_axes(lm: LM) -> dict:
+    """The logical axes of :func:`cache_specs`' tree, key for key (the
+    reference's ``cache_specs(...)[1]``)."""
+    cfg = lm.cfg
+
+    def one(kind):
+        return rglru.rglru_cache_axes() if kind == "rec" \
+            else attn_cache_axes()
+    if cfg.block_pattern:
+        axes = {"blocks": {f"sub{i}_{k}": _stack_axes(one(k))
+                           for i, k in enumerate(cfg.block_pattern)}}
+        for i, k in enumerate(lm.tail_kinds):
+            axes[f"tail{i}"] = one(k)
+        return axes
+    if cfg.family == "ssm":
+        return _stack_axes(ssm.ssm_cache_axes())
+    axes = _stack_axes(attn_cache_axes())
+    if cfg.family == "encdec":
+        for k in ("xk", "xv"):
+            axes[k] = (None, "batch", "frames", "kv_heads", "head_dim")
+    return axes
+
+
 def _stacked(make, n: int) -> dict:
     """``make()``'s dict of zero tensors with a leading layer axis n."""
     return {k: torch.zeros((n, *t.shape), dtype=t.dtype, device=t.device)
             for k, t in make().items()}
 
 
-def cache_specs(lm: LM, batch: int, max_seq: int) -> dict:
-    """A decode batch's cache, allocated as zeros on the model's
-    device. The reference returns abstract shapes and logical axes; the
-    axes wait for the sharding port."""
+def _allocate(lm: LM, batch: int, max_seq: int, dev) -> dict:
     cfg = lm.cfg
-    dev = lm.device
     cap = cache_capacity(cfg, max_seq)
 
     def one(kind):
@@ -75,6 +104,23 @@ def cache_specs(lm: LM, batch: int, max_seq: int) -> dict:
     return cache
 
 
+def cache_specs(lm: LM, batch: int, max_seq: int) -> dict:
+    """A decode batch's cache, allocated as zeros on the model's
+    device; on a ``meta`` model, the abstract cache (the reference's
+    ``cache_specs(...)[0]``). Its logical axes are :func:`cache_axes`';
+    inside ``sharding.use_rules`` it is placed by them on the mesh, each
+    rank allocating only its own piece (the whole cache's shapes come
+    from a fake mode, which allocates nothing)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    ctx = sharding.active()
+    if ctx is None:
+        return _allocate(lm, batch, max_seq, lm.device)
+    with FakeTensorMode():
+        shapes = _allocate(lm, batch, max_seq, "meta")
+    return sharding.tree_zeros(shapes, cache_axes(lm), *ctx,
+                               device=lm.device)
+
+
 def _layer(cache: dict, i: int) -> dict:
     """Layer i's slice of a stacked cache (views)."""
     return {k: v[i] for k, v in cache.items()}
@@ -88,7 +134,8 @@ def _seed_attn_cache(k, v, cap: int, window: int | None):
     if s > cap:  # windowed: keep last `cap`, placed at slot pos%cap
         kw, vw = k[:, s - cap:], v[:, s - cap:]
         roll = (s - cap) % cap
-        return torch.roll(kw, roll, dims=1), torch.roll(vw, roll, dims=1)
+        return tuple(sharding.along(lambda t: torch.roll(t, roll, dims=1),
+                                    (t,), 1) for t in (kw, vw))
     pad = (0, 0, 0, 0, 0, cap - s)
     return (torch.nn.functional.pad(k, pad),
             torch.nn.functional.pad(v, pad))
@@ -114,14 +161,19 @@ def layer_slots(lm: LM, params, cache):
 
 def seed_layer(entry: dict, cache: dict, cap: int, window) -> None:
     """Copy a layer's prefill cache (``LM._apply_block``'s) into its
-    slice ``entry``: attention's K/V placed by :func:`_seed_attn_cache`,
-    every other entry as it is."""
-    if "k" in cache:
+    slice ``entry`` (zeros, as :func:`cache_specs` allocates it):
+    attention's K/V placed by :func:`_seed_attn_cache`, a prompt shorter
+    than the cache into its first slots, every other entry as it is."""
+    short = "k" in cache and cache["k"].shape[1] < cap
+    if "k" in cache and not short:
         cache = dict(cache)
         cache["k"], cache["v"] = _seed_attn_cache(cache["k"], cache["v"],
                                                   cap, window)
     for k, v in cache.items():
-        entry[k].copy_(v)
+        if short and k in ("k", "v"):
+            sharding.write_slice(entry[k], 1, 0, v)
+        else:
+            entry[k].copy_(v)
 
 
 def decode_block(lm: LM, kind: str, p, x, lc: dict, pos: int):

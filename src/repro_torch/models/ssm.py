@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import ParamSpec, dot, dtype_of, silu, softplus
+from .. import sharding
+from .layers import ParamSpec, dot, dtype_of, pin_out, silu, softplus
 
 
 def ssm_spec(cfg) -> dict:
@@ -76,7 +77,7 @@ def ssd_chunked(xh, dt, a, bmat, cmat, chunk: int):
     xdt_c = xdt.reshape(b, nc, chunk, h, p)
     b_c = bmat.reshape(b, nc, chunk, n).float()
     c_c = cmat.reshape(b, nc, chunk, n).float()
-    cum = torch.cumsum(adt_c, dim=2)                  # (B,NC,Q,H)
+    cum = sharding.along(lambda t: torch.cumsum(t, dim=2), (adt_c,), 2)
     # within-chunk: L[q,t] = exp(cum[q] - cum[t]) for q >= t. The upper
     # triangle is masked before the exp, not after (the reference's
     # where(mask, exp(seg), 0)): the values are the same, but there
@@ -87,11 +88,12 @@ def ssd_chunked(xh, dt, a, bmat, cmat, chunk: int):
                                  device=xh.device))
     l_mat = torch.exp(seg.masked_fill(~mask[None, None, :, :, None],
                                       float("-inf")))
-    cb = torch.einsum("bcqn,bctn->bcqt", c_c, b_c)
-    y_diag = torch.einsum("bcqth,bcthp->bcqhp", cb[..., None] * l_mat, xdt_c)
+    cb = sharding.einsum("bcqn,bctn->bcqt", c_c, b_c)
+    y_diag = sharding.einsum("bcqth,bcthp->bcqhp", cb[..., None] * l_mat,
+                             xdt_c)
     # chunk-final states: S_c = sum_t exp(cum[last]-cum[t]) * B_t x_t^T
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)   # (B,NC,Q,H)
-    s_chunk = torch.einsum("bctn,bcthp->bchpn", b_c,
+    s_chunk = sharding.einsum("bctn,bcthp->bchpn", b_c,
                            decay_to_end[..., None] * xdt_c)
     chunk_decay = torch.exp(cum[:, :, -1, :])           # (B,NC,H)
 
@@ -103,7 +105,7 @@ def ssd_chunked(xh, dt, a, bmat, cmat, chunk: int):
     prev_states = torch.stack(prev, dim=1)             # (B,NC,H,P,N)
     # cross-chunk contribution: C_q exp(cum[q]) h_prev
     decay_in = torch.exp(cum)                          # (B,NC,Q,H)
-    y_cross = torch.einsum("bcqn,bchpn->bcqhp", c_c, prev_states) \
+    y_cross = sharding.einsum("bcqn,bchpn->bcqhp", c_c, prev_states) \
         * decay_in[..., None]
     y = (y_diag + y_cross).reshape(b, s, h, p)
     return y.to(xh.dtype), state
@@ -127,6 +129,7 @@ def ssm_block(p, x, cfg, cache=None, pos=None):
         bmat = _proj(x, p["in_b"]).float()
         cmat = _proj(x, p["in_c"]).float()
         xh = xin.reshape(*xin.shape[:2], h, pdim)
+        xh = sharding.constrain(xh, "batch", "seq", "heads", None)
         # pad S to the chunk multiple: dt=0 pads are exact no-ops on the
         # state (decay exp(0)=1, contribution 0)
         s_len = xh.shape[1]
@@ -142,7 +145,7 @@ def ssm_block(p, x, cfg, cache=None, pos=None):
         y = y[:, :s_len]
         y = y + xh * p["d_skip"].to(y.dtype)[None, None, :, None]
         y = y.reshape(*xin.shape)
-        out = _proj(_rmsnorm_gated(y, z, p["norm_scale"]), p["out"])
+        out = pin_out(_proj(_rmsnorm_gated(y, z, p["norm_scale"]), p["out"]))
         return out, {"conv": conv_state, "state": state.float()}
 
     # ---- decode: single token, O(1) state update
@@ -155,10 +158,10 @@ def ssm_block(p, x, cfg, cache=None, pos=None):
     decay = torch.exp(dt * a[None, :])                          # (B,H)
     upd = (dt[:, :, None] * xh)[..., None] * bmat[:, None, None, :]
     state = cache["state"] * decay[:, :, None, None] + upd
-    y = torch.einsum("bn,bhpn->bhp", cmat, state)
+    y = sharding.einsum("bn,bhpn->bhp", cmat, state)
     y = y + xh * p["d_skip"].float()[None, :, None]
     y = y.reshape(bsz, 1, -1).to(x.dtype)
-    out = _proj(_rmsnorm_gated(y, z, p["norm_scale"]), p["out"])
+    out = pin_out(_proj(_rmsnorm_gated(y, z, p["norm_scale"]), p["out"]))
     return out, {"conv": conv_state, "state": state}
 
 
@@ -172,3 +175,8 @@ def ssm_cache_spec(cfg, batch: int, device) -> dict:
         "state": torch.zeros((batch, h, pdim, n), dtype=torch.float32,
                              device=device),
     }
+
+
+def ssm_cache_axes() -> dict:
+    return {"conv": ("batch", None, "mlp"),
+            "state": ("batch", "heads", None, None)}

@@ -16,9 +16,12 @@ nothing here). ``cfg.remat == "full"`` wraps each layer body, as the
 reference wraps its scan body in ``jax.checkpoint``, in
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``.
 
-The reference's ``sharding.constrain`` pins layouts on a mesh and has no
-meaning on one card: the port drops it. ``abstract_params`` and
-``param_axes`` (dry-run and sharding only) are not ported.
+``sharding.constrain`` pins each layer's output to ("batch", "seq",
+"embed") as the reference does; it does nothing outside
+``sharding.use_rules``. :meth:`LM.param_axes` gives the tree's logical
+axes and :meth:`LM.abstract_params` its ``meta`` tensors in
+``cfg.param_dtype``. ``LM(cfg, device="meta")`` is the abstract model
+(the dry-run's): it holds meta parameters and needs no device.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import sharding
 from ..hercule.checkpoint import state_from_numpy, state_to_numpy
 from ..insitu.device import resolve_device
 from . import attention, layers, moe, rglru, ssm
@@ -116,7 +120,8 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = torch.device("meta") if str(device) == "meta" \
+            else resolve_device(device)
         self.kinds = cfg.layer_kinds()
         if cfg.block_pattern:
             pat = len(cfg.block_pattern)
@@ -179,6 +184,13 @@ class LM(nn.Module):
             spec["blocks"] = _stack_specs(self._block_spec(self.kinds[0]),
                                           cfg.n_layers)
         return spec
+
+    def param_axes(self) -> dict:
+        return layers.axes_tree(self.param_specs())
+
+    def abstract_params(self) -> dict:
+        return layers.shapes_tree(self.param_specs(),
+                                  layers.dtype_of(self.cfg.param_dtype))
 
     # -------------------------------------------------------- parameters
     def param_tree(self) -> dict:
@@ -256,6 +268,7 @@ class LM(nn.Module):
             x = x + layers.mlp(p["mlp"], h, cfg)
         else:
             raise ValueError(kind)
+        x = sharding.constrain(x, "batch", "seq", "embed")
         return x, aux, cache
 
     # ----------------------------------------------------------- forward
@@ -352,8 +365,10 @@ class LM(nn.Module):
                     if k in ("patch_embeds", "frames")})
         labels = batch["labels"].long()
         logits = logits.float()
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+        lse = sharding.logsumexp(logits)
+        # a vocab-sharded take is a partial sum: reduced here
+        ll = sharding.constrain(sharding.take(logits, labels.clamp(min=0)),
+                                "batch", "seq")
         mask = (labels >= 0).float()
         nll = torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)
         return nll + 0.01 * aux, {"loss": nll, "aux": aux}

@@ -44,8 +44,8 @@ def make_train_step(lm: LM, opt_cfg: optim.OptConfig):
             def split(x, i):
                 mb = x.shape[0] // nmb
                 return x[i * mb:(i + 1) * mb]
-            grads = map_tree(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = map_tree(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=tree_leaves(params)[0][1].device)
             for i in range(nmb):
@@ -78,7 +78,8 @@ def abstract_state(lm: LM, device) -> dict:
     restore template (``lm.param_specs()``' shapes in
     ``cfg.param_dtype``, float32 moments, an int32 step). ``device`` is
     explicit: a ``meta`` template would restore onto the GPU wherever
-    the trainer runs."""
+    the trainer runs. On ``"meta"`` it is the abstract train state (the
+    dry-run's), whose axes are :func:`state_axes`'."""
     dtype = layers.dtype_of(lm.cfg.param_dtype)
     specs = lm.param_specs()
 
@@ -88,3 +89,9 @@ def abstract_state(lm: LM, device) -> dict:
     return {"params": empty(dtype), "mu": empty(torch.float32),
             "nu": empty(torch.float32),
             "step": torch.empty((), dtype=torch.int32, device=device)}
+
+
+def state_axes(lm: LM) -> dict:
+    """The train state's logical axes (``abstract_state``'s tree)."""
+    axes = lm.param_axes()
+    return {"params": axes, "mu": axes, "nu": axes, "step": ()}
