@@ -225,10 +225,13 @@ non-zero (and prints no result) otherwise, or on any failure.
      beside (b) and (c) (a fake process group must not share a process
      with NCCL): stablelm-1.6b x train_4k on the (16, 16) and
      (2, 16, 16) meshes and mixtral-8x22b x decode_32k on the (16, 16)
-     mesh at their full configs, and the (1, 1) cell of (b); each
-     must exit 0 and write its JSON, whose per-device argument bytes,
-     peak, flops, collectives by type, dominant term and H100 bound are
-     printed; (b) stablelm-1.6b uncut (24 layers, B = 2, S = 4,096,
+     mesh at their full configs, the cells of the sharding repairs
+     (mixtral-8x22b x train_4k and prefill_32k, recurrentgemma-2b x
+     train_4k, granite-moe-1b-a400m x prefill_32k) on both meshes, and
+     the (1, 1) cell of (b); each must exit 0 and write its JSON, whose
+     per-device argument bytes, peak, flops, collectives by type,
+     dominant term and H100 bound are printed, and each repaired pair's
+     (2, 16, 16) peak must not pass its (16, 16) peak; (b) stablelm-1.6b uncut (24 layers, B = 2, S = 4,096,
      phase 9's shape): three AdamW steps of the plain step, then the
      same from the same init on a (1, 1) ``("data", "model")`` mesh of
      a real NCCL group of one rank, the train state and batch placed as
@@ -244,7 +247,30 @@ non-zero (and prints no result) otherwise, or on any failure.
      (``pipeline.gpipe_forward``: a stream per stage), 8 microbatches of
      (1, 4,096, 2,048) bf16 activations, twice, each bitwise the
      sequential forward; the ticks (11), the bubble (3/11) and the walls
-     are printed beside the card's name and power limit.
+     are printed beside the card's name and power limit; (d) started
+     beside (b) and (c): ``tests/spec_order_ranks.py`` on four gloo
+     ranks of the CPU, a (2, 2, 1) ("pod", "data", "model") mesh,
+     smoke mixtral-8x22b (two dispatch groups) and nemotron-4-340b
+     under ``rules_for(..., multi_pod=True)``, whose ``fsdp: ("data",
+     "pod")`` names its axes against the mesh's order: every rank's
+     pieces of the train state must equal the offsets this script
+     computes from the spec's order, values included, and the placed
+     grads and three AdamW steps must hold to the plain ones (first
+     loss 1e-6 relative, the later ones 2e-3, each leaf's piece 1e-3).
+
+ 13. the example twins (``examples/torch/``), each run in this process
+     as ``python examples/torch/<name>.py`` runs it, on the card:
+     ``sedov_amr.py --insitu`` (the catalog slice of the device-reduce
+     flow equal to the post-hoc one, once single writer and once over
+     two domains; its B1 launches are read around it),
+     ``quickstart.py`` (the resume bitwise), ``train_llm.py`` at its
+     default ~100M parameters x 300 steps of 8 x 512 tokens (WSD,
+     async HProt saves, HDep dumps; the losses must fall; steps/s,
+     tokens/s, peak memory, each save's stall and the loss trajectory
+     are printed), ``fault_tolerant_training.py`` (crash and resume
+     equal to the uninterrupted run bit for bit) and ``serve_llm.py``
+     (every family serves); each twin's wall beside the card's name and
+     power limit.
 
 The line before the last is the per-kernel JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -3428,6 +3454,15 @@ def serve_phase(device, card: str) -> dict:
 DRYRUN_CELLS = (("stablelm_1_6b", "train_4k", ["--mesh", "single"]),
                 ("stablelm_1_6b", "train_4k", ["--mesh", "multi"]),
                 ("mixtral_8x22b", "decode_32k", ["--mesh", "single"]))
+#: phase 12(a)'s cells of the sharding repairs (C5: RoPE tables at a
+#: rank's rows; C6: the MoE groups' split and the RG-LRU scan's), each
+#: on both meshes, the slowest first: a (2, 16, 16) peak must not pass
+#: the (16, 16) one
+DRYRUN_REPAIRED = (("mixtral_8x22b", "train_4k"),
+                   ("mixtral_8x22b", "prefill_32k"),
+                   ("recurrentgemma_2b", "train_4k"),
+                   ("granite_moe_1b_a400m", "prefill_32k"))
+DRYRUN_PAIRS = DRYRUN_REPAIRED + (("stablelm_1_6b", "train_4k"),)
 MESH_ARCH = "stablelm_1_6b"    # phase 12(b)'s and (c)'s model, uncut
 GPIPE_STAGES, GPIPE_MICRO = 4, 8
 
@@ -3436,7 +3471,9 @@ def dryrun_start(out: Path) -> list:
     """Start phase 12(a)'s dry-runs (and the (1, 1) cell of (b)) as
     subprocesses, all at once: a fake process group must not share a
     process with the NCCL group of (b)."""
-    cmds = [[*c[:2], *c[2]] for c in DRYRUN_CELLS]
+    cmds = [[a, s, "--mesh", m] for a, s in DRYRUN_REPAIRED
+            for m in ("multi", "single")]
+    cmds += [[*c[:2], *c[2]] for c in DRYRUN_CELLS]
     cmds.append([MESH_ARCH, "train_4k", "--mesh-shape", "1,1", "--batch",
                  str(LM_BATCH), "--seq", str(LM_SEQ)])
     procs = []
@@ -3484,13 +3521,26 @@ def dryrun_finish(procs: list, out: Path, t0: float, card: str) -> dict:
               f"dominant {t['dominant']}, bound "
               f"{t['step_time_lower_bound_s']!r} s [{card}]")
     want = {f"{a}__{s}__{f[1]}" for a, s, f in DRYRUN_CELLS}
+    want |= {f"{a}__{s}__{m}" for a, s in DRYRUN_REPAIRED
+             for m in ("single", "multi")}
     want.add(f"{MESH_ARCH}__train_4k__1x1")
     if not want <= set(cells):
         raise AssertionError(f"dryrun cells {sorted(cells)}, want "
                              f"{sorted(want)}")
+    import torch
+    for a, s in DRYRUN_PAIRS:
+        one, two = (cells[f"{a}__{s}__{m}"]["memory"]["peak_bytes"]
+                    for m in ("single", "multi"))
+        print(f"dryrun repaired pair {a} x {s}: peak {one} bytes a device "
+              f"on (16, 16), {two} on (2, 16, 16) ({two / one!r} of it; "
+              f"torch {torch.__version__}) [{card}]")
+        if two > one:
+            raise AssertionError(f"{a} x {s}: the (2, 16, 16) peak {two} "
+                                 f"passes the (16, 16) one {one}")
     print(f"dryrun phase 12(a): {len(cells)} cells, all ended "
           f"{wall!r} s after they started (beside (b) and (c)) [{card}]")
-    return {"cells": cells, "wall_s": wall}
+    return {"cells": cells, "wall_s": wall,
+            "peaks": {k: t["memory"]["peak_bytes"] for k, t in cells.items()}}
 
 
 def mesh_step(device, card: str) -> dict:
@@ -3659,11 +3709,119 @@ def gpipe_phase(params, device, card: str) -> dict:
     return res
 
 
+#: phase 12(d): the smoke models whose ``fsdp: ("data", "pod")`` runs
+#: against the (2, 2, 1) ("pod", "data", "model") mesh's order
+SPEC_ORDER_ARCHS = ("mixtral_8x22b", "nemotron_4_340b")
+SPEC_ORDER_MESH = {"pod": 2, "data": 2, "model": 1}
+
+
+def spec_order_offsets() -> dict:
+    """arch -> parameter path -> "p,d,m" -> [[start, stop], ...]: the
+    piece a ``PartitionSpec`` gives each device of the (2, 2, 1) mesh,
+    each dim cut in the order its spec names the axes (the first
+    major), from the rules and the port's spec resolution."""
+    import itertools
+    from repro_torch import sharding
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.rules import rules_for
+    from repro_torch.models.transformer import LM, tree_leaves
+
+    class Sizes:
+        shape = SPEC_ORDER_MESH
+    out = {}
+    for arch in SPEC_ORDER_ARCHS:
+        lm = LM(get_smoke_config(arch), device="meta")
+        rules = rules_for(arch, "train_4k", multi_pod=True)
+        axes = dict(tree_leaves(lm.param_axes()))
+        out[arch] = {}
+        for path, t in tree_leaves(lm.abstract_params()):
+            spec = sharding.resolve_spec(tuple(t.shape), axes[path], rules,
+                                         Sizes)
+            boxes = {}
+            for c in itertools.product(*(range(n) for n in
+                                         SPEC_ORDER_MESH.values())):
+                coord = dict(zip(SPEC_ORDER_MESH, c))
+                box = []
+                for n, part in zip(t.shape, spec):
+                    idx, k = 0, 1
+                    for a in (() if part is None else (part,)
+                              if isinstance(part, str) else part):
+                        idx = idx * SPEC_ORDER_MESH[a] + coord[a]
+                        k *= SPEC_ORDER_MESH[a]
+                    box.append([idx * n // k, (idx + 1) * n // k])
+                boxes[",".join(map(str, c))] = box
+            out[arch][path] = boxes
+    return out
+
+
+def spec_order_start(tmp: Path) -> list:
+    """Start phase 12(d)'s four gloo ranks (``tests/spec_order_ranks.py``,
+    CPU only) on the offsets of :func:`spec_order_offsets`."""
+    import socket
+    (tmp / "spec_order").mkdir()       # beside, not among, the dry-run's
+    path = tmp / "spec_order" / "offsets.json"
+    path.write_text(json.dumps(spec_order_offsets()))
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = str(sk.getsockname()[1])
+    env = {**_src_env(), "CUDA_VISIBLE_DEVICES": ""}
+    return [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "spec_order_ranks.py"),
+         str(r), port, str(path), ",".join(SPEC_ORDER_ARCHS)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT) for r in range(4)]
+
+
+def spec_order_finish(procs: list, card: str) -> dict:
+    """Phase 12(d): each rank's pieces equal to the spec order's
+    offsets, values included, and the placed grads and three AdamW
+    steps held to the plain ones (first loss 1e-6 relative, the later
+    ones 2e-3, each leaf's piece 1e-3 as a relative norm)."""
+    import torch
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for p, (so, se) in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"spec-order rank exited {p.returncode}: "
+                                 f"{se[-3000:]}")
+        line = [x for x in so.splitlines() if x.startswith("RESULT ")]
+        results.append(json.loads(line[0][len("RESULT "):]))
+    for r in sorted(results, key=lambda r: r["coord"]):
+        for arch in SPEC_ORDER_ARCHS:
+            got = r[arch]
+            (plain, mesh_l) = got["losses"]
+            print(f"spec order phase 12(d) {arch} rank at (pod, data, "
+                  f"model) = ({r['coord']}): {got['pieces']} pieces, "
+                  f"{got['pieces'] - got['mismatched']} equal to the spec "
+                  f"order's offsets ({got['strided']} split data-major over "
+                  f"(\"data\", \"pod\")); losses {mesh_l} against the "
+                  f"plain {plain}; worst leaf: grads {got['grads']}, "
+                  f"params after step 1 {got['params']} (torch "
+                  f"{torch.__version__}, four gloo CPU ranks) [{card}]")
+            if got["mismatched"] or not got["strided"] or not got["pieces"]:
+                raise AssertionError(f"spec order {arch} {r['coord']}: {got}")
+            if abs(mesh_l[0] - plain[0]) > 1e-6 * abs(plain[0]) or any(
+                    abs(a - b) > 2e-3 * abs(b) for a, b in zip(mesh_l, plain)):
+                raise AssertionError(f"spec order {arch} losses {mesh_l} "
+                                     f"against {plain}")
+            if got["grads"][0] >= 1e-3 or got["params"][0] >= 1e-3:
+                raise AssertionError(f"spec order {arch}: {got}")
+    return {"ranks": results}
+
+
 def mesh_phase(tmp: Path, device, card: str) -> dict:
     """Phase 12 (see the module docstring)."""
     t0 = time.perf_counter()
     procs = dryrun_start(tmp)
+    ranks = []
     try:
+        ranks = spec_order_start(tmp)
         step_out, params = mesh_step(device, card)
         gpipe = gpipe_phase(params, device, card)
         del params
@@ -3672,7 +3830,11 @@ def mesh_phase(tmp: Path, device, card: str) -> dict:
             proc.kill()
             proc.wait()
             log.close()
+        for proc in ranks:
+            proc.kill()
+            proc.wait()
         raise
+    spec = spec_order_finish(ranks, card)
     dry = dryrun_finish(procs, tmp, t0, card)
     one = dry["cells"][f"{MESH_ARCH}__train_4k__1x1"]
     bound_ms = 1e3 * one["step_time_lower_bound_s"]
@@ -3694,8 +3856,89 @@ def mesh_phase(tmp: Path, device, card: str) -> dict:
         raise AssertionError(f"roofline bound {bound_ms} ms above the "
                              f"measured {step_out['mesh_ms_median_2_3']} ms")
     out = {"dryrun": dry, "mesh_step": step_out, "gpipe": gpipe,
-           "bound_ms": bound_ms, "phase_s": time.perf_counter() - t0}
+           "spec_order": spec, "bound_ms": bound_ms,
+           "phase_s": time.perf_counter() - t0}
     print(f"mesh phase 12 took {out['phase_s']!r} s [{card}]")
+    return out
+
+
+# ----------------------------------------------- 13. the example twins
+
+#: phase 13: ``examples/torch/<name>.py``, its arguments (the reference's
+#: sizes; ``train_llm`` at its default ~100M x 300 steps), and the line
+#: its reference's assert stands for, with its count
+TWINS = (("sedov_amr", ["--insitu"],
+          "merged slice matches post-hoc assembly: True", 2),
+         ("quickstart", [], "resumed-vs-uninterrupted bitwise identical: "
+                            "True", 1),
+         ("train_llm", [], "losses fell", 1),
+         ("fault_tolerant_training", [], "tensors identical after "
+                                         "crash+restart. OK", 1),
+         ("serve_llm", [], "every family served", 1))
+
+
+class _Tee(io.TextIOBase):
+    """Standard output kept and passed on."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, []
+
+    def write(self, text):
+        self.kept.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def twins_phase(device, card: str) -> dict:
+    """Phase 13: the five example twins on the card, each in this
+    process as ``python examples/torch/<name>.py`` would run it (the
+    GPU: no ``--device``), its output passed on and its reference's
+    assertion line counted; the raster launches of the Sedov twin's
+    device-reduce flow (B1: one a step and domain split) read around
+    it. ``train_llm`` prints its steps/s, tokens/s, peak memory, each
+    save's stall and its loss trajectory."""
+    import runpy
+    import torch
+    from repro_torch.kernels import raster
+    out = {}
+    t_phase = time.perf_counter()
+    for name, args, line, count in TWINS:
+        path = ROOT / "examples" / "torch" / f"{name}.py"
+        argv, sys.argv = sys.argv, [str(path), *args]
+        tee = _Tee(sys.stdout)
+        raster.reset_launches()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(tee):
+                runpy.run_path(str(path), run_name="__main__")
+        finally:
+            sys.argv = argv
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        text = "".join(tee.kept)
+        launches = {k: v for k, v in raster.LAUNCHES.items() if v}
+        if text.count(line) != count:
+            raise AssertionError(f"twin {name}: {text.count(line)} lines "
+                                 f"{line!r}, want {count}")
+        if name == "sedov_amr" and launches.get("slice_raster", 0) < 2:
+            raise AssertionError(f"twin sedov_amr: raster launches "
+                                 f"{launches}, want B1 on the card")
+        if name == "train_llm":
+            keep = [x for key in ("throughput:", "save stalls (ms):",
+                                  "loss trajectory")
+                    for x in text.splitlines() if x.startswith(key)]
+            for x in keep:
+                print(f"twin train_llm {x} [{card}]")
+            out["train_llm_lines"] = keep
+        print(f"twin {name} ({' '.join(args) or 'no arguments'}) on the "
+              f"card: {wall!r} s, {count} x {line!r}, raster launches "
+              f"{launches} [{card}]")
+        out[name] = {"wall_s": wall, "launches": launches}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"twins phase 13 took {out['phase_s']!r} s [{card}]")
     return out
 
 
@@ -4837,6 +5080,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_",
                                      dir=ROOT / "build") as d:
         wall["mesh_lm"] = mesh_phase(Path(d), device, card)
+    # -- 13. the example twins (B1 in the Sedov twin's device reduce)
+    wall["twins"] = twins_phase(device, card)
     records = []
     for name, (replaces, source) in KERNELS.items():
         t, b = times[name], bnd[name]
@@ -4862,6 +5107,9 @@ def main() -> int:
                         "plain_ms": t["plain_ms"],
                         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                         "library_ms": lib_ms})
+    # the dry-run cells were printed whole in phase 12(a); their peaks
+    # stay in the record
+    wall["mesh_lm"]["dryrun"].pop("cells")
     print(json.dumps({"main_path": wall, "card": card}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -87,8 +87,8 @@ def multihead(p, x, *, cfg, positions, kv_x=None, kv_positions=None,
     k = _repeat_kv(k, cfg.n_heads // cfg.n_kv_heads)
     v = _repeat_kv(v, cfg.n_heads // cfg.n_kv_heads)
 
-    pos1 = positions[0] if positions.ndim > 1 else positions
-    kpos1 = kpos[0] if kpos.ndim > 1 else kpos
+    pos1 = sharding.first_row(positions) if positions.ndim > 1 else positions
+    kpos1 = sharding.first_row(kpos) if kpos.ndim > 1 else kpos
     if not causal:
         out = _sdpa(q, k, v, None)
     elif s <= cfg.attn_chunk:

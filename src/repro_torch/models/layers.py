@@ -86,7 +86,7 @@ def wcast(w, dtype, *axes):
     Without the constraint the cast copy may be gathered whole; pinning
     it to the parameter's own sharding makes the FSDP gather move the
     compute dtype's bytes (the reference's §Perf i3)."""
-    return sharding.constrain(w.to(dtype), *axes)
+    return sharding.constrain(sharding.cast(w, dtype), *axes)
 
 
 def pin_out(y):
@@ -103,7 +103,7 @@ def dot(eq: str, a, b, *, f32: bool):
     """``einsum(eq, a, b)`` with ``b`` cast to ``a``'s dtype; with ``f32``
     a float32 result, else one in ``a``'s dtype (see the module
     docstring)."""
-    b = b.to(a.dtype)
+    b = sharding.cast(b, a.dtype)
     if f32:
         return sharding.einsum(eq, a.float(), b.float())
     return sharding.einsum(eq, a, b)

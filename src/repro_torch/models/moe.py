@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import itertools
 import math
 
 import torch
@@ -79,6 +80,36 @@ def _take(x, idx):
     return F.embedding(flat, x.reshape(g * n, -1))
 
 
+def group_rules(g: int) -> dict:
+    """The active rules with "batch" taken, for the (g, ...) group
+    tensors, as the largest split of the batch's mesh axes that divides
+    ``g`` (the rule's own prefix where that is as large). The
+    reference's prefix rule splits 16 groups over ("pod",) alone on the
+    (2, 16, 16) mesh, so each rank would dispatch and combine 8 whole
+    groups, 16 times a (16, 16) rank's one; ("data",) keeps one a rank,
+    the same on both pods. Each group's result is the same on any
+    layout (a site of the port only)."""
+    rules, mesh = sharding.active()
+    sizes = sharding.mesh_sizes(mesh)
+    cand = rules.get("batch")
+    cand = [a for a in ((cand,) if isinstance(cand, str) else cand or ())
+            if a in sizes]
+    best, most = None, 1
+    for r in range(len(cand), 0, -1):
+        for sub in itertools.combinations(cand, r):
+            n = math.prod(sizes[a] for a in sub)
+            if g % n == 0 and n > most:
+                best, most = (sub[0] if r == 1 else sub), n
+    return {**rules, "batch": best}
+
+
+def _constrain(x, rules: dict, *axes):
+    """``sharding.constrain`` under ``rules`` (a :func:`group_rules`)."""
+    mesh = sharding.active()[1]
+    return sharding.constrain_spec(
+        x, sharding.resolve_spec(tuple(x.shape), axes, rules, mesh))
+
+
 def _per_group(fn, args: tuple, n_out: int, n_partial: int = 0):
     """``fn(*args)``; under ``sharding.use_rules`` with DTensor
     ``args``, through ``local_map`` on each rank's groups: every arg and
@@ -93,9 +124,10 @@ def _per_group(fn, args: tuple, n_out: int, n_partial: int = 0):
     ctx = sharding.active()
     if ctx is None or not any(isinstance(a, DTensor) for a in args):
         return fn(*args)
-    rules, mesh = ctx
+    mesh = ctx[1]
     g = args[0].shape[0]
-    spec = sharding.resolve_spec((g,), ("batch",), rules, mesh) + (None,)
+    spec = sharding.resolve_spec((g,), ("batch",), group_rules(g), mesh) + \
+        (None,)
     grouped = sharding.placements(spec, mesh)
     partial = tuple(Partial() if isinstance(q, Shard) else q
                     for q in grouped)
@@ -178,11 +210,16 @@ def moe_mlp(p, x, cfg):
     if ctx is not None:
         # x's batch split only over the mesh axes that split the groups,
         # so that folding its tokens into groups keeps each rank's rows
-        # (DTensor cannot refold a split the groups do not divide; a
-        # site of the port only)
-        part = sharding.resolve_spec((g,), ("batch",), *ctx)[0]
-        x = sharding.constrain_spec(x, (part, None, None))
-    xt = sharding.constrain(x.reshape(g, tl, d), "batch", None, None)
+        # (DTensor cannot refold a split the groups do not divide), moved
+        # by ``sharding.regroup`` (DTensor's own redistribution between
+        # the two gathers the whole batch first; a site of the port only)
+        grules = group_rules(g)
+        part = sharding.resolve_spec((g,), ("batch",), grules, ctx[1])[0]
+        x_part = sharding.resolve_spec((b,), ("batch",), *ctx)[0]
+        x = sharding.regroup(x, 0, part)
+        xt = _constrain(x.reshape(g, tl, d), grules, "batch", None, None)
+    else:
+        xt = x.reshape(g, tl, d)
 
     logits = dot("gtd,de->gte", xt, p["router"], f32=True)
     probs = torch.softmax(logits, dim=-1)
@@ -199,15 +236,15 @@ def moe_mlp(p, x, cfg):
     ce = counts.float() / (t * k)
     aux = e * torch.sum(me * ce)
     be_axes = ("batch", "experts", "expert_cap", "expert_in")
-    be = sharding.constrain(be, *be_axes)
     if ctx is not None:
         # groups and capacity merge into one dim below, which DTensor
         # cannot do while both are split: capacity is gathered first (a
         # site of the port only)
-        spec = list(sharding.resolve_spec(tuple(be.shape), be_axes, *ctx))
+        spec = list(sharding.resolve_spec(tuple(be.shape), be_axes, grules,
+                                          ctx[1]))
         if spec[0] is not None and spec[2] is not None:
             spec[2] = None
-            be = sharding.constrain_spec(be, tuple(spec))
+        be = sharding.constrain_spec(be, tuple(spec))
 
     # ---- expert FFN: (e, g*cap, .) products, group merged into capacity
     bem = be.permute(1, 0, 2, 3).reshape(e, g * cap, d)
@@ -222,15 +259,24 @@ def moe_mlp(p, x, cfg):
     h = sharding.constrain(h.to(dt), "experts", "expert_cap", "expert_mlp")
     out_m = dot("ecf,efd->ecd", h, wcast(
         p["wo"], dt, "experts", "expert_mlp", "expert_in"), f32=False)
-    out_e = sharding.constrain(out_m.reshape(e, g, cap, d).permute(1, 0, 2, 3),
-                               "batch", "experts", "expert_cap", "expert_in")
-    # the combine takes each group's slots whole (``_per_group``); they
-    # are gathered before the flatten, which DTensor cannot do across
-    # two split dims (a site of the port only)
-    out_flat = sharding.constrain(out_e, "batch", None, None, None) \
-        .reshape(g, e * cap, d)
+    out_e = out_m.reshape(e, g, cap, d).permute(1, 0, 2, 3)
+    if ctx is not None:
+        out_e = _constrain(out_e, grules, "batch", "experts", "expert_cap",
+                           "expert_in")
+    # the combine takes each group's slots whole (``_per_group``): each
+    # rank gathers its groups' slots by one all-gather a mesh dim that
+    # splits them, before the flatten, which DTensor cannot do across
+    # two split dims (DTensor's own redistribution to ("batch", None,
+    # None, None) built a buffer 16 times that on the (2, 16, 16) mesh;
+    # a site of the port only)
+    for dim in (1, 2, 3):
+        out_e = sharding.gather(out_e, dim)
+    out_flat = out_e.reshape(g, e * cap, d)
 
     # ---- combine
     yt = _per_group(functools.partial(_combine, cfg=cfg),
                     (out_flat, *route), 1)
-    return pin_out(yt.reshape(b, s, d)), aux
+    y = yt.reshape(b, s, d)
+    if ctx is not None:
+        y = sharding.regroup(y, 0, x_part)     # the tokens' split again
+    return pin_out(y), aux

@@ -219,8 +219,7 @@ def prefill(lm: LM, params, tokens, *, extras=None, max_seq: int):
     if cfg.family == "vlm" and "patch_embeds" in extras:
         pe = extras["patch_embeds"].to(x.dtype)
         x = torch.cat([pe, x[:, pe.shape[1]:, :]], dim=1)
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device)[None, :].repeat(b, 1)
+    positions = sharding.positions(b, s, tokens)
     enc_out, enc_pos = lm._encode(params, extras["frames"]) \
         if cfg.family == "encdec" else (None, None)
     for kind, p, entry in layer_slots(lm, params, cache):

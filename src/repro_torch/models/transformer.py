@@ -71,7 +71,7 @@ def tree_leaves(tree, path: str = "") -> list:
 def _unstack(tree) -> list:
     """A stacked tree as a list of per-layer trees of views (one
     ``unbind`` per leaf, so the backward stacks each leaf's grads once)."""
-    parts = map_tree(lambda a: a.unbind(0), tree)
+    parts = map_tree(sharding.unbind, tree)
 
     def pick(t, i):
         return {k: pick(v, i) for k, v in t.items()} \
@@ -290,8 +290,8 @@ class LM(nn.Module):
         if cfg.family == "vlm" and "patch_embeds" in extras:
             pe = extras["patch_embeds"].to(x.dtype)
             x = torch.cat([pe, x[:, pe.shape[1]:, :]], dim=1)
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device)[None, :].repeat(b, 1)
+        # split like the tokens: each rank's RoPE tables cover its rows
+        positions = sharding.positions(b, s, tokens)
         remat = cfg.remat == "full"
 
         enc_out = enc_pos = None
@@ -318,8 +318,7 @@ class LM(nn.Module):
         cfg = self.cfg
         x = frames.to(layers.dtype_of(cfg.compute_dtype))
         b, f, _ = x.shape
-        pos = torch.arange(f, dtype=torch.int32,
-                           device=x.device)[None, :].repeat(b, 1)
+        pos = sharding.positions(b, f, x)
 
         def body(h, lp):
             h1 = layers.apply_norm(lp["ln1"], h, cfg)

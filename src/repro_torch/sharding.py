@@ -23,20 +23,36 @@ with the gradients placed right): :func:`einsum`, :func:`along`,
 :func:`take`, :func:`logsumexp` and :func:`write_slice`. On plain
 tensors each is the plain op.
 
-A dim split over several mesh axes is split in mesh-dim order: plain
-``Shard`` placements, the first mesh dim major. A ``PartitionSpec``
-splits in the order the spec names the axes, so where that order is not
-the mesh's (``fsdp: ("data", "pod")`` on a ("pod", "data", "model")
-mesh: nemotron, mixtral and llava) each device holds a piece of the
-same shape and bytes as the reference's device, but not the same piece.
-DTensor can express the spec's order (``_StridedShard``, a shard order),
-but torch 2.13's redistribution planner cannot run it: its min-cost
-graph search takes minutes an op on such placements, and its greedy
-planner fails on them.
+A dim split over several mesh axes is split in the order the spec
+names them, as a ``PartitionSpec`` splits it: the first axis major.
+Where that is the mesh's order the placements are plain ``Shard``
+placements; where it is not (``fsdp: ("data", "pod")`` on a ("pod", "data",
+"model") mesh: nemotron, mixtral and llava) the minor axis, which comes
+first in the mesh, is a ``_StridedShard`` (DTensor's name for a split
+made right to left), so each device holds the reference's piece.
+DTensor's redistribution planner cannot run on such placements (on
+torch 2.13 its min-cost graph search takes minutes an op, its greedy
+planner fails), and torch 2.11's propagation mislays them in a view
+(:func:`strided`), so DTensor never works on them: :func:`distribute`
+cuts them locally, the train step's own ops on them (:func:`detach`,
+:func:`unbind`, :func:`cast`, AdamW and the global norm in
+``train.optim``) run on each rank's piece, and every product gathers
+them first (:func:`unstride`: one all-gather a mesh axis, the minor
+axis first, so the pieces land in the spec's order; its backward
+reduce-scatters in the reverse order). A split over more than two mesh
+axes out of the mesh's order is refused.
+
+Where DTensor's own redistribution between two layouts builds a buffer
+far larger than either (a dim gathered whole on every rank before it is
+cut again), the port moves the data itself: :func:`gather` (one
+all-gather a mesh dim) and :func:`regroup` (dim 0 from one nested split
+to another by an all-gather and one all-to-all). :func:`positions`
+makes a sequence's positions split like its tokens.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import threading
 
@@ -114,22 +130,80 @@ def _spec_axes(part) -> tuple:
     return (part,) if isinstance(part, str) else tuple(part)
 
 
+def _mesh_dims(part, mesh) -> list:
+    """The mesh dims of more than one device that a spec part names,
+    in its order."""
+    names = list(mesh.mesh_dim_names)
+    return [names.index(a) for a in _spec_axes(part)
+            if mesh.size(names.index(a)) > 1]
+
+
+def _chunk(coord, order: list, mesh) -> tuple:
+    """(index, count) of the chunk that mesh coordinates ``coord`` hold
+    of a dim split over the mesh dims ``order`` (major first)."""
+    idx, n = 0, 1
+    for m in order:
+        idx, n = idx * mesh.size(m) + coord[m], n * mesh.size(m)
+    return idx, n
+
+
 def placements(spec: tuple, mesh) -> tuple:
     """DTensor placements of ``spec`` on the ``DeviceMesh`` ``mesh``:
-    ``Shard(d)`` on every mesh dim of more than one device that the spec
-    puts on tensor dim ``d``, ``Replicate()`` elsewhere (in mesh order:
-    module docstring). A split over one device is no split, and DTensor
-    will not reshape a dim it holds as sharded, so on a (1, 1) mesh every
-    placement is ``Replicate()``."""
+    on every mesh dim of more than one device that the spec puts on
+    tensor dim ``d``, ``Shard(d)``, or for the minor of two axes named
+    against the mesh's order ``_StridedShard(d)`` (module docstring);
+    ``Replicate()`` elsewhere. A split over one device is no split, and
+    DTensor will not reshape a dim it holds as sharded, so on a (1, 1)
+    mesh every placement is ``Replicate()``."""
     from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
     names = list(mesh.mesh_dim_names)
     out = [Replicate()] * len(names)
     for d, part in enumerate(spec):
-        for a in _spec_axes(part):
-            m = names.index(a)
-            if mesh.size(m) > 1:
+        cut = _mesh_dims(part, mesh)
+        if cut == sorted(cut):
+            for m in cut:
                 out[m] = Shard(d)
+        elif len(cut) == 2:
+            major, minor = cut
+            out[major] = Shard(d)
+            out[minor] = _StridedShard(d, split_factor=mesh.size(major))
+        else:
+            raise NotImplementedError(
+                f"dim {d} split over {part}: more than two mesh axes out of "
+                f"the mesh's order {tuple(names)}")
     return tuple(out)
+
+
+def _strided(q) -> bool:
+    from torch.distributed.tensor.placement_types import _StridedShard
+    return isinstance(q, _StridedShard)
+
+
+def _splits(q, dim: int) -> bool:
+    """Whether the placement ``q`` splits tensor dim ``dim`` (torch
+    2.13's ``_StridedShard.is_shard`` says no)."""
+    return q.is_shard(dim) or (_strided(q) and q.dim == dim)
+
+
+def split_order(place: tuple, dim: int) -> list:
+    """The mesh dims that split tensor dim ``dim`` under the placements
+    ``place``, the major first (the spec's order; see :func:`placements`)."""
+    cut = [m for m, q in enumerate(place) if _splits(q, dim)]
+    if any(_strided(place[m]) for m in cut):
+        return cut[::-1]
+    return cut
+
+
+def _piece(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's piece of ``t`` under ``spec``, each dim cut in the
+    spec's order of its axes (a view)."""
+    coord = mesh.get_coordinate()
+    for d, part in enumerate(spec):
+        idx, n = _chunk(coord, _mesh_dims(part, mesh), mesh)
+        rows = t.shape[d] // n
+        t = t.narrow(d, idx * rows, rows)
+    return t
 
 
 def local_shape(shape: tuple, spec: tuple, mesh) -> tuple:
@@ -152,9 +226,12 @@ def distribute(t: torch.Tensor, axes: tuple, rules: dict, mesh):
     if t.device.type == "meta":
         local = torch.empty(local_shape(tuple(t.shape), spec, mesh),
                             dtype=t.dtype, device="meta")
-        return DTensor.from_local(local, mesh, place, run_check=False,
-                                  shape=t.shape, stride=t.stride())
-    return distribute_tensor(t, mesh, place, src_data_rank=None)
+    elif any(_strided(q) for q in place):
+        local = _piece(t.detach(), spec, mesh).clone()
+    else:
+        return distribute_tensor(t, mesh, place, src_data_rank=None)
+    return DTensor.from_local(local, mesh, place, run_check=False,
+                              shape=t.shape, stride=t.stride())
 
 
 def tree_zeros(shapes_tree, axes_tree, rules: dict, mesh, *, device):
@@ -228,7 +305,14 @@ def constrain_spec(x, spec: tuple):
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         return x
-    return x.redistribute(ctx[1], placements(spec, ctx[1]))
+    place = placements(spec, ctx[1])
+    if any(_strided(q) for q in place):
+        if place == tuple(x.placements):
+            return x
+        raise NotImplementedError(
+            f"a layout {place} out of the mesh's order is made only by "
+            f"distribute, not by a redistribution")
+    return unstride(x).redistribute(ctx[1], place)
 
 
 def local_call(fn, args: tuple, in_place: tuple, out_place: tuple, mesh):
@@ -249,22 +333,388 @@ def local_call(fn, args: tuple, in_place: tuple, out_place: tuple, mesh):
                      redistribute_inputs=True)(*args)
 
 
+def _collective(op, local, dim: int, mesh, m: int, *extra):
+    """``_c10d_functional``'s ``op`` (it works on dim 0) over mesh dim
+    ``m`` along tensor dim ``dim``."""
+    c10d = torch.ops._c10d_functional
+    group = mesh.get_group(m)
+    x = local.movedim(dim, 0).contiguous()
+    x = c10d.wait_tensor(op(x, *extra, group.size(), group.group_name))
+    return x.movedim(0, dim)
+
+
+def strided(x) -> bool:
+    """Whether ``x`` is a DTensor with a dim split out of the mesh's
+    order. The port keeps DTensor's sharding propagation off such a
+    tensor and runs its ops on each rank's piece: torch 2.11's
+    ``unbind`` leaves a ``_StridedShard`` on the old dim while the other
+    splits move down (a wrong layout; 2.13 moves both)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor) and any(_strided(q) for q in x.placements)
+
+
+def like(x, local):
+    """``local``, this rank's piece of a tensor laid out as the DTensor
+    ``x`` (its placements, shape and strides)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def detach(x):
+    """``x.detach()``; a :func:`strided` DTensor on its local piece."""
+    return like(x, x.to_local().detach()) if strided(x) else x.detach()
+
+
+def cast(x, dtype):
+    """``x.to(dtype)``; a :func:`strided` DTensor on its local piece."""
+    if not strided(x):
+        return x.to(dtype)
+    return local_call(lambda t: t.to(dtype), (x,), (x.placements,),
+                      (x.placements,), x.device_mesh)
+
+
+def unbind(x):
+    """``x.unbind(0)``; a :func:`strided` DTensor (its dim 0 whole) on
+    its local piece, each slice keeping the other dims' splits."""
+    if not strided(x):
+        return x.unbind(0)
+    from torch.distributed.tensor.placement_types import _StridedShard
+    if any(_splits(q, 0) for q in x.placements):
+        raise NotImplementedError("unbind of a split dim 0")
+
+    def down(q):
+        if _strided(q):
+            return _StridedShard(q.dim - 1, split_factor=q.split_factor)
+        return type(q)(q.dim - 1) if q.is_shard() else q
+    place = tuple(down(q) for q in x.placements)
+    return local_call(lambda t: tuple(t.unbind(0)), (x,), (x.placements,),
+                      (place,) * x.shape[0], x.device_mesh)
+
+
+def _all_gather(local, dim: int, mesh, order: list):
+    """``local`` gathered along ``dim`` over the mesh dims ``order``
+    (major first): the minor first, so that the pieces land in order."""
+    for m in reversed(order):
+        local = _collective(torch.ops._c10d_functional.all_gather_into_tensor,
+                            local, dim, mesh, m)
+    return local
+
+
+def _dense_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape``."""
+    out, n = [], 1
+    for k in reversed(tuple(shape)):
+        out.append(n)
+        n *= k
+    return tuple(reversed(out))
+
+
+class _Gather(torch.autograd.Function):
+    """A DTensor's dim ``dim`` gathered whole by one all-gather a mesh
+    dim of ``order``; the backward takes each rank's piece back out of
+    the gradient: a reduce-scatter where it is a partial sum, a slice
+    where it is whole."""
+
+    @staticmethod
+    def forward(ctx, x, dim, order):
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = x.device_mesh
+        local = _all_gather(x.to_local(), dim, mesh, order).contiguous()
+        stride = _dense_stride(x.shape)
+        ctx.meta = (mesh, dim, order, tuple(x.placements), x.shape, stride)
+        place = tuple(Replicate() if m in order else q
+                      for m, q in enumerate(x.placements))
+        return DTensor.from_local(local, mesh, place, run_check=False,
+                                  shape=x.shape, stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        mesh, dim, order, place, shape, stride = ctx.meta
+        want = tuple(
+            (Partial() if g.placements[m].is_partial() else Replicate())
+            if m in order else place[m] for m in range(mesh.ndim))
+        local = g.redistribute(mesh, want).to_local()
+        coord = mesh.get_coordinate()
+        for m in order:
+            if want[m].is_partial():
+                local = _collective(
+                    torch.ops._c10d_functional.reduce_scatter_tensor, local,
+                    dim, mesh, m, "sum")
+            else:
+                local = local.chunk(mesh.size(m), dim)[coord[m]]
+        return DTensor.from_local(local.contiguous(), mesh, place,
+                                  run_check=False, shape=shape,
+                                  stride=stride), None, None
+
+
+def gather(x, dim: int):
+    """``x`` with dim ``dim`` whole on every rank: for a DTensor split
+    along it, one explicit all-gather a mesh dim that splits it, in the
+    split's order (DTensor's own redistribution cannot take a
+    ``_StridedShard``, and for some layouts plans a buffer many times
+    the result). Any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.ndim
+    order = split_order(tuple(x.placements), dim)
+    return _Gather.apply(x, dim, order) if order else x
+
+
+def _held(coord, rows: int, src: list, gathered: list, mesh) -> list:
+    """The global rows a rank at ``coord`` holds, in its local order, of
+    a dim of ``rows`` split over ``src`` once the mesh dims
+    ``gathered`` (in ``src``'s order) are gathered."""
+    _, n = _chunk(coord, src, mesh)
+    out = []
+    for g in itertools.product(*(range(mesh.size(m)) for m in gathered)):
+        c = list(coord)
+        for m, v in zip(gathered, g):
+            c[m] = v
+        idx = _chunk(c, src, mesh)[0]
+        out += range(idx * rows // n, (idx + 1) * rows // n)
+    return out
+
+
+def _needed(coord, rows: int, dst: list, mesh) -> list:
+    idx, n = _chunk(coord, dst, mesh)
+    return list(range(idx * rows // n, (idx + 1) * rows // n))
+
+
+def _regroup_plan(mesh, rows: int, src: list, dst: list) -> dict:
+    """How :func:`regroup` moves this rank's rows: the mesh dims it
+    gathers, then either a local pick (``pick``: positions of the rows
+    it needs in what it holds) or one all-to-all over the mesh dim
+    ``m`` that splits both layouts (``send``: positions it sends, by
+    destination; ``splits_in``/``splits_out``; ``order``: where each
+    received row goes)."""
+    gathered = [m for m in src if m not in dst]
+    common = [m for m in src if m in dst]
+    if len(common) > 1:
+        raise NotImplementedError(
+            f"regroup from {src} to {dst}: more than one mesh dim in common")
+    me = list(mesh.get_coordinate())
+    held = _held(me, rows, src, gathered, mesh)
+    need = _needed(me, rows, dst, mesh)
+    where = {r: i for i, r in enumerate(held)}
+    if not common:
+        return {"gathered": gathered, "pick": [where[r] for r in need],
+                "held": len(held)}
+    m = common[0]
+    mine = set(need)
+    send, splits_in, splits_out, got = [], [], [], []
+    for t in range(mesh.size(m)):
+        c = list(me)
+        c[m] = t
+        theirs = set(_needed(c, rows, dst, mesh))
+        out = sorted(r for r in held if r in theirs)
+        send += [where[r] for r in out]
+        splits_in.append(len(out))
+        back = sorted(r for r in _held(c, rows, src, gathered, mesh)
+                      if r in mine)
+        got += back
+        splits_out.append(len(back))
+    pos = {r: i for i, r in enumerate(got)}
+    return {"gathered": gathered, "m": m, "send": send,
+            "splits_in": splits_in, "splits_out": splits_out,
+            "order": [pos[r] for r in need], "held": len(held)}
+
+
+def _all_to_all(local, mesh, m: int, splits_out: list, splits_in: list):
+    """``_c10d_functional.all_to_all_single`` over mesh dim ``m`` along
+    dim 0."""
+    c10d = torch.ops._c10d_functional
+    group = mesh.get_group(m)
+    return c10d.wait_tensor(c10d.all_to_all_single(
+        local.contiguous(), splits_out, splits_in, group.group_name))
+
+
+def _rows(local, idx: list):
+    return local.index_select(0, torch.tensor(idx, dtype=torch.long,
+                                              device=local.device))
+
+
+class _Regroup(torch.autograd.Function):
+    """A DTensor's dim 0 moved from the split over the mesh dims ``src``
+    to the split over ``dst`` (both major first): an all-gather a mesh
+    dim that only ``src`` splits, then a local pick or one all-to-all
+    over the mesh dim both split; each rank ends with only its rows. The
+    backward runs it in reverse: the all-to-all back, zeros for the
+    rows it did not send, a reduce-scatter or a slice a gathered dim."""
+
+    @staticmethod
+    def forward(ctx, x, src, dst):
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        mesh = x.device_mesh
+        rows = x.shape[0]
+        plan = _regroup_plan(mesh, rows, src, dst)
+        local = _all_gather(x.to_local(), 0, mesh, plan["gathered"])
+        if "pick" in plan:
+            local = _rows(local, plan["pick"])
+        else:
+            local = _all_to_all(_rows(local, plan["send"]), mesh, plan["m"],
+                                plan["splits_out"], plan["splits_in"])
+            local = _rows(local, plan["order"])
+        place = tuple(Shard(0) if m in dst else
+                      (Replicate() if m in src else q)
+                      for m, q in enumerate(x.placements))
+        stride = _dense_stride(x.shape)
+        ctx.meta = (mesh, src, dst, plan, tuple(x.placements), x.shape,
+                    stride, place)
+        return DTensor.from_local(local.contiguous(), mesh, place,
+                                  run_check=False, shape=x.shape,
+                                  stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial
+        mesh, src, dst, plan, place_in, shape, stride, place = ctx.meta
+        want = tuple(place[m] if m in dst else
+                     (Partial() if g.placements[m].is_partial()
+                      else place[m]) for m in range(mesh.ndim))
+        local = g.redistribute(mesh, want).to_local()
+        if "pick" in plan:
+            held = local.new_zeros((plan["held"], *local.shape[1:]))
+            held = held.index_copy(0, torch.tensor(
+                plan["pick"], dtype=torch.long, device=local.device), local)
+        else:
+            back = local.new_empty(local.shape).index_copy(0, torch.tensor(
+                plan["order"], dtype=torch.long, device=local.device), local)
+            back = _all_to_all(back, mesh, plan["m"], plan["splits_in"],
+                               plan["splits_out"])
+            held = local.new_zeros((plan["held"], *local.shape[1:]))
+            held = held.index_copy(0, torch.tensor(
+                plan["send"], dtype=torch.long, device=local.device), back)
+        coord = mesh.get_coordinate()
+        for m in plan["gathered"]:
+            if want[m].is_partial():
+                held = _collective(
+                    torch.ops._c10d_functional.reduce_scatter_tensor, held,
+                    0, mesh, m, "sum")
+            else:
+                held = held.chunk(mesh.size(m), 0)[coord[m]]
+        out = tuple(Partial() if (m in dst and m not in src) or
+                    (m not in dst and want[m].is_partial() and
+                     m not in plan["gathered"]) else place_in[m]
+                    for m in range(mesh.ndim))
+        return DTensor.from_local(held.contiguous(), mesh, out,
+                                  run_check=False, shape=shape,
+                                  stride=stride), None, None
+
+
+def regroup(x, dim: int, part):
+    """``x`` with dim ``dim`` split as the spec part ``part`` says (a
+    mesh axis, a tuple of them, or ``None``), each rank receiving only
+    its own rows (DTensor's own redistribution between two nested
+    splits, e.g. from ("pod", "data") to ("data",), gathers the whole
+    dim on every rank first). Only dim 0, and splits that share at most
+    one mesh dim; any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    if dim % x.ndim:
+        raise NotImplementedError("regroup moves dim 0 only")
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    x = unstride(x)
+    src = split_order(tuple(x.placements), 0)
+    dst = _mesh_dims(part, mesh)
+    if src == dst:
+        return x
+    if any(not x.placements[m].is_shard(0) and
+           not isinstance(x.placements[m], Replicate) for m in dst):
+        x = x.redistribute(mesh, [
+            Replicate() if m in dst and not q.is_shard(0) else q
+            for m, q in enumerate(x.placements)])
+    return _Regroup.apply(x, src, dst)
+
+
+def unstride(x):
+    """``x`` with every dim split out of the mesh's order gathered
+    whole (:func:`gather`); any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    for d in sorted({q.dim for q in x.placements if _strided(q)}):
+        x = gather(x, d)
+    return x
+
+
+def positions(b: int, s: int, like):
+    """The (b, s) int32 positions of a sequence, 0..s-1 on every row.
+    For a DTensor ``like`` whose first two dims are (batch, seq), a
+    DTensor split as those two dims are, each rank making only its own
+    rows and columns (under GSPMD the reference's positions follow the
+    tokens' split); else a plain tensor on ``like``'s device."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(like, DTensor):
+        return torch.arange(s, dtype=torch.int32,
+                            device=like.device)[None, :].repeat(b, 1)
+    mesh = like.device_mesh
+    place = tuple(q if (q.is_shard(0) or q.is_shard(1)) and not _strided(q)
+                  else Replicate() for q in like.placements)
+    local = like.to_local()
+    rows, cols = local.shape[0], local.shape[1]
+    first = shard_start(mesh, [m for m, q in enumerate(place)
+                               if q.is_shard(1)], cols)
+    pos = torch.arange(first, first + cols, dtype=torch.int32,
+                       device=local.device)[None, :].repeat(rows, 1)
+    return DTensor.from_local(pos, mesh, place, run_check=False,
+                              shape=(b, s), stride=(s, 1))
+
+
+def first_row(pos):
+    """Row 0 of (B, S) positions as a plain tensor. For a DTensor from
+    :func:`positions`, whose rows are all alike, this rank's first row
+    with its seq dim gathered whole."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(pos, DTensor):
+        return pos[0]
+    cut = split_order(tuple(pos.placements), 1)
+    return _all_gather(pos.to_local()[0], 0, pos.device_mesh, cut) if cut \
+        else pos.to_local()[0]
+
+
 def along(fn, args: tuple, dim: int):
     """``fn(*args)``, a scan along ``dim`` that keeps every other dim
-    apart; for DTensors, each rank's own ``fn`` with ``dim`` whole
-    (gathered first where split) and the first arg's other splits,
-    which every arg takes. Torch 2.11's DTensor has no rule for the
-    ``flip`` of ``cumsum``'s backward, and its planner fails on the
-    ``pad`` of a doubling scan."""
+    apart; for DTensors, each rank's own ``fn`` with ``dim`` whole and
+    the first arg's other splits, which every arg takes. A mesh dim on
+    which the first arg splits ``dim`` (or holds a partial sum) splits
+    another dim instead where one divides: one that an arg splits
+    there, else the last, so that split still divides the scan's work
+    (on the (2, 16, 16) mesh RG-LRU's seq split over "model" becomes a
+    split of its width). Torch 2.11's DTensor has no rule for the ``flip`` of
+    ``cumsum``'s backward, and its planner fails on the ``pad`` of a
+    doubling scan."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
+    args = tuple(unstride(a) for a in args)
     first = next((a for a in args if isinstance(a, DTensor)), None)
     if first is None:
         return fn(*args)
+    mesh = first.device_mesh
     dim %= first.ndim
-    place = tuple(Replicate() if q.is_partial() or q == Shard(dim) else q
-                  for q in first.placements)
-    return local_call(fn, args, (place,) * len(args), (place,),
-                      first.device_mesh)
+    moved = [q.is_partial() or _splits(q, dim) for q in first.placements]
+    place = [Replicate() if mv else q
+             for mv, q in zip(moved, first.placements)]
+    local = list(first.shape)
+    for m, q in enumerate(place):
+        if q.is_shard():
+            local[q.dim] //= mesh.size(m)
+    for m in range(mesh.ndim):
+        if not moved[m]:
+            continue
+        others = [a.placements[m].dim for a in args
+                  if isinstance(a, DTensor) and a.placements[m].is_shard()]
+        fits = [d for d in others + list(range(first.ndim - 1, -1, -1))
+                if d != dim and local[d] % mesh.size(m) == 0]
+        if fits:
+            place[m] = Shard(fits[0])
+            local[fits[0]] //= mesh.size(m)
+    place = tuple(place)
+    return local_call(fn, args, (place,) * len(args), (place,), mesh)
 
 
 def shard_start(mesh, cut: list, rows: int) -> int:
@@ -394,7 +844,7 @@ def einsum(eq: str, a, b):
         return torch.einsum(eq, a, b)
     mesh = (a if isinstance(a, DTensor) else b).device_mesh
     rep = (Replicate(),) * mesh.ndim
-    a, b = (x if isinstance(x, DTensor) else DTensor.from_local(
+    a, b = (unstride(x) if isinstance(x, DTensor) else DTensor.from_local(
         x, mesh, rep, run_check=False) for x in (a, b))
     lhs, out_term = eq.replace(" ", "").split("->")
     ta, tb = lhs.split(",")

@@ -15,6 +15,8 @@ import dataclasses
 
 import torch
 
+from .. import sharding
+
 
 @dataclasses.dataclass(frozen=True)
 class OptConfig:
@@ -59,10 +61,53 @@ def init_opt_state(params):
             "step": torch.zeros((), dtype=torch.int32, device=leaf.device)}
 
 
+def local(x, like=None):
+    """``x`` for a plain tensor; a DTensor's local piece (its storage),
+    laid out first as ``like`` is where given, else with its partial
+    sums reduced. The update and the norm run on local pieces, so a
+    train state split out of the mesh's order (``sharding.strided``)
+    never meets DTensor's own ops."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return x
+    want = tuple(like.placements) if like is not None else tuple(
+        Replicate() if q.is_partial() else q for q in x.placements)
+    if tuple(x.placements) != want:
+        x = x.redistribute(x.device_mesh, want)
+    return x.to_local()
+
+
+def _scalar(x):
+    """A scalar tensor whole on every rank."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def zeros_f32(x):
+    """float32 zeros laid out as ``x``."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return torch.zeros_like(x, dtype=torch.float32)
+    return sharding.like(x, torch.zeros_like(x.to_local(),
+                                             dtype=torch.float32))
+
+
+def _square_sum(x):
+    """``sum(x * x)`` in float32; for a DTensor, each rank's over its
+    piece, a partial sum over the mesh dims that split it."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not isinstance(x, DTensor):
+        return torch.sum(torch.square(x.float()))
+    part = torch.sum(torch.square(local(x).float()))
+    place = [Replicate() if q.is_partial() or isinstance(q, Replicate)
+             else Partial() for q in x.placements]
+    return DTensor.from_local(part, x.device_mesh, place, run_check=False)
+
+
 def global_norm(tree):
     total = 0
     for x in _leaves(tree):
-        total = total + torch.sum(torch.square(x.float()))
+        total = total + _square_sum(x)
     return torch.sqrt(total)
 
 
@@ -77,18 +122,22 @@ def adamw_step(params, grads, opt_state, cfg: OptConfig):
     b1, b2 = cfg.b1, cfg.b2
     c1 = 1.0 - b1 ** step.float()
     c2 = 1.0 - b2 ** step.float()
+    s_scale, s_lr, s_c1, s_c2 = (_scalar(x) for x in (scale, lr, c1, c2))
 
     for p, g, mu, nu in zip(_leaves(params), _leaves(grads),
                             _leaves(opt_state["mu"]),
                             _leaves(opt_state["nu"])):
-        g = g.float() * scale
+        # on each rank's piece (``local``); plain tensors as they are
+        g = local(g, like=p)
+        p, mu, nu = local(p), local(mu), local(nu)
+        g = g.float() * s_scale
         mu.copy_(b1 * mu + (1 - b1) * g)
         nu.copy_(b2 * nu + (1 - b2) * g * g)
-        mhat = mu / c1
-        nhat = nu / c2
+        mhat = mu / s_c1
+        nhat = nu / s_c2
         delta = mhat / (torch.sqrt(nhat) + cfg.eps) + \
             cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * delta).to(p.dtype))
+        p.copy_((p.float() - s_lr * delta).to(p.dtype))
     metrics = {"lr": lr, "grad_norm": gnorm}
     return params, {"mu": opt_state["mu"], "nu": opt_state["nu"],
                     "step": step}, metrics

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import sharding
 from ..models import layers
 from ..models.transformer import LM, map_paths, map_tree, tree_leaves
 from . import optim
@@ -21,7 +22,8 @@ from . import optim
 
 def loss_and_grads(lm: LM, params, batch):
     """(loss metrics, float32 grads of the tree ``params``)."""
-    leaves = map_tree(lambda p: p.detach().requires_grad_(True), params)
+    leaves = map_tree(lambda p: sharding.detach(p).requires_grad_(True),
+                      params)
     paths, flat = zip(*tree_leaves(leaves))
     loss, metrics = lm.loss_fn(leaves, batch)
     grads = torch.autograd.grad(loss, flat, allow_unused=True)
@@ -44,8 +46,7 @@ def make_train_step(lm: LM, opt_cfg: optim.OptConfig):
             def split(x, i):
                 mb = x.shape[0] // nmb
                 return x[i * mb:(i + 1) * mb]
-            grads = map_tree(lambda p: torch.zeros_like(
-                p, dtype=torch.float32), params)
+            grads = map_tree(optim.zeros_f32, params)
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=tree_leaves(params)[0][1].device)
             for i in range(nmb):
@@ -53,9 +54,10 @@ def make_train_step(lm: LM, opt_cfg: optim.OptConfig):
                               {k: split(v, i) for k, v in batch.items()})
                 for (_, acc), (_, gi) in zip(tree_leaves(grads),
                                              tree_leaves(g)):
-                    acc.add_(gi)
+                    optim.local(acc).add_(optim.local(gi, like=acc))
                 loss_sum = loss_sum + m["loss"]
-            grads = map_tree(lambda g: g / nmb, grads)
+            for _, acc in tree_leaves(grads):
+                optim.local(acc).div_(nmb)
             metrics = {"loss": loss_sum / nmb,
                        "aux": torch.zeros_like(loss_sum)}
 

@@ -322,3 +322,106 @@ def test_split_loss_and_cache_stay_local(mesh_shape):
             cache = serving.cache_specs(lm, b, s)
         piece = max(dryrun.local_bytes(x) for x in dryrun._leaves(cache))
         assert big.bytes == piece, (big.op, big.bytes, piece)
+
+
+class _Scoped(_Largest):
+    """:class:`_Largest` of the local ops run inside ``fn`` only (by
+    wrapping the module attribute ``fn`` names), and of ``aten.cos`` and
+    ``aten.sin`` only when ``trig`` is set."""
+
+    def __init__(self, trig=False):
+        super().__init__()
+        self.on, self.trig = False, trig
+
+    def wrap(self, monkeypatch, module, name):
+        fn = getattr(module, name)
+
+        def scoped(*args, **kwargs):
+            self.on = True
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.on = False
+        monkeypatch.setattr(module, name, scoped)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if dryrun._is_dtensor_op(types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        mine = self.on or (self.trig and func in (torch.ops.aten.cos.default,
+                                                  torch.ops.aten.sin.default))
+        if mine and not dryrun._is_fake_op(types) and \
+                dryrun._nbytes(out) > self.bytes:
+            self.bytes, self.op = dryrun._nbytes(out), func
+        return out
+
+
+def _traced(arch, shape, mesh_shape, cfg, b, s, mode):
+    """Run the cell's step once on a fake group of ``mesh_shape`` under
+    the dispatch mode ``mode``, DTensor's all-to-alls as the dry-run
+    counts them."""
+    import math
+
+    from repro_torch import sharding
+    from repro_torch.launch.mesh import make_test_mesh
+    names = ("pod", "data", "model")[-len(mesh_shape):]
+    with dryrun.fake_group(math.prod(mesh_shape)):
+        mesh = make_test_mesh(mesh_shape, names, "cpu")
+        r = rules.rules_for(arch, shape, multi_pod=len(mesh_shape) == 3)
+        _, placed = dryrun.cell_inputs(arch, shape, r, mesh, cfg=cfg,
+                                       batch=b, seq=s)
+        fn = build_callable(arch, shape, cfg=cfg, seq=s)
+        with dryrun._alltoall_as_asked(), sharding.use_rules(r, mesh), mode:
+            fn(**placed)
+    return mode.bytes, mode.op
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_rope_tables_cover_a_ranks_rows(shape):
+    """C5: the positions split like the tokens, so on a (2, 2, 2) mesh
+    no rank makes a cos/sin table for more than its own batch rows
+    (train and prefill; they were made at the global batch on every
+    rank)."""
+    cfg = get_smoke_config("stablelm_1_6b")
+    b, s = 8, 64
+    got, op = _traced("stablelm_1_6b", shape, (2, 2, 2), cfg, b, s,
+                      _Scoped(trig=True))
+    half = cfg.hd // 2
+    rows = b // 4                       # batch over ("pod", "data")
+    assert 0 < got <= rows * s * half * 4, (op, got)
+
+
+def test_moe_combine_stays_at_a_ranks_groups(monkeypatch):
+    """C6: four dispatch groups on a (2, 4, 1) mesh, where the batch's
+    ("pod", "data") split does not divide them: each rank takes one
+    group, as on a (4, 1) mesh, so no local tensor of the MoE layer is
+    larger there (the prefix rule put two groups on each rank, and
+    DTensor gathered the whole batch to refold it)."""
+    import dataclasses
+    cfg = dataclasses.replace(get_smoke_config("granite_moe_1b_a400m"),
+                              moe_groups=4)
+    from repro_torch.models import moe
+    sizes = []
+    for mesh_shape in [(4, 1), (2, 4, 1)]:
+        mode = _Scoped()
+        mode.wrap(monkeypatch, moe, "moe_mlp")
+        sizes.append(_traced("granite_moe_1b_a400m", "prefill_32k",
+                             mesh_shape, cfg, 8, 256, mode))
+        monkeypatch.undo()
+    (single, _), (multi, op) = sizes
+    assert 0 < multi <= single, (op, multi, single)
+
+
+def test_rglru_scan_splits_over_every_mesh_dim(monkeypatch):
+    """C6: on a (2, 2, 2) mesh with four batch rows, "model" splits the
+    RG-LRU scan's seq dim; the scan moves that split to the width, so
+    each rank scans an eighth of the (b, s, width) float32 pairs (it was
+    a quarter: "model" left whole)."""
+    from repro_torch import sharding
+    cfg = get_smoke_config("recurrentgemma_2b")
+    b, s = 4, 64
+    mode = _Scoped()
+    mode.wrap(monkeypatch, sharding, "along")
+    got, op = _traced("recurrentgemma_2b", "train_4k", (2, 2, 2), cfg, b, s,
+                      mode)
+    assert 0 < got <= b * s * cfg.lru_width * 4 // 8, (op, got)

@@ -155,11 +155,22 @@ def test_placements_give_the_reference_local_shapes():
 
 
 def test_placements_shard_in_mesh_order_and_skip_size_one_dims():
+    """Axes named in the mesh's order give plain ``Shard``s; ("data",
+    "pod") on a ("pod", "data", ...) mesh splits data-major, as the
+    reference's ``PartitionSpec`` does, so "pod" holds a
+    ``_StridedShard`` (split factor: the data axis's size); a size-one
+    mesh dim splits nothing."""
     from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
     with dryrun.fake_group(8):
         from repro_torch.launch.mesh import make_test_mesh
         mesh = make_test_mesh((2, 4, 1), ("pod", "data", "model"), "cpu")
         assert sharding.placements((("data", "pod"), "model", None),
+                                   mesh) == (_StridedShard(0, split_factor=4),
+                                             Shard(0), Replicate())
+        assert sharding.split_order(sharding.placements(
+            (("data", "pod"), None), mesh), 0) == [1, 0]
+        assert sharding.placements((("pod", "data"), "model", None),
                                    mesh) == (Shard(0), Shard(0), Replicate())
         assert sharding.placements((None, "data"), mesh) == \
             (Replicate(), Shard(1), Replicate())
@@ -474,3 +485,98 @@ def test_four_rank_mesh_matches_the_plain_step():
         # from float64 on these inputs; a misplaced cache slot moves the
         # logits by 0.6-1.7
         assert out["decode " + arch] < 5e-4, (arch, out["decode " + arch])
+
+
+# the reference's pieces of every smoke parameter under rules_for(...,
+# multi_pod=True) on a (2, 2, 1) ("pod", "data", "model") mesh of four
+# forced host devices: path -> "p,d,m" -> [[start, stop], ...]
+_REF_PIECES = """
+import json, sys
+import jax
+import numpy as np
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro import sharding
+from repro.configs import get_smoke_config
+from repro.launch.rules import rules_for
+from repro.models.transformer import LM
+devs = np.array(jax.devices()[:4]).reshape(2, 2, 1)
+mesh = Mesh(devs, ("pod", "data", "model"))
+out = {}
+for arch in sys.argv[1].split(","):
+    lm = LM(get_smoke_config(arch))
+    r = rules_for(arch, "train_4k", multi_pod=True)
+    flat = {}
+
+    def walk(shape, axes, path):
+        if isinstance(shape, dict):
+            for k in shape:
+                walk(shape[k], axes[k], f"{path}.{k}" if path else k)
+            return
+        dims = tuple(shape.shape)
+        spec = sharding.resolve_spec(dims, tuple(axes), r, mesh)
+        where = NamedSharding(mesh, P(*spec)).devices_indices_map(dims)
+        flat[path] = {
+            ",".join(map(str, c)): [[sl.start or 0, n if sl.stop is None
+                                     else sl.stop]
+                                    for sl, n in zip(where[devs[c]], dims)]
+            for c in np.ndindex(2, 2, 1)}
+    walk(lm.abstract_params(), lm.param_axes(), "")
+    out[arch] = flat
+print("PIECES " + json.dumps(out))
+"""
+
+
+def test_four_rank_spec_order_pieces_match_the_reference(tmp_path):
+    """C4: on four gloo ranks, a (2, 2, 1) ("pod", "data", "model")
+    mesh, smoke mixtral and nemotron under ``rules_for(...,
+    multi_pod=True)`` (``fsdp: ("data", "pod")``, against the mesh's
+    order): every leaf of the placed train state holds the piece that
+    jax's ``NamedSharding(...).devices_indices_map`` gives the same mesh
+    coordinates, values included; and the placed grads and three AdamW
+    steps hold to the plain ones within the four-rank test's bounds
+    (first loss 1e-6 relative, the later ones 2e-3, each leaf's piece
+    1e-3 as a relative norm)."""
+    archs = "mixtral_8x22b,nemotron_4_340b"
+    env = {**os.environ, "PYTHONPATH": SRC, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
+    ref = subprocess.run([sys.executable, "-c", _REF_PIECES, archs], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert ref.returncode == 0, ref.stderr[-3000:]
+    line = [x for x in ref.stdout.splitlines() if x.startswith("PIECES ")]
+    pieces = json.loads(line[0][len("PIECES "):])
+    path = tmp_path / "pieces.json"
+    path.write_text(json.dumps(pieces))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    script = os.path.join(os.path.dirname(__file__), "spec_order_ranks.py")
+    procs = [subprocess.Popen([sys.executable, script, str(r), port,
+                               str(path), archs],
+                              env={**os.environ, "PYTHONPATH": SRC},
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(4)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    results = [json.loads([x for x in o.splitlines()
+                           if x.startswith("RESULT ")][0][len("RESULT "):])
+               for o, _ in outs]
+    assert sorted(r["coord"] for r in results) == \
+        ["0,0,0", "0,1,0", "1,0,0", "1,1,0"]
+    for arch in archs.split(","):
+        for r in results:
+            got = r[arch]
+            print(arch, r["coord"], got)
+            assert got["pieces"] > 0 and got["mismatched"] == 0, got
+            # some leaves are split over ("data", "pod") here
+            assert got["strided"] > 0, got
+            (plain, mesh_l) = got["losses"]
+            assert np.allclose(mesh_l[0], plain[0], rtol=1e-6, atol=0)
+            assert np.allclose(mesh_l, plain, rtol=2e-3, atol=0)
+            assert got["grads"][0] < 1e-3, got["grads"]
+            assert got["params"][0] < 1e-3, got["params"]
