@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""A/B of the projection CSR kernels across checkouts, on one CUDA card.
+"""A/B of the projection CSR kernels, or of the bitfield kernels, across
+checkouts, on one CUDA card.
 
-    python3 chip_kernel_ab.py DIR [DIR ...]
+    python3 chip_kernel_ab.py [--bitfields] DIR [DIR ...]
 
 Each ``DIR`` is a checkout of this repository (this one, an older commit
 unpacked with ``git archive``, or a copy with one kernel changed). Each is
@@ -19,6 +20,11 @@ kernel (``torch.profiler``):
   * ``B5t``, ``B5t_f32``: the same table in the 35-call chain of
     16,384-row tiles, one wrapper call a tile (ms and device ms a tile);
   * ``B2``: ``raster.projection_raster`` on the device path's Orion table.
+
+With ``--bitfields``, only B8 and B9 instead: ``codec.bitpack`` and
+``codec.bitunpack`` (entries ``B8 <n>``, ``B9 <n>``) on ``n`` random flags
+from a seed (about half 0, the rest any nonzero byte) at the Orion tree's
+649,385 and at 2^27.
 
 Every result is first held bitwise against the plain twin
 (``ref.projection_raster_ref``), and the chain against the one call; the
@@ -40,6 +46,26 @@ from repro_torch.kernels import cudalib, ops, raster, ref
 cudalib.build(); cudalib.lib()
 dev = torch.device("cuda", 0)
 torch.cuda.set_device(dev)
+if sys.argv[2] == "bitfields":
+    from repro_torch.kernels import codec
+    res = {}
+    for n in (649385, 1 << 27):
+        g = torch.Generator(device=dev).manual_seed(0)
+        flags = torch.randint(1, 256, (n,), dtype=torch.uint8, device=dev,
+                              generator=g) * torch.randint(
+            0, 2, (n,), dtype=torch.uint8, device=dev, generator=g)
+        words = ref.bitpack_ref(flags)
+        if not torch.equal(codec.bitpack(flags), words) or not torch.equal(
+                codec.bitunpack(words, n), ref.bitunpack_ref(words, n)):
+            raise AssertionError(f"B8/B9 differ from their twins at {n}")
+        res[f"B8 {n}"] = c.wrapper_calls(lambda: codec.bitpack(flags), 1,
+                                         reps=50)
+        res[f"B9 {n}"] = c.wrapper_calls(lambda: codec.bitunpack(words, n),
+                                         1, reps=50)
+    for r in res.values():
+        r.pop("profiled_host_ms", None)
+    print("RESULT", sys.argv[1], json.dumps(res))
+    sys.exit(0)
 R, TILE = 512, 16384
 arrays = c.orion_tree().to_arrays()
 has_tile = "tile_n" in inspect.signature(
@@ -89,7 +115,9 @@ print("RESULT", sys.argv[1], json.dumps(res))
 '''
 
 
-def main(dirs: list[str]) -> int:
+def main(args: list[str]) -> int:
+    part = "bitfields" if "--bitfields" in args else "projection"
+    dirs = [a for a in args if a != "--bitfields"]
     try:
         import torch
     except ImportError:
@@ -109,7 +137,8 @@ def main(dirs: list[str]) -> int:
         if not (root / "chip_smoke.py").is_file():
             print(f"chip_kernel_ab: no checkout at {root}", file=sys.stderr)
             return 1
-        run = subprocess.run([sys.executable, "-c", CHILD, d], cwd=root,
+        run = subprocess.run([sys.executable, "-c", CHILD, d, part],
+                             cwd=root,
                              capture_output=True, text=True, timeout=600)
         lines = [ln for ln in run.stdout.splitlines()
                  if ln.startswith("RESULT ")]

@@ -20,6 +20,10 @@ non-zero (and prints no result) otherwise, or on any failure.
      2/4/8, decode, bitfield pack and unpack) against their twins,
      bitwise, on the density groups and ``refine`` flags of the Sedov
      trees and of the Orion tree, B6's three outputs views of one buffer;
+     B8 and B9 also on random flags around a word and a 512-flag span, at
+     2^27 flags and at a ragged 2^27 - 5, each also through its
+     unaligned path (flags at a 1-byte offset; B9's words at a 1-word
+     offset);
      B1 and B4 (which build their leaf table in the paint kernel they
      share) also at slice positions on exact cell boundaries and with
      rows of out-of-range level on the Sedov trees, and on coarse-leaf
@@ -89,9 +93,10 @@ non-zero (and prints no result) otherwise, or on any failure.
      the old chain of 35 per-tile calls timed in the same run, with B5's
      five steps and ``projection_kernel`` float32 against float64 from
      ``torch.profiler``; B3-f32 on the one-shard float32 table;
-     B6-B9 at the Orion codec shapes, B7 on contiguous residues), its
-     plain twin, B7's library yardstick (one ``torch.bitwise_xor``) and
-     its bound; for B1-B7 and the float32 kernels also the
+     B6-B9 at the Orion codec shapes, B7 on contiguous residues, B8 and
+     B9 also at 2^27 flags), its plain twin, B7's library yardstick (one
+     ``torch.bitwise_xor``) and its bound; for B1-B9 and the float32
+     kernels also the
      host's own time per wrapper call (a loop with no sync), its split by
      step, and the kernels' device time by kernel (``torch.profiler``);
      B1's and B3's (and B3-f32's) calls must record no torch op but
@@ -231,7 +236,11 @@ non-zero (and prints no result) otherwise, or on any failure.
      the (1, 1) cell of (b); each must exit 0 and write its JSON, whose
      per-device argument bytes, peak, flops, collectives by type,
      dominant term and H100 bound are printed, and each repaired pair's
-     (2, 16, 16) peak must not pass its (16, 16) peak; (b) stablelm-1.6b uncut (24 layers, B = 2, S = 4,096,
+     (2, 16, 16) peak must not pass its (16, 16) peak, printed with the
+     torch version; recurrentgemma-2b x train_4k's two peaks must equal
+     :data:`RGLRU_PEAKS`, the bytes torch 2.13 reads (its RG-LRU block
+     runs at the port's own layout, so the plan is the same on every
+     torch version); (b) stablelm-1.6b uncut (24 layers, B = 2, S = 4,096,
      phase 9's shape): three AdamW steps of the plain step, then the
      same from the same init on a (1, 1) ``("data", "model")`` mesh of
      a real NCCL group of one rank, the train state and batch placed as
@@ -264,7 +273,7 @@ non-zero (and prints no result) otherwise, or on any failure.
      flow equal to the post-hoc one, once single writer and once over
      two domains; its B1 launches are read around it),
      ``quickstart.py`` (the resume bitwise), ``train_llm.py`` at its
-     default ~100M parameters x 300 steps of 8 x 512 tokens (WSD,
+     default ~100M parameters, 150 of its 300 steps of 8 x 512 tokens (WSD,
      async HProt saves, HDep dumps; the losses must fall; steps/s,
      tokens/s, peak memory, each save's stall and the loss trajectory
      are printed), ``fault_tolerant_training.py`` (crash and resume
@@ -1632,6 +1641,65 @@ def check_codec_parity(label: str, tree, device) -> dict:
     return errs
 
 
+#: B8/B9's flag counts beyond the Orion tree's: 2^27 (a production
+#: tree's refine flags), and five fewer, a ragged last word of 27 flags
+BITFIELD_FLAGS = (134_217_728, 134_217_723)
+
+
+def random_flags(n: int, device, seed: int):
+    """``n`` flag bytes on the card from ``seed``: about half 0, the
+    rest any byte value 1-255 (every nonzero byte is a set flag)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    v = torch.randint(1, 256, (n,), dtype=torch.uint8, device=device,
+                      generator=g)
+    return v * torch.randint(0, 2, (n,), dtype=torch.uint8, device=device,
+                             generator=g)
+
+
+def check_bitfields(device) -> dict:
+    """B8/B9 against their twins, bitwise, on random flags: around a
+    half word, a word and a warp's span of 512 flags (1 to 4,097) and at
+    :data:`BITFIELD_FLAGS`; each also through its unaligned path: B8 on
+    the flags at a 1-byte offset (the ballot body), B9 reading words at
+    a 1-word offset and, through its C entry, writing flags at a 1-byte
+    offset (its byte stores)."""
+    import torch
+
+    from repro_torch.kernels import codec, cudalib, ref
+    errs = {"bitpack": 0.0, "bitunpack": 0.0}
+    for seed, n in enumerate((1, 15, 16, 17, 31, 32, 33, 511, 512, 513,
+                              4097) + BITFIELD_FLAGS):
+        label = f"bitfields, {n} random flags"
+        flags = random_flags(n, device, seed)
+        shifted = torch.zeros(n + 1, dtype=torch.uint8, device=device)
+        shifted[1:] = flags
+        words = ref.bitpack_ref(flags)
+        errs["bitpack"] = max(errs["bitpack"], _all_equal(label, [
+            ("bitpack", codec.bitpack(flags), words),
+            ("bitpack (flags at a 1-byte offset)", codec.bitpack(shifted[1:]),
+             words)]))
+        del shifted
+        want = ref.bitunpack_ref(words, n)
+        moved = torch.zeros(words.numel() + 1, dtype=torch.int32,
+                            device=device)
+        moved[1:] = words
+        out = torch.empty(n + 1, dtype=torch.uint8, device=device)
+        cudalib.launch("codec_bitunpack", words.get_device(),
+                       words.data_ptr(), n, out.data_ptr() + 1)
+        errs["bitunpack"] = max(errs["bitunpack"], _all_equal(label, [
+            ("bitunpack", codec.bitunpack(words, n), want),
+            ("bitunpack (words at a 1-word offset)",
+             codec.bitunpack(moved[1:], n), want),
+            ("bitunpack (flags at a 1-byte offset, C entry)", out[1:], want),
+            ("bitunpack (flags)", want.bool(), flags.bool())]))
+        del flags, words, want, moved, out
+    print(f"parity bitfields: B8/B9 bit-equal to their twins on random "
+          f"flags at 1-4,097 and {BITFIELD_FLAGS} flags, aligned and at a "
+          f"1-byte offset (B9 also at a 1-word offset)")
+    return errs
+
+
 def codec_path_orion(tree, device) -> dict:
     """The codec on the card over one Orion snapshot (see the module
     docstring, phase 5): words held to the host codec's, son words and
@@ -2892,7 +2960,9 @@ def train_cli(tmp: Path, device, label: str, supervised: bool) -> dict:
     repro_torch.launch.train`` (TRAIN_CLI, no ``--device``: cuda) exits
     0 (under ``run_supervised`` with TRAIN_CRASH_AT on the first attempt,
     after at least one restart), its checkpoints end at step 12, its
-    in-transit catalog holds the reducers at every second step, and its
+    in-transit catalog holds the reducers at every second step (a
+    checkpoint commits only after the analyses of the steps it covers,
+    so the restart leaves no hole whatever it resumes from), and its
     ledger's ``device_fallbacks`` reads 0 in every flush."""
     from repro_torch.insitu import Catalog
     from repro_torch.train.supervisor import run_supervised
@@ -3463,6 +3533,12 @@ DRYRUN_REPAIRED = (("mixtral_8x22b", "train_4k"),
                    ("recurrentgemma_2b", "train_4k"),
                    ("granite_moe_1b_a400m", "prefill_32k"))
 DRYRUN_PAIRS = DRYRUN_REPAIRED + (("stablelm_1_6b", "train_4k"),)
+#: recurrentgemma-2b x train_4k's dry-run peaks, bytes a device on the
+#: (16, 16) and (2, 16, 16) meshes, as torch 2.13.0 reads them: the
+#: RG-LRU block's placements are the port's own, not DTensor's choice,
+#: so torch 2.11 must read the same to the byte
+RGLRU_PEAKS = {"torch": "2.13.0", "single": 45_141_218_088,
+               "multi": 23_029_421_864}
 MESH_ARCH = "stablelm_1_6b"    # phase 12(b)'s and (c)'s model, uncut
 GPIPE_STAGES, GPIPE_MICRO = 4, 8
 
@@ -3537,6 +3613,16 @@ def dryrun_finish(procs: list, out: Path, t0: float, card: str) -> dict:
         if two > one:
             raise AssertionError(f"{a} x {s}: the (2, 16, 16) peak {two} "
                                  f"passes the (16, 16) one {one}")
+    got = {m: cells[f"recurrentgemma_2b__train_4k__{m}"]["memory"][
+        "peak_bytes"] for m in ("single", "multi")}
+    want = {m: RGLRU_PEAKS[m] for m in got}
+    print(f"dryrun recurrentgemma_2b x train_4k: peaks {got} on torch "
+          f"{torch.__version__}, {want} on torch {RGLRU_PEAKS['torch']} "
+          f"[{card}]")
+    if got != want:
+        raise AssertionError(f"recurrentgemma_2b x train_4k reads peaks "
+                             f"{got} on torch {torch.__version__}, "
+                             f"{want} on {RGLRU_PEAKS['torch']}")
     print(f"dryrun phase 12(a): {len(cells)} cells, all ended "
           f"{wall!r} s after they started (beside (b) and (c)) [{card}]")
     return {"cells": cells, "wall_s": wall,
@@ -3865,13 +3951,14 @@ def mesh_phase(tmp: Path, device, card: str) -> dict:
 # ----------------------------------------------- 13. the example twins
 
 #: phase 13: ``examples/torch/<name>.py``, its arguments (the reference's
-#: sizes; ``train_llm`` at its default ~100M x 300 steps), and the line
+#: sizes; ``train_llm`` at its default ~100M, its steps cut 300 -> 150 to
+#: keep the script inside its time limit), and the line
 #: its reference's assert stands for, with its count
 TWINS = (("sedov_amr", ["--insitu"],
           "merged slice matches post-hoc assembly: True", 2),
          ("quickstart", [], "resumed-vs-uninterrupted bitwise identical: "
                             "True", 1),
-         ("train_llm", [], "losses fell", 1),
+         ("train_llm", ["--steps", "150"], "losses fell", 1),
          ("fault_tolerant_training", [], "tensors identical after "
                                          "crash+restart. OK", 1),
          ("serve_llm", [], "every family served", 1))
@@ -4730,14 +4817,22 @@ def codec_bounds(words, res, nlz, flags, packed) -> dict:
     per group; B7 two XORs; B8 a compare per flag and a ballot per word;
     B9 a shift and a mask per flag."""
     n_sg, g = res.numel(), nlz.numel()
-    n, w = flags.numel(), packed.numel()
+    n = flags.numel()
     return {"encode_groups": _bound(_nbytes(*words) + 2 * _nbytes(res)
                                     + _nbytes(nlz), 4 * n_sg + 3 * g,
                                     "int32"),
             "decode_groups": _bound(_nbytes(*words) + 2 * _nbytes(res),
                                     2 * n_sg, "int32"),
-            "bitpack": _bound(_nbytes(flags, packed), n + w, "int32"),
-            "bitunpack": _bound(_nbytes(packed) + n, 2 * n, "int32")}
+            **bitfield_bounds(n)}
+
+
+def bitfield_bounds(n: int) -> dict:
+    """Least time of B8/B9 over ``n`` flags: the n flag bytes and their
+    ceil(n/32) words each read or written once, against a compare per
+    flag and a ballot per word (B8), a shift and a mask per flag (B9)."""
+    w = -(-n // 32)
+    return {"bitpack": _bound(n + 4 * w, n + w, "int32"),
+            "bitunpack": _bound(4 * w + n, 2 * n, "int32")}
 
 
 def time_codec(tree, device) -> tuple:
@@ -4776,7 +4871,7 @@ def time_codec(tree, device) -> tuple:
                   "plain_ms": time_ms(plain, reps=20),
                   "library_ms": time_ms(lib, reps=200) if lib else None}
            for name, (kern, plain, lib) in calls.items()}
-    for name in ("encode_groups", "decode_groups"):
+    for name in calls:
         out[name]["host_ms"] = host_us(calls[name][0]) / 1e3
     # the kernels' own device time, apart from the wrappers' host work
     reps = 50
@@ -4785,14 +4880,54 @@ def time_codec(tree, device) -> tuple:
             for kern, _, _ in calls.values():
                 kern()
         torch.cuda.synchronize()
-    device_us = {e.key: e.self_device_time_total for e in prof.key_averages()}
     for name in calls:
-        us = [t for k, t in device_us.items() if f"::{name}_kernel" in k]
-        out[name]["device_ms"] = sum(us) / reps / 1e3 if us else None
+        out[name]["device_ms"] = kernel_device_ms(prof, name)
     out["decode_groups"]["host_steps_us"] = decode_steps(
         (res_hi, res_lo, *words[:2]))
     out["encode_groups"]["host_steps_us"] = encode_steps(words)
     return out, codec_bounds(words, res_hi, nlz, flags, packed)
+
+
+def kernel_device_ms(prof, name: str):
+    """The device ms a launch of ``<name>_kernel`` in the ``torch.profiler``
+    trace ``prof``, over the launches it recorded (a long trace can drop
+    some: dividing by the calls made read B8 below its bound); None
+    where it recorded none."""
+    hit = [(e.self_device_time_total, e.count) for e in prof.key_averages()
+           if f"::{name}_kernel" in e.key]
+    return sum(t for t, _ in hit) / sum(c for _, c in hit) / 1e3 \
+        if hit else None
+
+
+def time_bitfields(device) -> dict:
+    """B8/B9 at :data:`BITFIELD_FLAGS`' 2^27 random flags: the wrapper
+    (CUDA events), its plain twin, the kernel's device time
+    (``torch.profiler``), the wrapper's host ms a call and the bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import codec, ref
+    n = BITFIELD_FLAGS[0]
+    flags = random_flags(n, device, 0)
+    packed = codec.bitpack(flags)
+    calls = {"bitpack": (lambda: codec.bitpack(flags),
+                         lambda: ref.bitpack_ref(flags)),
+             "bitunpack": (lambda: codec.bitunpack(packed, n),
+                           lambda: ref.bitunpack_ref(packed, n))}
+    out, bnd = {}, bitfield_bounds(n)
+    for name, (kern, plain) in calls.items():
+        out[name] = {"flags": n, "ms": time_ms(kern, reps=50),
+                     "plain_ms": time_ms(plain, reps=3, warm=1),
+                     "host_ms": host_us(kern, 200) / 1e3, **bnd[name]}
+    reps = 20
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for kern, _ in calls.values():
+                kern()
+        torch.cuda.synchronize()
+    for name in calls:
+        out[name]["device_ms"] = kernel_device_ms(prof, name)
+    return out
 
 
 def decode_steps(ins) -> dict:
@@ -4958,6 +5093,8 @@ def main() -> int:
     for name, err in check_shard_chain(tree.to_arrays(), device).items():
         errs[name] = max(errs[name], err)
     errs.update(check_codec_parity("orion full size", tree, device))
+    for name, err in check_bitfields(device).items():
+        errs[name] = max(errs[name], err)
     errs["slice_raster"] = max(errs["slice_raster"], coarse_err)
     for name in ("level_hist", "level_hist_f32"):
         errs[name] = max(errs[name], hist_err)
@@ -5010,6 +5147,7 @@ def main() -> int:
     codec_times, codec_bnd = time_codec(tree, device)
     times.update(codec_times)
     bnd.update(codec_bnd)
+    wall["bitfields_2^27"] = time_bitfields(device)
     wall["stream_handle_us"] = time_stream_handles(device)
     b1, b3, b6, b7 = (times[k] for k in ("slice_raster", "level_hist",
                                          "encode_groups", "decode_groups"))
@@ -5034,6 +5172,16 @@ def main() -> int:
           f"events), host {b7['host_ms']!r} ms a call, device "
           f"{b7['device_ms']!r} ms; library torch.bitwise_xor "
           f"{b7['library_ms']!r} ms")
+    for name in ("bitpack", "bitunpack"):
+        t, b, big = times[name], bnd[name], wall["bitfields_2^27"][name]
+        print(f"time {name}: at the Orion flags ({tree.n_nodes}) wrapper "
+              f"{t['ms']!r} ms a call (CUDA events), host {t['host_ms']!r} "
+              f"ms a call, device {t['device_ms']!r} ms, bound "
+              f"{b['bound_ms']!r} ms; at {big['flags']} flags wrapper "
+              f"{big['ms']!r} ms, host {big['host_ms']!r} ms, device "
+              f"{big['device_ms']!r} ms, plain {big['plain_ms']!r} ms, bound "
+              f"{big['bound_ms']!r} ms by {big['bound_by']} ({big['bytes']} "
+              f"bytes) [{card}]")
     b2 = times["projection_raster"]
     print(f"time projection_raster wrapper alone on the Orion table: "
           f"{b2['wrapper_ms']!r} ms a call (CUDA events), host "

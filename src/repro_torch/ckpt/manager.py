@@ -74,6 +74,7 @@ class _PendingSave:
     step: int
     attrs: dict
     tctx: dict | None                 # ckpt.snapshot span wire context
+    fence: object = None              # called before the commit
     expected: int | None = None       # shard count; None until gathered
     landed: int = 0
     records: list = dataclasses.field(default_factory=list)
@@ -147,8 +148,11 @@ class AsyncCheckpointManager:
 
     # --------------------------------------------------------------- save
     def save(self, step: int, state, *, attrs: dict | None = None,
-             wait: bool = False) -> None:
-        """Cut a snapshot (the only synchronous part) and hand it off."""
+             wait: bool = False, fence=None) -> None:
+        """Cut a snapshot (the only synchronous part) and hand it off.
+        ``fence``, if given, is called on the gather thread once the
+        shards are handed to the lanes; the step commits only after it
+        returns (an exception fails the save)."""
         self.check_errors()
         step = int(step)
         t0 = time.perf_counter()
@@ -156,7 +160,8 @@ class AsyncCheckpointManager:
                          args={"step": step}) as sp:
             tctx = sp.context()
             cut = self._snapshot(state)
-        pend = _PendingSave(step=step, attrs=dict(attrs or {}), tctx=tctx)
+        pend = _PendingSave(step=step, attrs=dict(attrs or {}), tctx=tctx,
+                            fence=fence)
         with self._lock:
             if step in self._pending:
                 raise ValueError(f"step {step} already in flight")
@@ -287,6 +292,8 @@ class AsyncCheckpointManager:
         if obs_metrics.ENABLED:
             self._h_gather.observe(time.perf_counter() - g0)
             self._c_saves.labels(mode).inc()
+        if pend.fence is not None:
+            pend.fence()
         with self._lock:
             pend.attrs["mode"] = mode
             pend.expected = count

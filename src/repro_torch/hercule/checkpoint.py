@@ -376,8 +376,9 @@ class CheckpointManager:
 
     # ------------------------------------------------------------- save
     def save(self, step: int, state, *, attrs: dict | None = None,
-             wait: bool = False) -> None:
-        """Snapshot ``state`` (sync) and write it (async by default)."""
+             wait: bool = False, fence=None) -> None:
+        """Snapshot ``state`` (sync) and write it (async by default).
+        ``fence``, if given, is called before the context commits."""
         self.check_errors()
         snapshot = []
         for name, leaf in _leaf_paths(state):
@@ -386,7 +387,7 @@ class CheckpointManager:
                 gshape = _global_shape(leaf, host)
                 snapshot.append((name, domain, _slices_json(index, gshape),
                                  gshape, host, dtype))
-        job = (step, snapshot, dict(attrs or {}))
+        job = (step, snapshot, dict(attrs or {}), fence)
         if self.async_write:
             self._q.put(job)  # blocks if previous write still in flight
         else:
@@ -428,7 +429,7 @@ class CheckpointManager:
         return best if len(best[1]) < len(raw[1]) else raw
 
     def _write(self, job):
-        step, snapshot, attrs = job
+        step, snapshot, attrs, fence = job
         ctx = self.db.begin_context(step)
         # group-parallel writes: one closure per contributor group
         bygroup: dict[int, list] = {}
@@ -445,6 +446,8 @@ class CheckpointManager:
                                       "global_shape": list(gshape)})
         for items in bygroup.values():
             ctx.submit(write_group, items)
+        if fence is not None:
+            fence()
         ctx.finalize(attrs={**attrs, "mode": self.mode})
         # retain snapshot as the next delta predictor
         if self.mode in ("delta", "auto"):

@@ -797,6 +797,23 @@ class InTransitEngine:
                 raise TimeoutError("in-transit engine did not drain")
             time.sleep(0.005)
 
+    def settle_through(self, step: int, timeout: float = 60.0) -> None:
+        """Block until every accepted part of the steps up to ``step`` was
+        reduced (or dropped) and its context committed. Safe to call off
+        the compute thread: a checkpoint's commit waits here, so a
+        checkpoint at ``step`` is never durable before the analyses of
+        the steps it covers."""
+        deadline = time.perf_counter() + timeout
+        while True:
+            self._run_deferred()
+            with self._wlock:
+                if not any(s <= step for s in self._pending):
+                    return
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"in-transit steps up to {step} did not "
+                                   f"settle in {timeout} s")
+            time.sleep(0.005)
+
     def close(self, *, drain: bool = True) -> None:
         err: BaseException | None = None
         if drain and self._started:

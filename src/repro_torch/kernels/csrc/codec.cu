@@ -28,10 +28,32 @@
 //     width 64, S % 4 == 0 else; four uint4s a group at S = 8).
 //   * B7: an elementwise XOR over both word arrays, 16 bytes a thread
 //     (uint4 loads) when every pointer is 16-byte aligned, else words.
-//   * B8: one warp per output word. Lane i reads flag 32w + i of the flat
-//     byte array and __ballot_sync gives the word in one instruction; flags
-//     past n read as 0, so the ragged last word is exact.
-//   * B9: one thread per output flag, (words[i >> 5] >> (i & 31)) & 1.
+//   * B8 and B9 stream bytes with no reuse and no matrix product, so TMA,
+//     wgmma and shared-memory staging buy nothing: what bounds them is the
+//     number of load and store instructions, then HBM bytes. Both walk
+//     their half words grid-stride, a grid of at most 8 blocks of 256
+//     threads an SM (132 SMs), one launch.
+//   * B8: a thread packs half a word from its 16 flag bytes: one 16-byte
+//     load through the read-only path (a warp's loads are one contiguous
+//     512-byte run), __vcmpne4 marks each nonzero byte (as bits[i] != 0
+//     does), a mask and a multiply gather each 4-byte lane's marks into 4
+//     bits, and the even thread of a pair takes its neighbour's 16 bits by
+//     a shuffle and stores the word (a warp's stores are one 64-byte run).
+//     Four words a thread from eight strided 16-byte loads and one 16-byte
+//     store ran at 72 % of the byte bound at 2^27 flags on an H100, this
+//     at 86 %. The words past the last whole 512 flags (a warp's span;
+//     the ragged last word among them), and every word when the flags do
+//     not start 16-byte aligned, take the ballot body: one warp a word,
+//     lane i reads flag 32w + i and __ballot_sync gives the word; flags
+//     past n read as 0.
+//   * B9: a thread unpacks half a word: one 4-byte load (two threads
+//     share each word's), each nibble spread into four {0, 1} bytes by a
+//     multiply and a mask, one 16-byte store of its 16 flags, so a warp's
+//     stores are one contiguous 512-byte run (with a whole word a thread,
+//     each of its two 16-byte stores left half of every 32-byte sector to
+//     the other: 54 % of the byte bound at 2^27 flags on an H100, this
+//     76 %). The ragged last half, or an output not 16-byte aligned,
+//     stores byte by byte.
 //
 // B6's and B7's whole cost is their call: their device time sits at the
 // HBM bound, so each wrapper does the least host work a launch allows (one
@@ -42,6 +64,7 @@
 // synchronizes, and returns cudaGetLastError(). Sizes are positive: the
 // wrappers launch nothing for empty inputs.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -186,20 +209,91 @@ __global__ void decode_groups_kernel(const uint32_t* __restrict__ res_hi,
 
 // ------------------------------------------------------- B8/B9 bitfields
 
-// Thread i is flag i; every lane of a warp reaches the ballot.
+// at most this many blocks a launch: 8 of kThreads threads on each of the
+// H100's 132 SMs; the kernels walk the rest grid-stride
+constexpr int64_t kMaxBlocks = 132 * 8;
+
+int64_t grid_for(int64_t threads) {
+  return std::max<int64_t>(1,
+                           std::min(ceil_div(threads, kThreads), kMaxBlocks));
+}
+
+// 4 flag bytes -> 4 bits: bit k set where byte k is nonzero. __vcmpne4
+// gives 0xff in each nonzero byte; byte k keeps bit k (positions 0, 9, 18,
+// 27), and the multiply adds the four bytes into the top byte, no carries.
+__device__ __forceinline__ uint32_t lane_bits(uint32_t v) {
+  return ((__vcmpne4(v, 0u) & 0x08040201u) * 0x01010101u) >> 24;
+}
+
+// 16 flag bytes -> 16 bits
+__device__ __forceinline__ uint32_t bits16(uint4 v) {
+  return lane_bits(v.x) | lane_bits(v.y) << 4 | lane_bits(v.z) << 8 |
+         lane_bits(v.w) << 12;
+}
+
+// kVec: the flags 16-byte aligned. Threads walk the halves of whole
+// warp spans of 512 flags; then warps walk the words left, a word a warp,
+// with the ballot body. blockDim.x is a multiple of 32, so each warp's
+// loop bounds are uniform and every lane reaches the shuffle and the
+// ballot.
+template <bool kVec>
 __global__ void bitpack_kernel(const uint8_t* __restrict__ bits, int64_t n,
                                int64_t n_words,
                                uint32_t* __restrict__ words) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool on = i < n && bits[i] != 0;
-  const uint32_t word = __ballot_sync(0xffffffffu, on);
-  if ((threadIdx.x & 31) == 0 && (i >> 5) < n_words) words[i >> 5] = word;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  int64_t done = 0;
+  if (kVec) {
+    // thread h packs flags [16h, 16h + 16) (one 16-byte load; a warp's
+    // loads are one 512-byte run); the even thread of a pair takes its
+    // neighbour's 16 bits and stores their word. Whole warps only: spans
+    // is a multiple of 32 halves, as is each warp's first h.
+    const int64_t spans = n / 512 * 32;
+    const uint4* in = reinterpret_cast<const uint4*>(bits);
+    for (int64_t h = tid; h < spans; h += stride) {
+      const uint32_t b = bits16(__ldg(in + h));
+      const uint32_t hi = __shfl_down_sync(0xffffffffu, b, 1);
+      if ((h & 1) == 0) words[h >> 1] = b | hi << 16;
+    }
+    done = spans / 2;
+  }
+  const int lane = threadIdx.x & 31;
+  for (int64_t w = done + (tid >> 5); w < n_words; w += stride >> 5) {
+    const int64_t i = 32 * w + lane;
+    const bool on = i < n && bits[i] != 0;
+    const uint32_t word = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) words[w] = word;
+  }
 }
 
+// 4 bits -> 4 bytes {0, 1}: bit k lands in byte k (the multiply puts bit
+// j at j + 7m for m = 0..3, all distinct, and the mask keeps j = m).
+__device__ __forceinline__ uint32_t nibble_bytes(uint32_t x) {
+  return ((x & 0xfu) * 0x00204081u) & 0x01010101u;
+}
+
+// Thread t writes flags [16t, 16t + 16): half t & 1 of word t >> 1, so
+// a warp's stores are one contiguous run of 512 bytes (the two threads of
+// a word load it once between them). kVec: the flags 16-byte aligned.
+template <bool kVec>
 __global__ void bitunpack_kernel(const uint32_t* __restrict__ words,
                                  int64_t n, uint8_t* __restrict__ bits) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) bits[i] = (words[i >> 5] >> (i & 31)) & 1u;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t whole = n >> 4, halves = (n + 15) >> 4;
+  for (int64_t h = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       h < halves; h += stride) {
+    const uint32_t x = __ldg(words + (h >> 1)) >> (16 * (h & 1));
+    if (kVec && h < whole) {
+      reinterpret_cast<uint4*>(bits)[h] =
+          make_uint4(nibble_bytes(x), nibble_bytes(x >> 4),
+                     nibble_bytes(x >> 8), nibble_bytes(x >> 12));
+    } else {
+      const int64_t left = n - 16 * h;
+      for (int k = 0; k < 16 && k < left; ++k) {
+        bits[16 * h + k] = (x >> k) & 1u;
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -255,10 +349,18 @@ int codec_bitpack(const uint8_t* bits, int64_t n, uint32_t* words,
                   int32_t device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t n_words = ceil_div(n, 32);
-  bitpack_kernel<<<ceil_div(32 * n_words, kThreads), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(bits, n, n_words,
-                                                        words);
+  if (aligned16(bits)) {
+    // threads for the whole spans' halves, or a warp for each word left
+    const int64_t spans = n / 512 * 32;
+    const int64_t threads = std::max(spans, 32 * (n_words - spans / 2));
+    bitpack_kernel<true><<<grid_for(threads), kThreads, 0, st>>>(
+        bits, n, n_words, words);
+  } else {
+    bitpack_kernel<false><<<grid_for(32 * n_words), kThreads, 0, st>>>(
+        bits, n, n_words, words);
+  }
   return cudaGetLastError();
 }
 
@@ -266,8 +368,13 @@ int codec_bitunpack(const uint32_t* words, int64_t n, uint8_t* bits,
                     int32_t device, void* stream) {
   const DeviceGuard guard(device);
   if (guard.error() != cudaSuccess) return guard.error();
-  bitunpack_kernel<<<ceil_div(n, kThreads), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(words, n, bits);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t blocks = grid_for(ceil_div(n, 16));
+  if (aligned16(bits)) {
+    bitunpack_kernel<true><<<blocks, kThreads, 0, st>>>(words, n, bits);
+  } else {
+    bitunpack_kernel<false><<<blocks, kThreads, 0, st>>>(words, n, bits);
+  }
   return cudaGetLastError();
 }
 

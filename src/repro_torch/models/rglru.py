@@ -9,6 +9,16 @@ another order than XLA's tree, so the two agree to float32 rounding, not
 bit for bit. Decode is the single-step update ``h = a h_prev + b`` of
 one token against the cache ``{"conv": (B, 3, W), "h": (B, W)}``.
 
+On a mesh the block runs at one layout the port chooses, never one
+DTensor's propagation picks: (B, S, W) activations split as ("batch",
+None, "state") name them, the seq dim whole. The convolution, the gates,
+the scan and the output gating run on each rank's pieces
+(``sharding.per_rank``), and the gate products' partial sums over the
+width reduce-scatter into that layout (``sharding.reduce_to``). Left to
+DTensor, torch 2.11 reduced those sums to whole rows and scanned at 16
+times a rank's width, where 2.13 split the batch and moved the pieces
+back and forth by all-to-alls.
+
 The input's weight sqrt(1 - a_t^2) is the reference's ``1 - a * a``.
 Where a_t is near 1 (r_t near 0) that keeps only the digits of a_t that
 survive the rounding of ``exp``, so the result hangs on exp's last bit,
@@ -17,6 +27,8 @@ further from a float64 run than the CPU's (within 1 ulp). The port takes
 a_t as the float32 rounding of a float64 exp, the same on every device.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -45,10 +57,10 @@ def _proj(x, w):
     return dot("...d,dk->...k", x, w, f32=False)
 
 
-def _gates(p, xw):
-    r = sigmoid(_proj(xw, p["gate_r"]).float())
-    i = sigmoid(_proj(xw, p["gate_i"]).float())
-    log_a = -_C * softplus(p["lam"].float()) * r
+def _gates(r_pre, i_pre, lam, xw):
+    r = sigmoid(r_pre.float())
+    i = sigmoid(i_pre.float())
+    log_a = -_C * softplus(lam.float()) * r
     a = torch.exp(log_a.double()).float()    # rounded alike everywhere
     gated = i * xw.float()
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * gated
@@ -67,12 +79,7 @@ def _causal_conv(x, w, state=None):
 def linear_scan(a, b):
     """h_t = a_t h_{t-1} + b_t with h_{-1} = 0, along axis 1, in
     ceil(log2 S) doubling steps: after the step of offset o each
-    position holds the composition of the o-wide window ending there.
-    Each rank scans its own shard (``sharding.along``)."""
-    return sharding.along(_doubling_scan, (a, b), 1)
-
-
-def _doubling_scan(a, b):
+    position holds the composition of the o-wide window ending there."""
     s = a.shape[1]
     off = 1
     while off < s:
@@ -83,16 +90,41 @@ def _doubling_scan(a, b):
     return b
 
 
+def _recur(xw, r_pre, i_pre, lam, g, h_prev=None, *, dtype):
+    """Gates, recurrence and output gating of one block's pieces: (y,
+    the last h). ``g`` is the gate branch's product, ``h_prev`` decode's
+    cached state."""
+    gate_in = gelu(g.float())
+    a, b = _gates(r_pre, i_pre, lam, xw)
+    h = linear_scan(a, b) if h_prev is None else a * h_prev[:, None] + b
+    return (h * gate_in).to(dtype), h[:, -1]
+
+
 def rglru_block(p, x, cfg, cache=None, pos=None):
     """x: (B, S, D) full-seq, or (B, 1, D) decode with cache
     {"conv": (B,3,W), "h": (B,W)} (not written). Returns (y, new cache)."""
-    gate_in = gelu(_proj(x, p["in_gate"]).float())
-    xw, conv_state = _causal_conv(_proj(x, p["in_x"]), p["conv_w"],
-                                  None if cache is None else cache["conv"])
-    a, b = _gates(p, xw)
-    h = linear_scan(a, b) if cache is None else a * cache["h"][:, None] + b
-    y = (h * gate_in).to(x.dtype)
-    return pin_out(_proj(y, p["out"])), {"conv": conv_state, "h": h[:, -1]}
+    bsz, s = x.shape[:2]
+    k, w = p["conv_w"].shape
+    act = sharding.layout((bsz, s, w), "batch", None, "state")
+    conv = sharding.layout((bsz, k - 1, w), "batch", None, "state")
+    row = sharding.layout((bsz, w), "batch", "state")
+    lam = sharding.layout((w,), "state")
+    args, place = (_proj(x, p["in_x"]), p["conv_w"]), \
+        (act, sharding.layout((k, w), None, "state"))
+    if cache is not None:
+        args, place = args + (cache["conv"],), place + (conv,)
+    xw, conv_state = sharding.per_rank(_causal_conv, args, place,
+                                       (act, conv))
+    # the width is contracted: each model rank holds a partial sum
+    args = (xw, *(sharding.reduce_to(_proj(xw, p[k]), act)
+                  for k in ("gate_r", "gate_i")),
+            p["lam"], _proj(x, p["in_gate"]))
+    place = (act, act, act, lam, act)
+    if cache is not None:
+        args, place = args + (cache["h"],), place + (row,)
+    y, h = sharding.per_rank(functools.partial(_recur, dtype=x.dtype), args,
+                             place, (act, row))
+    return pin_out(_proj(y, p["out"])), {"conv": conv_state, "h": h}
 
 
 def rglru_cache_spec(cfg, batch: int, device) -> dict:

@@ -20,8 +20,17 @@ Where DTensor's own rules cannot carry the model code, or carry it only
 at the global shape, the code calls a function here that works on the
 local shards (mostly one op per rank, :func:`local_call`, ``local_map``
 with the gradients placed right): :func:`einsum`, :func:`along`,
-:func:`take`, :func:`logsumexp` and :func:`write_slice`. On plain
-tensors each is the plain op.
+:func:`take`, :func:`logsumexp`, :func:`write_slice` and
+:func:`per_rank`. On plain tensors each is the plain op.
+
+Where DTensor would be left to choose how operands of different
+placements meet, the choice can differ between torch versions (torch
+2.11 reduced RG-LRU's gate products to whole rows where 2.13 split
+their batch, and its scan ran at 16 times the width a rank holds), so
+the port fixes it: :func:`layout` gives the placements the rules name,
+:func:`per_rank` runs a function on pieces laid out so, and
+:func:`reduce_to` reduces a partial sum to them by explicit
+collectives.
 
 A dim split over several mesh axes is split in the order the spec
 names them, as a ``PartitionSpec`` splits it: the first axis major.
@@ -333,6 +342,28 @@ def local_call(fn, args: tuple, in_place: tuple, out_place: tuple, mesh):
                      redistribute_inputs=True)(*args)
 
 
+def layout(shape: tuple, *axes):
+    """The placements the active rules give a tensor of ``shape`` with
+    logical ``axes``; None outside :func:`use_rules`."""
+    ctx = active()
+    if ctx is None:
+        return None
+    return placements(resolve_spec(tuple(shape), tuple(axes), *ctx), ctx[1])
+
+
+def per_rank(fn, args: tuple, in_place: tuple, out_place: tuple):
+    """``fn(*args)`` on each rank's own pieces (:func:`local_call`), the
+    args laid out as ``in_place`` and the outputs as ``out_place``, one
+    tuple of placements each (:func:`layout`), so that no op inside meets
+    operands of different placements and DTensor chooses no
+    redistribution. Without a DTensor among ``args``, ``fn(*args)``."""
+    from torch.distributed.tensor import DTensor
+    first = next((a for a in args if isinstance(a, DTensor)), None)
+    if first is None:
+        return fn(*args)
+    return local_call(fn, args, in_place, out_place, first.device_mesh)
+
+
 def _collective(op, local, dim: int, mesh, m: int, *extra):
     """``_c10d_functional``'s ``op`` (it works on dim 0) over mesh dim
     ``m`` along tensor dim ``dim``."""
@@ -462,6 +493,79 @@ def gather(x, dim: int):
     dim %= x.ndim
     order = split_order(tuple(x.placements), dim)
     return _Gather.apply(x, dim, order) if order else x
+
+
+class _Reduce(torch.autograd.Function):
+    """A DTensor's partial sums reduced to the placements ``place``: on
+    each mesh dim that holds them, a reduce-scatter into ``place``'s
+    split or an all-reduce where ``place`` replicates. The backward
+    all-gathers the gradient where the forward scattered it (each rank's
+    partial sum takes the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, place):
+        from torch.distributed.tensor import DTensor
+        c10d = torch.ops._c10d_functional
+        mesh = x.device_mesh
+        local = x.to_local()
+        for m, q in enumerate(x.placements):
+            if not q.is_partial():
+                continue
+            if place[m].is_shard():
+                local = _collective(c10d.reduce_scatter_tensor, local,
+                                    place[m].dim, mesh, m, "sum")
+            else:
+                local = c10d.wait_tensor(c10d.all_reduce(
+                    local, "sum", mesh.get_group(m).group_name))
+        stride = _dense_stride(x.shape)
+        ctx.meta = (mesh, tuple(x.placements), x.shape, stride, place)
+        return DTensor.from_local(local.contiguous(), mesh, place,
+                                  run_check=False, shape=x.shape,
+                                  stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh, place_in, shape, stride, place = ctx.meta
+        if tuple(g.placements) != place:
+            g = g.redistribute(mesh, place)
+        local = g.to_local()
+        for m in reversed(range(mesh.ndim)):
+            if place_in[m].is_partial() and place[m].is_shard():
+                local = _collective(
+                    torch.ops._c10d_functional.all_gather_into_tensor,
+                    local, place[m].dim, mesh, m)
+        out = tuple(Replicate() if q.is_partial() else q for q in place_in)
+        return DTensor.from_local(local.contiguous(), mesh, out,
+                                  run_check=False, shape=shape,
+                                  stride=stride), None
+
+
+def reduce_to(x, place: tuple):
+    """``x`` with its partial sums reduced to the placements ``place``
+    (:func:`layout`) by explicit collectives (:class:`_Reduce`), where
+    DTensor would reduce them at the next op that needs it, to a
+    placement of its own choice. Only the mesh dims that hold partial
+    sums move; the others must lie as ``place`` says already, and a
+    split is added only on the minor side of a dim's existing splits.
+    Any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    have = tuple(x.placements)
+    for m, (q, want) in enumerate(zip(have, place)):
+        if q.is_partial():
+            if q.reduce_op != "sum":
+                raise NotImplementedError(f"reduce of a {q} partial")
+            if want.is_partial() or _strided(want) or want.is_shard() and                     any(_splits(have[j], want.dim) for j in range(m + 1,
+                                                                  len(have))):
+                raise NotImplementedError(f"reduce {have} to {place}")
+        elif q != want:
+            raise ValueError(f"reduce {have} to {place}: mesh dim {m} is "
+                             f"not a partial sum")
+    if have == tuple(place):
+        return x
+    return _Reduce.apply(x, tuple(place))
 
 
 def _held(coord, rows: int, src: list, gathered: list, mesh) -> list:
@@ -684,11 +788,9 @@ def along(fn, args: tuple, dim: int):
     the first arg's other splits, which every arg takes. A mesh dim on
     which the first arg splits ``dim`` (or holds a partial sum) splits
     another dim instead where one divides: one that an arg splits
-    there, else the last, so that split still divides the scan's work
-    (on the (2, 16, 16) mesh RG-LRU's seq split over "model" becomes a
-    split of its width). Torch 2.11's DTensor has no rule for the ``flip`` of
-    ``cumsum``'s backward, and its planner fails on the ``pad`` of a
-    doubling scan."""
+    there, else the last, so that split still divides the scan's work.
+    Torch 2.11's DTensor has no rule for the ``flip`` of ``cumsum``'s
+    backward."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     args = tuple(unstride(a) for a in args)
     first = next((a for a in args if isinstance(a, DTensor)), None)

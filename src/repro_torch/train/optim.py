@@ -92,22 +92,29 @@ def zeros_f32(x):
                                              dtype=torch.float32))
 
 
-def _square_sum(x):
-    """``sum(x * x)`` in float32; for a DTensor, each rank's over its
-    piece, a partial sum over the mesh dims that split it."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-    if not isinstance(x, DTensor):
-        return torch.sum(torch.square(x.float()))
-    part = torch.sum(torch.square(local(x).float()))
-    place = [Replicate() if q.is_partial() or isinstance(q, Replicate)
-             else Partial() for q in x.placements]
-    return DTensor.from_local(part, x.device_mesh, place, run_check=False)
-
-
 def global_norm(tree):
-    total = 0
+    """sqrt of the sum of every leaf's squares, in float32. For DTensors,
+    each rank sums its pieces' squares apart for each layout of the
+    leaves (a partial sum over the mesh dims that split them), and each
+    layout's sum is all-reduced explicitly (``sharding.reduce_to``):
+    adding partial sums of different placements leaves the reduction to
+    DTensor, and torch 2.11 all-reduces every leaf's where 2.13 keeps
+    them partial."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    total, parts = 0, {}
     for x in _leaves(tree):
-        total = total + _square_sum(x)
+        if not isinstance(x, DTensor):
+            total = total + torch.sum(torch.square(x.float()))
+            continue
+        place = tuple(Replicate() if q.is_partial() or isinstance(
+            q, Replicate) else Partial() for q in x.placements)
+        key = (x.device_mesh, place)
+        parts[key] = parts.get(key, 0) + torch.sum(torch.square(
+            local(x).float()))
+    for (mesh, place), part in parts.items():
+        total = total + sharding.reduce_to(
+            DTensor.from_local(part, mesh, place, run_check=False),
+            (Replicate(),) * mesh.ndim)
     return torch.sqrt(total)
 
 

@@ -23,6 +23,7 @@ a fresh start and after a restore.
 """
 from __future__ import annotations
 
+import functools
 import os
 import signal
 import tempfile
@@ -215,17 +216,22 @@ class Trainer:
                 if crash_at and (s + 1) == crash_at:
                     print(f"induced crash at step {s+1}", flush=True)
                     os._exit(17)
-                if (s + 1) % self.ckpt_every == 0 or (s + 1) == num_steps \
-                        or self._stop:
-                    self.ckpt.save(s + 1, state,
-                                   attrs={"loss": metrics["loss"]})
-                if self.hdep is not None and (s + 1) % self.hdep_every == 0:
-                    self._dump_analysis(s + 1, state)
                 if self.insitu is not None:
                     # in-transit flow: engine decides cadence +
                     # backpressure; compute never stalls under a
                     # non-blocking policy
                     self.insitu.submit_state(s + 1, state)
+                if (s + 1) % self.ckpt_every == 0 or (s + 1) == num_steps \
+                        or self._stop:
+                    # the checkpoint commits only once the analyses of
+                    # the steps it covers did: a restart from it never
+                    # leaves a hole in the catalog
+                    fence = None if self.insitu is None else \
+                        functools.partial(self.insitu.settle_through, s + 1)
+                    self.ckpt.save(s + 1, state, fence=fence,
+                                   attrs={"loss": metrics["loss"]})
+                if self.hdep is not None and (s + 1) % self.hdep_every == 0:
+                    self._dump_analysis(s + 1, state)
                 if self._stop:
                     print(f"signal received: checkpointed at step {s+1}, "
                           f"exiting", flush=True)

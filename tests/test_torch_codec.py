@@ -140,6 +140,74 @@ def test_bitfield_pack_unpack_vs_reference(n):
     np.testing.assert_array_equal(u32(words), padded)
 
 
+def _pack_mirror(flags: np.ndarray, aligned: bool) -> np.ndarray:
+    """B8's kernel (``csrc/codec.cu`` ``bitpack_kernel``) in numpy: over
+    the whole warp spans of 512 flags, thread h's 16 flag bytes as four
+    little-endian 4-byte lanes, ``__vcmpne4`` marking each nonzero byte
+    0xff, the mask 0x08040201 and the multiply by 0x01010101 (mod 2^32)
+    gathering a lane into 4 bits, word h / 2 from halves h and h + 1; the
+    words left (all of them when the flags are not 16-byte aligned) by
+    the ballot body."""
+    n = flags.size
+    words = np.zeros(-(-n // 32), np.uint32)
+    spans = n // 512 * 32 if aligned else 0
+    lanes = flags[:16 * spans].view("<u4").reshape(spans, 4)
+    marks = np.zeros_like(lanes)
+    for k in range(4):
+        marks |= np.where((lanes >> np.uint32(8 * k)) & np.uint32(0xff),
+                          np.uint32(0xff << 8 * k), np.uint32(0))
+    nibbles = ((marks & np.uint32(0x08040201)) * np.uint32(0x01010101)) \
+        >> np.uint32(24)
+    halves = np.zeros(spans, np.uint32)
+    for q in range(4):
+        halves |= nibbles[:, q] << np.uint32(4 * q)
+    words[:spans // 2] = halves[0::2] | halves[1::2] << np.uint32(16)
+    for w in range(spans // 2, words.size):
+        for i in range(32 * w, min(32 * w + 32, n)):
+            words[w] |= np.uint32(flags[i] != 0) << np.uint32(i - 32 * w)
+    return words
+
+
+def _unpack_mirror(words: np.ndarray, n: int, aligned: bool) -> np.ndarray:
+    """B9's kernel (``bitunpack_kernel``) in numpy: thread h's 16 flags,
+    half h & 1 of word h >> 1, nibble q spread into four {0, 1} bytes by
+    the multiply by 0x00204081 and the mask 0x01010101; the ragged last
+    half (every half when the flags are not 16-byte aligned) byte by
+    byte."""
+    x = words.view(np.uint32)
+    whole = n // 16 if aligned else 0
+    half = x[np.arange(whole) >> 1] >> (np.uint32(16) * (
+        np.arange(whole, dtype=np.uint32) & np.uint32(1)))
+    lanes = np.stack([((half >> np.uint32(4 * q)) & np.uint32(0xf))
+                      * np.uint32(0x00204081) & np.uint32(0x01010101)
+                      for q in range(4)], axis=1)
+    out = np.zeros(n, np.uint8)
+    out[:16 * whole] = lanes.astype("<u4").view(np.uint8).reshape(-1)
+    for i in range(16 * whole, n):
+        out[i] = (x[i // 32] >> np.uint32(i % 32)) & np.uint32(1)
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 31, 32, 33, 511, 512, 513,
+                               4097, 32 * 1024 + 17])
+def test_bitfield_kernel_mirror_gives_the_twins(n):
+    """The bit arithmetic and index math of B8/B9's kernels (numpy
+    mirrors, vector and byte paths) against the twins ``ref.bitpack_ref``
+    and ``ref.bitunpack_ref``, on flags of every byte value (any nonzero
+    byte is a set flag), around a half word, a word and a warp's span
+    of 512 flags."""
+    rng = np.random.default_rng(n)
+    flags = (rng.integers(1, 256, n) * (rng.random(n) < 0.5)).astype(
+        np.uint8)
+    want = ref.bitpack_ref(torch.from_numpy(flags)).numpy().view(np.uint32)
+    back = ref.bitunpack_ref(torch.from_numpy(want.view(np.int32)), n)
+    np.testing.assert_array_equal(back.numpy(), flags != 0)
+    for aligned in (True, False):
+        np.testing.assert_array_equal(_pack_mirror(flags, aligned), want)
+        np.testing.assert_array_equal(
+            _unpack_mirror(want.view(np.int32), n, aligned), back.numpy())
+
+
 @pytest.mark.parametrize("width", [64, 32, 16])
 @pytest.mark.parametrize("g", [1000, 2048])
 def test_compress_bits_words_vs_reference_and_host_codec(g, width):

@@ -5,6 +5,7 @@ production meshes (the reference's from its ``input_specs``, axes and
 collective model, and the five families of the reference's small-mesh
 dry-run traced through the port. Fake process groups are torn down in a
 ``finally`` (``dryrun.fake_group``)."""
+import contextlib
 import textwrap
 
 import numpy as np
@@ -413,15 +414,79 @@ def test_moe_combine_stays_at_a_ranks_groups(monkeypatch):
 
 
 def test_rglru_scan_splits_over_every_mesh_dim(monkeypatch):
-    """C6: on a (2, 2, 2) mesh with four batch rows, "model" splits the
-    RG-LRU scan's seq dim; the scan moves that split to the width, so
-    each rank scans an eighth of the (b, s, width) float32 pairs (it was
-    a quarter: "model" left whole)."""
-    from repro_torch import sharding
+    """C6: on a (2, 2, 2) mesh with four batch rows, each rank scans an
+    eighth of the RG-LRU's (b, s, width) float32 pairs: the block's own
+    layout splits the batch over ("pod", "data") and the width over
+    "model", the seq dim whole (it was a quarter: "model" left whole)."""
+    from repro_torch.models import rglru
     cfg = get_smoke_config("recurrentgemma_2b")
     b, s = 4, 64
     mode = _Scoped()
-    mode.wrap(monkeypatch, sharding, "along")
+    mode.wrap(monkeypatch, rglru, "linear_scan")
     got, op = _traced("recurrentgemma_2b", "train_4k", (2, 2, 2), cfg, b, s,
                       mode)
     assert 0 < got <= b * s * cfg.lru_width * 4 // 8, (op, got)
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2, 2), (4, 4)])
+def test_rglru_block_leaves_no_redistribution_to_dtensor(monkeypatch,
+                                                         mesh_shape):
+    """C7: inside the RG-LRU block (its forward, in train_4k's step of
+    the smoke model) DTensor chooses no redistribution: no op's
+    operands are moved by DTensor's dispatch (``_dispatch``'s
+    ``redistribute_local_tensor``, where its planner picks the
+    all-to-alls, all-gathers and all-reduces), and no shard-to-shard
+    all-to-all runs. Every move is one the port names (``per_rank``'s
+    layouts, ``reduce_to``), so torch 2.11 and 2.13 plan the block
+    alike; left to DTensor, 2.11 reduced the gate products to whole rows
+    and 2.13 split their batch."""
+    from torch.distributed.tensor import _dispatch, placement_types
+
+    from repro_torch.models import rglru
+    inside, calls, moved = [False], [0], []
+    block = rglru.rglru_block
+
+    def scoped(*args, **kwargs):
+        inside[0] = True
+        calls[0] += 1
+        try:
+            return block(*args, **kwargs)
+        finally:
+            inside[0] = False
+
+    def watch(name, fn):
+        def run(local, current, target, *args, **kwargs):
+            if inside[0] and (name != "dispatch" or
+                              current.placements != target.placements):
+                moved.append((name, current.placements, target.placements))
+            return fn(local, current, target, *args, **kwargs)
+        return run
+    monkeypatch.setattr(rglru, "rglru_block", scoped)
+    monkeypatch.setattr(_dispatch, "redistribute_local_tensor",
+                        watch("dispatch", _dispatch.redistribute_local_tensor))
+    asked = dryrun._alltoall_as_asked
+
+    @contextlib.contextmanager
+    def counting():
+        # inside the dry-run's own all-to-all, which it installs there
+        with asked():
+            alltoall = placement_types.shard_dim_alltoall
+
+            def counted(*args, **kwargs):
+                if inside[0]:
+                    moved.append(("shard_dim_alltoall", args[1:3]))
+                return alltoall(*args, **kwargs)
+            placement_types.shard_dim_alltoall = counted
+            try:
+                yield
+            finally:
+                placement_types.shard_dim_alltoall = alltoall
+    monkeypatch.setattr(dryrun, "_alltoall_as_asked", counting)
+    cfg = get_smoke_config("recurrentgemma_2b")
+    _traced("recurrentgemma_2b", "train_4k", mesh_shape, cfg, 8, 64,
+            _Largest())
+    pattern = cfg.block_pattern
+    rec = [pattern[i % len(pattern)] for i in range(cfg.n_layers)].count(
+        "rec")
+    assert calls[0] == rec, (calls[0], rec)
+    assert not moved, moved

@@ -343,7 +343,7 @@ try:
                                   sharding.distribute(b, ab, rules, mesh))
             err = (got.full_tensor() - torch.einsum(eq, a, b)).abs().max()
             out["einsum"] = max(out["einsum"], float(err))
-    for arch in sys.argv[3].split(","):
+    for arch in filter(None, sys.argv[3].split(",")):
         cfg = dataclasses.replace(get_smoke_config(arch),
                                   compute_dtype="float32")
         gen = torch.Generator().manual_seed(5)
@@ -386,7 +386,7 @@ try:
         out[arch] = runs
         out["grads " + arch] = worst(grads[1], grads[0])
         out["params " + arch] = worst(params1[1], params1[0])
-    for arch in sys.argv[4].split(","):
+    for arch in filter(None, sys.argv[4].split(",")):
         cfg = dataclasses.replace(get_smoke_config(arch),
                                   compute_dtype="float32")
         lm = LM(cfg, device="cpu")
@@ -428,25 +428,13 @@ finally:
 """
 
 
-def test_four_rank_mesh_matches_the_plain_step():
-    """On four gloo ranks, a (2, 2) mesh (every placement a real split):
-    the sharded einsum against ``torch.einsum``; prefill and decode of
-    three families with the cache split as decode_32k splits it, within
-    5e-4 of the largest logit; and three AdamW steps of
-    four families at float32 compute against the plain steps: the same
-    sums in other orders, so the first loss within 1e-6 relative; every
-    leaf of the first step's grads and of the parameters after it within
-    1e-3 (relative norms); the
-    first grad norm and the later losses within 2e-3 (the plain float32
-    grads of these smoke models are themselves up to 1.1e-3 from
-    float64, at whisper's encoder norm, and AdamW's first update turns
-    such noise into a +-lr step; whisper's later grad norms, 68 -> 17 ->
-    75-80, swing with it, so they are printed, not held)."""
+def _four_ranks(archs: str, decode: str) -> dict:
+    """Run ``_RANK`` on four gloo ranks over the comma-separated
+    ``archs`` (three AdamW steps) and ``decode`` (prefill and decode);
+    rank 0's RESULT."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = str(s.getsockname()[1])
-    archs = "stablelm_1_6b,granite_moe_1b_a400m,mamba2_1_3b,whisper_medium"
-    decode = "stablelm_1_6b,recurrentgemma_2b,whisper_medium"
     env = {**os.environ, "PYTHONPATH": SRC}
     procs = [subprocess.Popen([sys.executable, "-c", _RANK, str(r), port,
                                archs, decode], env=env,
@@ -462,8 +450,12 @@ def test_four_rank_mesh_matches_the_plain_step():
     for p, (_, err) in zip(procs, outs):
         assert p.returncode == 0, err[-3000:]
     line = [x for x in outs[0][0].splitlines() if x.startswith("RESULT ")]
-    out = json.loads(line[0][len("RESULT "):])
-    assert out["einsum"] < 1e-5
+    return json.loads(line[0][len("RESULT "):])
+
+
+def _hold_train(out: dict, archs: str) -> None:
+    """The four-rank steps of ``archs`` against the plain ones (see
+    :func:`test_four_rank_mesh_matches_the_plain_step`)."""
     for arch in archs.split(","):
         (plain_l, plain_n), (mesh_l, mesh_n) = out[arch]
         print(arch, "losses", mesh_l, plain_l, "grad norms", mesh_n, plain_n,
@@ -478,6 +470,27 @@ def test_four_rank_mesh_matches_the_plain_step():
         # is 2.0e-4 and 1.3e-4, at whisper's layer-norm biases
         assert out["grads " + arch][0] < 1e-3, (arch, out["grads " + arch])
         assert out["params " + arch][0] < 1e-3, (arch, out["params " + arch])
+
+
+def test_four_rank_mesh_matches_the_plain_step():
+    """On four gloo ranks, a (2, 2) mesh (every placement a real split):
+    the sharded einsum against ``torch.einsum``; prefill and decode of
+    three families with the cache split as decode_32k splits it, within
+    5e-4 of the largest logit; and three AdamW steps of
+    four families at float32 compute against the plain steps: the same
+    sums in other orders, so the first loss within 1e-6 relative; every
+    leaf of the first step's grads and of the parameters after it within
+    1e-3 (relative norms); the
+    first grad norm and the later losses within 2e-3 (the plain float32
+    grads of these smoke models are themselves up to 1.1e-3 from
+    float64, at whisper's encoder norm, and AdamW's first update turns
+    such noise into a +-lr step; whisper's later grad norms, 68 -> 17 ->
+    75-80, swing with it, so they are printed, not held)."""
+    archs = "stablelm_1_6b,granite_moe_1b_a400m,mamba2_1_3b,whisper_medium"
+    decode = "stablelm_1_6b,recurrentgemma_2b,whisper_medium"
+    out = _four_ranks(archs, decode)
+    assert out["einsum"] < 1e-5
+    _hold_train(out, archs)
     for arch in decode.split(","):
         # prefill and four decode steps with the cache's kv_seq split over
         # "model" (decode_32k's rule) against the plain ones: the plain
@@ -485,6 +498,16 @@ def test_four_rank_mesh_matches_the_plain_step():
         # from float64 on these inputs; a misplaced cache slot moves the
         # logits by 0.6-1.7
         assert out["decode " + arch] < 5e-4, (arch, out["decode " + arch])
+
+
+def test_four_rank_mesh_trains_recurrentgemma():
+    """recurrentgemma-2b's smoke model, three AdamW steps on the (2, 2)
+    gloo mesh against the plain steps, held as the other families are:
+    the RG-LRU block runs at the port's own layout (``sharding.per_rank``,
+    its gate products reduce-scattered by ``sharding.reduce_to``) with
+    the width split over "model", so a wrong piece or a missing partial
+    sum moves the loss, the grads or the parameters."""
+    _hold_train(_four_ranks("recurrentgemma_2b", ""), "recurrentgemma_2b")
 
 
 # the reference's pieces of every smoke parameter under rules_for(...,

@@ -345,6 +345,39 @@ def test_cut_at_step_k_survives_in_place_step(tmp_path, monkeypatch,
     assert ga["stats"].tobytes() == gb["stats"].tobytes()
 
 
+@pytest.mark.parametrize("ckpt_async", [False, True])
+def test_checkpoint_commits_after_the_insitu_steps_it_covers(
+        tmp_path, monkeypatch, ckpt_async):
+    """Each checkpoint's manifest commits only once the in-transit
+    contexts of every step up to it are in the catalog (the reducer
+    waits 0.3 s, a step takes milliseconds): a run that dies after
+    checkpoint k and restarts from it leaves no hole in the catalog."""
+    from repro_torch.hercule.database import ContextWriter, HerculeDB
+    ins = str(tmp_path / "ins")
+    seen = {}
+
+    def record(db, step):
+        if db.kind == "hprot":
+            seen[step] = HerculeDB.open(ins).contexts()
+
+    finalize, commit = ContextWriter.finalize, HerculeDB.commit_context
+
+    def finalize_seen(self, *a, **kw):
+        record(self.db, self.step)
+        return finalize(self, *a, **kw)
+
+    def commit_seen(self, step, *a, **kw):
+        record(self, step)
+        return commit(self, step, *a, **kw)
+
+    monkeypatch.setattr(ContextWriter, "finalize", finalize_seen)
+    monkeypatch.setattr(HerculeDB, "commit_context", commit_seen)
+    _mk_trainer(str(tmp_path / "ck"), ckpt_every=2, ckpt_async=ckpt_async,
+                insitu_dir=ins, insitu_every=2,
+                insitu_reducers=[_SlowNorm()]).run(4)
+    assert seen == {2: [2], 4: [2, 4]}
+
+
 def test_train_cli_async_delta_insitu_ledger(tmp_path):
     """``launch.train --ckpt-async --ckpt-delta-every 2 --insitu-dir …
     --insitu-device-reduce --ledger --device cpu``: exit 0, the last
