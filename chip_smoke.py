@@ -231,18 +231,22 @@ non-zero (and prints no result) otherwise, or on any failure.
      with NCCL): stablelm-1.6b x train_4k on the (16, 16) and
      (2, 16, 16) meshes and mixtral-8x22b x decode_32k on the (16, 16)
      mesh at their full configs, the cells of the sharding repairs
-     (mixtral-8x22b x train_4k and prefill_32k, recurrentgemma-2b x
-     train_4k, granite-moe-1b-a400m x prefill_32k) on both meshes, and
-     the (1, 1) cell of (b); each must exit 0 and write its JSON, whose
-     per-device argument bytes, peak, flops, collectives by type,
-     dominant term and H100 bound are printed, and each repaired pair's
-     (2, 16, 16) peak must not pass its (16, 16) peak, printed with the
-     torch version; recurrentgemma-2b x train_4k's two peaks must equal
+     (mixtral-8x22b x train_4k and prefill_32k, mamba2-1.3b x
+     train_4k, recurrentgemma-2b x train_4k, granite-moe-1b-a400m x
+     prefill_32k) on both meshes, and the (1, 1) cell of (b); each must
+     exit 0 and write its JSON, whose per-device argument bytes, peak,
+     flops, collectives by type, dominant term and H100 bound are
+     printed, and each repaired pair's (2, 16, 16) peak must not pass
+     its (16, 16) peak, printed with the torch version;
+     recurrentgemma-2b x train_4k's two peaks must equal
      :data:`RGLRU_PEAKS`, the bytes torch 2.13 reads (its RG-LRU block
      runs at the port's own layout, so the plan is the same on every
-     torch version); (b) stablelm-1.6b uncut (24 layers, B = 2, S = 4,096,
-     phase 9's shape): three AdamW steps of the plain step, then the
-     same from the same init on a (1, 1) ``("data", "model")`` mesh of
+     torch version), and every cell's collective counts by type must
+     equal :data:`DRYRUN_PLANS`, torch 2.13's, its peak not above that
+     table's (every collective is one the port names); (b)
+     stablelm-1.6b uncut (24 layers, B = 2, S = 4,096, phase 9's
+     shape): three AdamW steps of the plain step, then the same from
+     the same init on a (1, 1) ``("data", "model")`` mesh of
      a real NCCL group of one rank, the train state and batch placed as
      DTensors by ``rules_for(..., "train_4k")`` and the steps run under
      ``sharding.use_rules``: losses and updated parameters must equal
@@ -3530,6 +3534,7 @@ DRYRUN_CELLS = (("stablelm_1_6b", "train_4k", ["--mesh", "single"]),
 #: the (16, 16) one
 DRYRUN_REPAIRED = (("mixtral_8x22b", "train_4k"),
                    ("mixtral_8x22b", "prefill_32k"),
+                   ("mamba2_1_3b", "train_4k"),
                    ("recurrentgemma_2b", "train_4k"),
                    ("granite_moe_1b_a400m", "prefill_32k"))
 DRYRUN_PAIRS = DRYRUN_REPAIRED + (("stablelm_1_6b", "train_4k"),)
@@ -3539,6 +3544,29 @@ DRYRUN_PAIRS = DRYRUN_REPAIRED + (("stablelm_1_6b", "train_4k"),)
 #: so torch 2.11 must read the same to the byte
 RGLRU_PEAKS = {"torch": "2.13.0", "single": 45_141_218_088,
                "multi": 23_029_421_864}
+#: every phase-12(a) cell's plan as torch 2.13.0 reads it: all-reduces,
+#: all-gathers, reduce-scatters and all-to-alls, then the peak in bytes
+#: a device. Every collective of a step is one the port names (C8), so
+#: another torch version must count the same, and no peak may pass these
+DRYRUN_PLANS = {
+    "granite_moe_1b_a400m__prefill_32k__multi":
+        (72, 240, 0, 48, 6_501_057_292),
+    "granite_moe_1b_a400m__prefill_32k__single":
+        (72, 216, 0, 0, 8_380_367_628),
+    "mamba2_1_3b__train_4k__multi": (569, 768, 384, 0, 35_317_701_396),
+    "mamba2_1_3b__train_4k__single": (263, 768, 384, 0, 68_927_773_460),
+    "mixtral_8x22b__decode_32k__single": (281, 448, 56, 0, 3_005_898_788),
+    "mixtral_8x22b__prefill_32k__multi": (225, 784, 0, 112, 19_730_374_860),
+    "mixtral_8x22b__prefill_32k__single": (225, 448, 0, 0, 21_865_357_516),
+    "mixtral_8x22b__train_4k__multi": (2552, 8080, 2688, 1120, 26_568_147_188),
+    "mixtral_8x22b__train_4k__single": (2296, 5384, 1792, 0, 34_660_663_540),
+    "recurrentgemma_2b__train_4k__multi": (433, 488, 268, 36, 23_029_421_864),
+    "recurrentgemma_2b__train_4k__single": (191, 488, 268, 36, 45_141_218_088),
+    "stablelm_1_6b__train_4k__multi": (344, 336, 168, 0, 8_492_285_976),
+    "stablelm_1_6b__train_4k__single": (158, 336, 168, 0, 16_556_818_456),
+    "stablelm_1_6b__train_4k__1x1": (0, 0, 0, 0, 34_781_855_764),
+}
+DRYRUN_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all")
 MESH_ARCH = "stablelm_1_6b"    # phase 12(b)'s and (c)'s model, uncut
 GPIPE_STAGES, GPIPE_MICRO = 4, 8
 
@@ -3623,6 +3651,19 @@ def dryrun_finish(procs: list, out: Path, t0: float, card: str) -> dict:
         raise AssertionError(f"recurrentgemma_2b x train_4k reads peaks "
                              f"{got} on torch {torch.__version__}, "
                              f"{want} on {RGLRU_PEAKS['torch']}")
+    plans = {k: (*(t["collectives"][c]["count"] for c in DRYRUN_KINDS),
+                 t["memory"]["peak_bytes"]) for k, t in cells.items()}
+    for k in sorted(plans):
+        print(f"dryrun plan {k}: {dict(zip(DRYRUN_KINDS, plans[k][:4]))}, "
+              f"peak {plans[k][4]} on torch {torch.__version__}; "
+              f"{DRYRUN_PLANS[k]} on torch {RGLRU_PEAKS['torch']} [{card}]")
+    off = {k: (plans[k], DRYRUN_PLANS[k]) for k in plans
+           if plans[k][:4] != DRYRUN_PLANS[k][:4]
+           or plans[k][4] > DRYRUN_PLANS[k][4]}
+    if off:
+        raise AssertionError(f"dryrun plans on torch {torch.__version__} "
+                             f"unlike torch {RGLRU_PEAKS['torch']}'s "
+                             f"(counts, or a peak above): {off}")
     print(f"dryrun phase 12(a): {len(cells)} cells, all ended "
           f"{wall!r} s after they started (beside (b) and (c)) [{card}]")
     return {"cells": cells, "wall_s": wall,

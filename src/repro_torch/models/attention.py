@@ -69,8 +69,18 @@ def multihead(p, x, *, cfg, positions, kv_x=None, kv_positions=None,
     """
     b, s, _ = x.shape
     dt = x.dtype
-    q = dot("bsd,dhk->bshk", x, wcast(p["wq"], dt, "fsdp", "heads",
-                                      "head_dim"), f32=False)
+    xq = x
+    if kv_x is None and sharding.layout(
+            (b, s, cfg.n_heads, cfg.hd), "batch", "seq", "heads",
+            "head_dim") != sharding.layout((b, s, cfg.n_kv_heads, cfg.hd),
+                                           "batch", "seq", "kv_heads",
+                                           "head_dim"):
+        # where the kv heads are not split like the heads, x's gradient
+        # comes from the query as a partial sum and from the keys whole:
+        # the query's is reduced first, not where DTensor adds the two
+        xq = sharding.grad_at(x)
+    q = dot("bsd,dhk->bshk", xq, wcast(p["wq"], dt, "fsdp", "heads",
+                                       "head_dim"), f32=False)
     src = x if kv_x is None else kv_x
     k = dot("bsd,dhk->bshk", src, wcast(p["wk"], dt, "fsdp", "kv_heads",
                                         "head_dim"), f32=False)
@@ -127,7 +137,7 @@ def decode_kv(p, x, *, cfg, cache_k, cache_v, pos: int):
     q = dot("bsd,dhk->bshk", x, p["wq"], f32=False)
     k_new = dot("bsd,dhk->bshk", x, p["wk"], f32=False)
     v_new = dot("bsd,dhk->bshk", x, p["wv"], f32=False)
-    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    posv = sharding.positions(b, 1, x) + pos
     q = layers.rope(q, posv, cfg.rope_theta)
     k_new = layers.rope(k_new, posv, cfg.rope_theta)
     slot = pos % s_cache if cfg.window is not None else pos
@@ -152,7 +162,7 @@ def decode_kv(p, x, *, cfg, cache_k, cache_v, pos: int):
     qg = q.reshape(b, 1, cfg.n_kv_heads, n_rep, q.shape[-1])
     scale = q.shape[-1] ** -0.5
     scores = dot("bqhrd,bkhd->bhrqk", qg, cache_k, f32=True) * scale
-    kidx = torch.arange(s_cache, device=x.device)
+    kidx = sharding.arange(s_cache, scores, -1)
     if cfg.window is not None:
         # ring buffer: slot j holds the token written `(slot - j) % W` steps
         # ago; valid iff that age is within the number of tokens seen so far
@@ -160,7 +170,9 @@ def decode_kv(p, x, *, cfg, cache_k, cache_v, pos: int):
     else:
         valid = kidx <= pos
     scores = torch.where(valid, scores, -1e30)
-    probs = torch.softmax(scores, dim=-1).to(dt)          # (b,h,r,1,S)
+    # the softmax takes the whole cache: its kv_seq split is gathered
+    # explicitly (a site of the port only)
+    probs = torch.softmax(sharding.gather(scores, -1), dim=-1).to(dt)
     out = dot("bhrqk,bkhd->bqhrd", probs, cache_v, f32=False)
     out = out.reshape(b, 1, cfg.n_heads, q.shape[-1])
     out = layers.pin_out(dot("bshk,hkd->bsd", out, wcast(

@@ -91,12 +91,15 @@ def wcast(w, dtype, *axes):
 
 def pin_out(y):
     """A block's output (a product summed over a model-sharded dim) pinned
-    to ("batch", ..., "embed"). DTensor keeps such a partial sum partial
-    until an op needs it whole, so the residual stream would carry each
-    model rank's partial through the next norm into the next products,
-    which then run whole on every rank; GSPMD reduces at the product. A
-    site of the port only (the reference needs none)."""
-    return sharding.constrain(y, "batch", *(None,) * (y.ndim - 2), "embed")
+    to ("batch", ..., "embed"), its partial sums reduced there by
+    explicit collectives (``sharding.reduce_by``, whose backward is the
+    port's own). DTensor keeps such a partial sum partial until an op
+    needs it whole, so the residual stream would carry each model rank's
+    partial through the next norm into the next products, which then run
+    whole on every rank; GSPMD reduces at the product. A site of the port
+    only (the reference needs none)."""
+    axes = ("batch", *(None,) * (y.ndim - 2), "embed")
+    return sharding.constrain(sharding.reduce_by(y, *axes), *axes)
 
 
 def dot(eq: str, a, b, *, f32: bool):
@@ -173,6 +176,8 @@ def norm_spec(cfg) -> dict:
 
 
 def apply_norm(p, x, cfg):
+    # the branch's gradient reduced before it meets the skip's
+    x = sharding.grad_at(x)
     if cfg.norm == "layernorm":
         return layernorm(x, p["scale"], p["bias"])
     return rmsnorm(x, p["scale"])
@@ -192,18 +197,20 @@ def mlp_spec(cfg, d_in=None) -> dict:
 
 
 def mlp(p, x, cfg):
-    h = dot("...d,df->...f", x, wcast(p["wi"], x.dtype, "fsdp", "mlp"),
-            f32=True)
+    h_axes = ("batch", *(None,) * (x.ndim - 2), "mlp")
+    # where d_model is split and the tokens are not (a batch of one),
+    # the products are partial sums, reduced before the nonlinearity
+    h = sharding.reduce_by(dot("...d,df->...f", x, wcast(
+        p["wi"], x.dtype, "fsdp", "mlp"), f32=True), *h_axes)
     if cfg.mlp_act in ("swiglu", "geglu"):
-        g = dot("...d,df->...f", x, wcast(p["wg"], x.dtype, "fsdp", "mlp"),
-                f32=True)
+        g = sharding.reduce_by(dot("...d,df->...f", x, wcast(
+            p["wg"], x.dtype, "fsdp", "mlp"), f32=True), *h_axes)
         h = (silu(g) if cfg.mlp_act == "swiglu" else gelu(g)) * h
     elif cfg.mlp_act == "relu2":          # nemotron squared-ReLU
         h = torch.square(F.relu(h))
     else:
         h = gelu(h)
-    h = sharding.constrain(h.to(x.dtype), "batch",
-                           *(None,) * (x.ndim - 2), "mlp")
+    h = sharding.constrain(h.to(x.dtype), *h_axes)
     # the output projection's partial sums cross the model ranks in the
     # compute dtype (the reference's §Perf i6)
     return pin_out(dot("...f,fd->...d", h, wcast(p["wo"], x.dtype, "mlp",

@@ -221,7 +221,11 @@ def moe_mlp(p, x, cfg):
     else:
         xt = x.reshape(g, tl, d)
 
-    logits = dot("gtd,de->gte", xt, p["router"], f32=True)
+    # where d_model is split and the tokens are not (decode), the
+    # products below are partial sums: each is reduced explicitly
+    # before the nonlinearity that meets it (a site of the port only)
+    logits = sharding.reduce_by(dot("gtd,de->gte", xt, p["router"],
+                                    f32=True))
     probs = torch.softmax(logits, dim=-1)
     for hook in _ROUTER_HOOKS.values():
         hook(probs.detach())
@@ -232,8 +236,8 @@ def moe_mlp(p, x, cfg):
     cap = be.shape[2]
 
     # aux load-balancing loss (Switch-style), computed globally
-    me = probs.mean(dim=(0, 1))
-    ce = counts.float() / (t * k)
+    me = sharding.mean(probs, (0, 1))
+    ce = sharding.reduce_by(counts).float() / (t * k)
     aux = e * torch.sum(me * ce)
     be_axes = ("batch", "experts", "expert_cap", "expert_in")
     if ctx is not None:
@@ -249,14 +253,17 @@ def moe_mlp(p, x, cfg):
     # ---- expert FFN: (e, g*cap, .) products, group merged into capacity
     bem = be.permute(1, 0, 2, 3).reshape(e, g * cap, d)
     w_axes = ("experts", "expert_in", "expert_mlp")
-    h = dot("ecd,edf->ecf", bem, wcast(p["wi"], dt, *w_axes), f32=True)
+    h_axes = ("experts", "expert_cap", "expert_mlp")
+    h = sharding.reduce_by(dot("ecd,edf->ecf", bem, wcast(
+        p["wi"], dt, *w_axes), f32=True), *h_axes)
     if cfg.mlp_act in ("swiglu", "geglu"):
-        gg = dot("ecd,edf->ecf", bem, wcast(p["wg"], dt, *w_axes), f32=True)
+        gg = sharding.reduce_by(dot("ecd,edf->ecf", bem, wcast(
+            p["wg"], dt, *w_axes), f32=True), *h_axes)
         act = silu(gg) if cfg.mlp_act == "swiglu" else gelu(gg)
         h = act * h
     else:
         h = torch.square(F.relu(h)) if cfg.mlp_act == "relu2" else gelu(h)
-    h = sharding.constrain(h.to(dt), "experts", "expert_cap", "expert_mlp")
+    h = sharding.constrain(h.to(dt), *h_axes)
     out_m = dot("ecf,efd->ecd", h, wcast(
         p["wo"], dt, "experts", "expert_mlp", "expert_in"), f32=False)
     out_e = out_m.reshape(e, g, cap, d).permute(1, 0, 2, 3)

@@ -9,8 +9,22 @@ the cache ``{"conv": (B, K-1, DI), "state": (B, H, P, N)}``.
 
 Layout: x (B, S, H, P) with H = d_inner/head_dim heads, P = head_dim,
 shared B/C of state size N (single group), scalar-per-head A.
+
+On a mesh the block runs at one layout the port names, never one that
+DTensor's propagation picks: activations split as ("batch", None,
+"mlp"), the heads as "heads" (both the "model" axis), B and C whole on
+every rank (gathered over the state's split by ``sharding.gather``).
+The convolution, the SSD with its inter-chunk loop, the skip and the
+decode update run on each rank's own heads (``sharding.per_rank``), so
+none of them makes a collective; the gated norm's mean over the split
+width is each rank's share, summed by ``sharding.reduce_to``. Left to
+DTensor, the loop moved every chunk's state by an all-to-all (the
+chunk states split on P, the carried state on the heads), and torch
+2.11 and 2.13 chose other moves.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -56,11 +70,32 @@ def _causal_conv(x, w, conv_state=None):
     return silu(out), new_state
 
 
-def _rmsnorm_gated(x, z, scale):
+def _gate(x, z, *, width: int):
+    """``x`` gated by silu(z), and the mean of its float32 square over
+    the last dim as this piece's share of ``width`` columns (the mean
+    itself where the piece holds them all: the scale is then 1)."""
     x = x * silu(z.float()).to(x.dtype)
     xf = x.float()
-    xf = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + 1e-6)
+    return x, torch.mean(xf * xf, -1, keepdim=True) * (x.shape[-1] / width)
+
+
+def _normed(x, ms, scale):
+    xf = x.float()
+    xf = xf * torch.rsqrt(ms + 1e-6)
     return (xf * (1 + scale.float())).to(x.dtype)
+
+
+def _rmsnorm_gated(x, z, scale):
+    """The gated RMS norm over the last dim (B, S, DI), its mean summed
+    across the ranks that split DI."""
+    act = sharding.layout(tuple(x.shape), "batch", None, "mlp")
+    row = sharding.layout(tuple(x.shape[:-1]) + (1,), "batch", None, None)
+    share = sharding.summed(act, x.ndim - 1)
+    g, ms = sharding.per_rank(functools.partial(_gate, width=x.shape[-1]),
+                              (x, z), (act, act), (act, share))
+    ms = sharding.reduce_to(ms, row)
+    return sharding.per_rank(_normed, (g, ms, scale), (
+        act, row, sharding.layout(tuple(scale.shape), "mlp")), (act,))
 
 
 def ssd_chunked(xh, dt, a, bmat, cmat, chunk: int):
@@ -77,7 +112,7 @@ def ssd_chunked(xh, dt, a, bmat, cmat, chunk: int):
     xdt_c = xdt.reshape(b, nc, chunk, h, p)
     b_c = bmat.reshape(b, nc, chunk, n).float()
     c_c = cmat.reshape(b, nc, chunk, n).float()
-    cum = sharding.along(lambda t: torch.cumsum(t, dim=2), (adt_c,), 2)
+    cum = torch.cumsum(adt_c, dim=2)
     # within-chunk: L[q,t] = exp(cum[q] - cum[t]) for q >= t. The upper
     # triangle is masked before the exp, not after (the reference's
     # where(mask, exp(seg), 0)): the values are the same, but there
@@ -88,12 +123,11 @@ def ssd_chunked(xh, dt, a, bmat, cmat, chunk: int):
                                  device=xh.device))
     l_mat = torch.exp(seg.masked_fill(~mask[None, None, :, :, None],
                                       float("-inf")))
-    cb = sharding.einsum("bcqn,bctn->bcqt", c_c, b_c)
-    y_diag = sharding.einsum("bcqth,bcthp->bcqhp", cb[..., None] * l_mat,
-                             xdt_c)
+    cb = torch.einsum("bcqn,bctn->bcqt", c_c, b_c)
+    y_diag = torch.einsum("bcqth,bcthp->bcqhp", cb[..., None] * l_mat, xdt_c)
     # chunk-final states: S_c = sum_t exp(cum[last]-cum[t]) * B_t x_t^T
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)   # (B,NC,Q,H)
-    s_chunk = sharding.einsum("bctn,bcthp->bchpn", b_c,
+    s_chunk = torch.einsum("bctn,bcthp->bchpn", b_c,
                            decay_to_end[..., None] * xdt_c)
     chunk_decay = torch.exp(cum[:, :, -1, :])           # (B,NC,H)
 
@@ -105,10 +139,53 @@ def ssd_chunked(xh, dt, a, bmat, cmat, chunk: int):
     prev_states = torch.stack(prev, dim=1)             # (B,NC,H,P,N)
     # cross-chunk contribution: C_q exp(cum[q]) h_prev
     decay_in = torch.exp(cum)                          # (B,NC,Q,H)
-    y_cross = sharding.einsum("bcqn,bchpn->bcqhp", c_c, prev_states) \
+    y_cross = torch.einsum("bcqn,bchpn->bcqhp", c_c, prev_states) \
         * decay_in[..., None]
     y = (y_diag + y_cross).reshape(b, s, h, p)
     return y.to(xh.dtype), state
+
+
+def _seq(xin, dt_raw, dt_bias, a_log, bmat, cmat, d_skip, *, pdim: int,
+         chunk: int):
+    """The full-sequence SSD of one block's heads (all of them, or a
+    rank's): (y (B, S, DI), final state (B, H, P, N))."""
+    a = -torch.exp(a_log.float())
+    dt = softplus(dt_raw.float() + dt_bias.float())
+    bmat, cmat = bmat.float(), cmat.float()
+    xh = xin.reshape(*xin.shape[:2], -1, pdim)
+    # pad S to the chunk multiple: dt=0 pads are exact no-ops on the
+    # state (decay exp(0)=1, contribution 0)
+    s_len = xh.shape[1]
+    pad = (-s_len) % chunk
+    if pad:
+        xh_p = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt_p = F.pad(dt, (0, 0, 0, pad))
+        b_p = F.pad(bmat, (0, 0, 0, pad))
+        c_p = F.pad(cmat, (0, 0, 0, pad))
+    else:
+        xh_p, dt_p, b_p, c_p = xh, dt, bmat, cmat
+    y, state = ssd_chunked(xh_p, dt_p, a, b_p, c_p, chunk)
+    y = y[:, :s_len]
+    y = y + xh * d_skip.to(y.dtype)[None, None, :, None]
+    return y.reshape(*xin.shape), state.float()
+
+
+def _step(xin1, dt_raw, dt_bias, a_log, bmat, cmat, d_skip, state, *,
+          pdim: int, dtype):
+    """One decode step of one block's heads (all, or a rank's): (y (B,
+    1, DI), new state (B, H, P, N))."""
+    a = -torch.exp(a_log.float())
+    dt = softplus(dt_raw.float() + dt_bias.float())[:, 0]        # (B,H)
+    bmat = bmat.float()[:, 0]                                   # (B,N)
+    cmat = cmat.float()[:, 0]
+    bsz = xin1.shape[0]
+    xh = xin1.reshape(bsz, -1, pdim).float()
+    decay = torch.exp(dt * a[None, :])                          # (B,H)
+    upd = (dt[:, :, None] * xh)[..., None] * bmat[:, None, None, :]
+    state = state * decay[:, :, None, None] + upd
+    y = torch.einsum("bn,bhpn->bhp", cmat, state)
+    y = y + xh * d_skip.float()[None, :, None]
+    return y.reshape(bsz, 1, -1).to(dtype), state
 
 
 def ssm_block(p, x, cfg, cache=None, pos=None):
@@ -117,52 +194,37 @@ def ssm_block(p, x, cfg, cache=None, pos=None):
     cache: {"conv": (B, K-1, DI), "state": (B, H, P, N)}.
     Returns (y, new cache); the input cache is not written.
     """
-    bsz = x.shape[0]
-    h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
-    xin = _proj(x, p["in_x"])
+    bsz, s = x.shape[:2]
+    h, pdim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    k, di = p["conv_w"].shape
+    act = sharding.layout((bsz, s, di), "batch", None, "mlp")
+    conv = sharding.layout((bsz, k - 1, di), "batch", None, "mlp")
+    heads = sharding.layout((bsz, s, h), "batch", None, "heads")
+    bc = sharding.layout((bsz, s, n), "batch", None, None)
+    per_head = sharding.layout((h,), "heads")
+    state = sharding.layout((bsz, h, pdim, n), "batch", "heads", None, None)
+    args, place = (_proj(x, p["in_x"]), p["conv_w"]), \
+        (act, sharding.layout((k, di), None, "mlp"))
+    if cache is not None:
+        args, place = args + (cache["conv"],), place + (conv,)
+    xin, conv_state = sharding.per_rank(_causal_conv, args, place,
+                                        (act, conv))
     z = _proj(x, p["in_z"])
-    a = -torch.exp(p["a_log"].float())
-
+    # B and C are shared by every head: whole on every rank
+    args = (xin, _proj(x, p["in_dt"]), p["dt_bias"], p["a_log"],
+            *(sharding.gather(_proj(x, p[w]), 2) for w in ("in_b", "in_c")),
+            p["d_skip"])
+    place = (act, heads, per_head, per_head, bc, bc, per_head)
     if cache is None:
-        xin, conv_state = _causal_conv(xin, p["conv_w"])
-        dt = softplus(_proj(x, p["in_dt"]).float() + p["dt_bias"].float())
-        bmat = _proj(x, p["in_b"]).float()
-        cmat = _proj(x, p["in_c"]).float()
-        xh = xin.reshape(*xin.shape[:2], h, pdim)
-        xh = sharding.constrain(xh, "batch", "seq", "heads", None)
-        # pad S to the chunk multiple: dt=0 pads are exact no-ops on the
-        # state (decay exp(0)=1, contribution 0)
-        s_len = xh.shape[1]
-        pad = (-s_len) % cfg.ssm_chunk
-        if pad:
-            xh_p = F.pad(xh, (0, 0, 0, 0, 0, pad))
-            dt_p = F.pad(dt, (0, 0, 0, pad))
-            b_p = F.pad(bmat, (0, 0, 0, pad))
-            c_p = F.pad(cmat, (0, 0, 0, pad))
-        else:
-            xh_p, dt_p, b_p, c_p = xh, dt, bmat, cmat
-        y, state = ssd_chunked(xh_p, dt_p, a, b_p, c_p, cfg.ssm_chunk)
-        y = y[:, :s_len]
-        y = y + xh * p["d_skip"].to(y.dtype)[None, None, :, None]
-        y = y.reshape(*xin.shape)
-        out = pin_out(_proj(_rmsnorm_gated(y, z, p["norm_scale"]), p["out"]))
-        return out, {"conv": conv_state, "state": state.float()}
-
-    # ---- decode: single token, O(1) state update
-    xin1, conv_state = _causal_conv(xin, p["conv_w"], cache["conv"])
-    dt = softplus(_proj(x, p["in_dt"]).float()
-                  + p["dt_bias"].float())[:, 0]                 # (B,H)
-    bmat = _proj(x, p["in_b"]).float()[:, 0]                    # (B,N)
-    cmat = _proj(x, p["in_c"]).float()[:, 0]
-    xh = xin1.reshape(bsz, h, pdim).float()
-    decay = torch.exp(dt * a[None, :])                          # (B,H)
-    upd = (dt[:, :, None] * xh)[..., None] * bmat[:, None, None, :]
-    state = cache["state"] * decay[:, :, None, None] + upd
-    y = sharding.einsum("bn,bhpn->bhp", cmat, state)
-    y = y + xh * p["d_skip"].float()[None, :, None]
-    y = y.reshape(bsz, 1, -1).to(x.dtype)
+        y, new = sharding.per_rank(
+            functools.partial(_seq, pdim=pdim, chunk=cfg.ssm_chunk), args,
+            place, (act, state))
+    else:
+        y, new = sharding.per_rank(
+            functools.partial(_step, pdim=pdim, dtype=x.dtype),
+            args + (cache["state"],), place + (state,), (act, state))
     out = pin_out(_proj(_rmsnorm_gated(y, z, p["norm_scale"]), p["out"]))
-    return out, {"conv": conv_state, "state": state}
+    return out, {"conv": conv_state, "state": new}
 
 
 def ssm_cache_spec(cfg, batch: int, device) -> dict:

@@ -369,5 +369,13 @@ class LM(nn.Module):
         ll = sharding.constrain(sharding.take(logits, labels.clamp(min=0)),
                                 "batch", "seq")
         mask = (labels >= 0).float()
-        nll = torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)
+        # each rank sums its own tokens; the sums are reduced explicitly
+        # before the quotient
+        rows = sharding.layout(tuple(labels.shape), "batch", "seq")
+        total = sharding.summed(sharding.summed(rows, 0), 1)
+        nll_sum, count = sharding.per_rank(
+            lambda a, b, m: (torch.sum((a - b) * m), m.sum()),
+            (lse, ll, mask), (rows,) * 3, (total, total))
+        nll = sharding.reduce_by(nll_sum) / \
+            torch.clamp(sharding.reduce_by(count), min=1.0)
         return nll + 0.01 * aux, {"loss": nll, "aux": aux}

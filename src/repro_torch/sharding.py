@@ -29,8 +29,14 @@ placements meet, the choice can differ between torch versions (torch
 their batch, and its scan ran at 16 times the width a rank holds), so
 the port fixes it: :func:`layout` gives the placements the rules name,
 :func:`per_rank` runs a function on pieces laid out so, and
-:func:`reduce_to` reduces a partial sum to them by explicit
-collectives.
+:func:`reduce_to` (:func:`reduce_by`, :func:`mean`) reduces a partial
+sum to them by explicit collectives. DTensor's planner moves nothing:
+:func:`move` is the port's own redistribution (:func:`move_local`:
+explicit collectives in a fixed order, forward and backward), which
+:func:`constrain` and :func:`local_call` use, and :func:`grad_at`
+reduces a gradient before autograd adds it to one of another layout,
+so every collective of a step is one the port names and the counts
+are the same on every torch version.
 
 A dim split over several mesh axes is split in the order the spec
 names them, as a ``PartitionSpec`` splits it: the first axis major.
@@ -321,25 +327,36 @@ def constrain_spec(x, spec: tuple):
         raise NotImplementedError(
             f"a layout {place} out of the mesh's order is made only by "
             f"distribute, not by a redistribution")
-    return unstride(x).redistribute(ctx[1], place)
+    # a node even where the layout holds already: the gradient is moved
+    # to it too (``with_sharding_constraint`` pins both)
+    return _Move.apply(unstride(x), place)
 
 
 def local_call(fn, args: tuple, in_place: tuple, out_place: tuple, mesh):
-    """``fn(*local args)`` on each rank (``local_map``): the DTensor
-    ``args`` redistributed to ``in_place`` first, the outputs DTensors of
-    ``out_place``. A replicated input's gradient is a ``Partial`` sum on
-    every mesh dim where an output is split or partial (each rank then
-    saw another part of the work), and a replica elsewhere."""
-    from torch.distributed.tensor import Partial, Replicate
-    from torch.distributed.tensor.experimental import local_map
+    """``fn(*local args)`` on each rank (``local_map``'s contract): the
+    DTensor ``args`` moved to ``in_place`` first (:func:`move`), the
+    outputs DTensors of ``out_place``. A replicated input's gradient is
+    a ``Partial`` sum on every mesh dim where an output is split or
+    partial (each rank then saw another part of the work), and a
+    replica elsewhere. Every move, forward and backward, is the port's
+    own (``local_map`` leaves the inputs' moves and the outputs'
+    gradients to DTensor's planner)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
     split = [any(not isinstance(o[m], Replicate) for o in out_place)
              for m in range(mesh.ndim)]
-    grad_place = tuple(
-        tuple(Partial() if split[m] and isinstance(q, Replicate) else q
-              for m, q in enumerate(ins)) for ins in in_place)
-    return local_map(fn, out_placements=out_place, in_placements=in_place,
-                     in_grad_placements=grad_place, device_mesh=mesh,
-                     redistribute_inputs=True)(*args)
+    local = []
+    for a, ins in zip(args, in_place):
+        if not isinstance(a, DTensor):
+            local.append(a)
+            continue
+        grad = tuple(Partial() if split[m] and isinstance(q, Replicate)
+                     else q for m, q in enumerate(ins))
+        local.append(move(a, tuple(ins)).to_local(grad_placements=grad))
+    out = fn(*local)
+    if isinstance(out, torch.Tensor):
+        return _Out.apply(out, mesh, tuple(out_place[0]))
+    return tuple(_Out.apply(o, mesh, tuple(p)) if isinstance(o, torch.Tensor)
+                 else o for o, p in zip(out, out_place))
 
 
 def layout(shape: tuple, *axes):
@@ -349,6 +366,17 @@ def layout(shape: tuple, *axes):
     if ctx is None:
         return None
     return placements(resolve_spec(tuple(shape), tuple(axes), *ctx), ctx[1])
+
+
+def summed(place: tuple, dim: int):
+    """The placements of a sum over tensor dim ``dim`` (kept) of a
+    tensor laid out as ``place``: a ``Partial`` sum on each mesh dim
+    that splits ``dim``; None for None (:func:`layout` outside
+    :func:`use_rules`)."""
+    from torch.distributed.tensor import Partial
+    if place is None:
+        return None
+    return tuple(Partial() if q.is_shard(dim) else q for q in place)
 
 
 def per_rank(fn, args: tuple, in_place: tuple, out_place: tuple):
@@ -365,13 +393,19 @@ def per_rank(fn, args: tuple, in_place: tuple, out_place: tuple):
 
 
 def _collective(op, local, dim: int, mesh, m: int, *extra):
-    """``_c10d_functional``'s ``op`` (it works on dim 0) over mesh dim
-    ``m`` along tensor dim ``dim``."""
+    """``_c10d_functional``'s all-gather or reduce-scatter ``op`` (it
+    works on dim 0) over mesh dim ``m`` along tensor dim ``dim``, with
+    the copies ``funcol`` makes: the gathered pieces cut and joined
+    along ``dim``, or the pieces to scatter joined along dim 0 first."""
     c10d = torch.ops._c10d_functional
     group = mesh.get_group(m)
-    x = local.movedim(dim, 0).contiguous()
-    x = c10d.wait_tensor(op(x, *extra, group.size(), group.group_name))
-    return x.movedim(0, dim)
+    n = group.size()
+    if op is c10d.all_gather_into_tensor:
+        out = c10d.wait_tensor(op(local.contiguous(), *extra, n,
+                                  group.group_name))
+        return out if dim == 0 else torch.cat(out.chunk(n, 0), dim)
+    x = local if dim == 0 else torch.cat(local.chunk(n, dim))
+    return c10d.wait_tensor(op(x.contiguous(), *extra, n, group.group_name))
 
 
 def strided(x) -> bool:
@@ -424,6 +458,179 @@ def unbind(x):
                       (place,) * x.shape[0], x.device_mesh)
 
 
+def _shard_dims(place, dim: int) -> list:
+    """The mesh dims whose ``Shard`` placement splits tensor dim ``dim``,
+    the major first (plain placements split in the mesh's order)."""
+    return [m for m, q in enumerate(place)
+            if q.is_shard() and not _strided(q) and q.dim == dim]
+
+
+def _all_reduce(local, op: str, mesh, m: int):
+    """``local`` reduced by ``op`` over mesh dim ``m`` (an average as a
+    sum over the group's size: gloo has no average)."""
+    c10d = torch.ops._c10d_functional
+    group = mesh.get_group(m)
+    out = c10d.wait_tensor(c10d.all_reduce(
+        local.contiguous(), "sum" if op == "avg" else op, group.group_name))
+    return out / group.size() if op == "avg" else out
+
+
+def _swap(local, dim: int, to: int, mesh, m: int):
+    """One all-to-all over mesh dim ``m``: tensor dim ``dim`` gathered
+    whole, ``to`` split (the op DTensor itself calls for such a move)."""
+    return torch.ops._dtensor.shard_dim_alltoall(
+        local.contiguous(), dim, to, mesh.get_group(m).group_name)
+
+
+def move_local(local, have: tuple, want: tuple, mesh):
+    """A rank's piece under the placements ``have`` as its piece under
+    ``want``, by explicit collectives in a fixed order (the port's own
+    redistribution; no ``_StridedShard`` either side). Per tensor dim,
+    the mesh dims that split it in both layouts, as a common prefix in
+    the mesh's order, stay; the rest of ``have``'s splits are undone
+    innermost first, each by one all-to-all where it moves to the next
+    split ``want`` names, else by an all-gather; then, outermost first,
+    a partial sum reduce-scatters into its split or all-reduces, and a
+    replica keeps its chunk."""
+    from torch.distributed.tensor import Replicate
+    c10d = torch.ops._c10d_functional
+    if any(_strided(q) for q in have + want):
+        raise NotImplementedError(f"move {have} to {want}")
+    cur = list(have)
+    keep = set()
+    for d in range(local.ndim):
+        a, b = _shard_dims(have, d), _shard_dims(want, d)
+        k = 0
+        while k < min(len(a), len(b)) and a[k] == b[k]:
+            k += 1
+        keep.update(a[:k])
+
+    def next_split(m, d):
+        now, goal = _shard_dims(cur, d), _shard_dims(want, d)
+        return goal[:len(now)] == now and len(goal) > len(now) and \
+            goal[len(now)] == m
+    for m in reversed(range(mesh.ndim)):
+        q, w = cur[m], want[m]
+        if not q.is_shard() or m in keep:
+            continue
+        if w.is_shard() and w.dim != q.dim and next_split(m, w.dim):
+            local = _swap(local, q.dim, w.dim, mesh, m)
+            cur[m] = w
+        else:
+            local = _all_gather(local, q.dim, mesh, [m])
+            cur[m] = Replicate()
+    coord = mesh.get_coordinate()
+    for m in range(mesh.ndim):
+        q, w = cur[m], want[m]
+        if q == w:
+            continue
+        if q.is_partial() and w.is_shard() and q.reduce_op != "avg":
+            local = _collective(c10d.reduce_scatter_tensor, local, w.dim,
+                                mesh, m, q.reduce_op)
+        elif q.is_partial() and not w.is_partial():
+            local = _all_reduce(local, q.reduce_op, mesh, m)
+            if w.is_shard():
+                local = local.chunk(mesh.size(m), w.dim)[coord[m]].clone()
+        elif isinstance(q, Replicate) and w.is_shard():
+            # a copy, so that the whole replica can go (DTensor's too)
+            local = local.chunk(mesh.size(m), w.dim)[coord[m]].clone()
+        else:
+            raise NotImplementedError(f"move {have} to {want}")
+        cur[m] = w
+    return local.contiguous()
+
+
+def _grad_place(place: tuple) -> tuple:
+    """The placements of a gradient for a tensor of ``place``: a partial
+    sum's is whole (each rank's share takes all of it)."""
+    from torch.distributed.tensor import Replicate
+    return tuple(Replicate() if q.is_partial() else q for q in place)
+
+
+def _moved(g, want: tuple):
+    """The DTensor ``g``'s piece under ``want`` (:func:`move_local`)."""
+    if tuple(g.placements) == tuple(want):
+        return g.to_local()
+    g = unstride(g)
+    return move_local(g.to_local(), tuple(g.placements), tuple(want),
+                      g.device_mesh)
+
+
+def _back(have: tuple, grad: tuple) -> tuple:
+    """Where a gradient of placements ``grad`` moves for an input of
+    ``have`` (``DTensor.redistribute``'s backward): to the input's
+    layout, but a partial sum's gradient whole, unless it is partial
+    itself (then it stays so)."""
+    from torch.distributed.tensor import Replicate
+    return tuple(q if not q.is_partial() else
+                 (q if h.is_partial() else Replicate())
+                 for q, h in zip(have, grad))
+
+
+def _placed(x, local, place: tuple):
+    """``local`` as a DTensor of ``x``'s mesh, shape and strides laid out
+    as ``place``."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, x.device_mesh, place, run_check=False,
+                              shape=x.shape, stride=_dense_stride(x.shape))
+
+
+class _Move(torch.autograd.Function):
+    """:func:`move`'s forward and backward, each by :func:`move_local`."""
+
+    @staticmethod
+    def forward(ctx, x, place):
+        ctx.have = tuple(x.placements)
+        return _placed(x, _moved(x, place), place)
+
+    @staticmethod
+    def backward(ctx, g):
+        want = _back(ctx.have, tuple(g.placements))
+        return _placed(g, _moved(g, want), want), None
+
+
+class _Out(torch.autograd.Function):
+    """A rank's piece as a DTensor of ``place``; its gradient arrives
+    moved to the layout of a gradient for ``place``."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, place):
+        from torch.distributed.tensor import DTensor
+        ctx.place = _grad_place(place)
+        return DTensor.from_local(local.view_as(local), mesh, place,
+                                  run_check=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _moved(g, ctx.place), None, None
+
+
+def grad_at(x):
+    """``x`` as it is; its gradient moved to ``x``'s own placements by
+    explicit collectives (a partial sum reduced whole). Where ``x`` has
+    several uses whose gradients arrive at other placements (a norm's
+    branch a partial sum, the residual skip whole; attention's query a
+    partial sum, keys and values whole where the kv heads are not
+    split), autograd adds them by DTensor's own choice: torch 2.11
+    all-reduces the partial sum, 2.13 splits the whole one. Any other
+    tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    return _Move.apply(x, tuple(x.placements))
+
+
+def move(x, place: tuple):
+    """``x.redistribute(mesh, place)`` by the port's own collectives
+    (:func:`move_local`, forward and backward), so that no torch version
+    plans it; a dim split out of the mesh's order is gathered first
+    (:func:`unstride`). Any other tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor) or tuple(x.placements) == tuple(place):
+        return x
+    return _Move.apply(unstride(x), tuple(place))
+
+
 def _all_gather(local, dim: int, mesh, order: list):
     """``local`` gathered along ``dim`` over the mesh dims ``order``
     (major first): the minor first, so that the pieces land in order."""
@@ -467,7 +674,7 @@ class _Gather(torch.autograd.Function):
         want = tuple(
             (Partial() if g.placements[m].is_partial() else Replicate())
             if m in order else place[m] for m in range(mesh.ndim))
-        local = g.redistribute(mesh, want).to_local()
+        local = _moved(g, want)
         coord = mesh.get_coordinate()
         for m in order:
             if want[m].is_partial():
@@ -525,17 +732,19 @@ class _Reduce(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        from torch.distributed.tensor import DTensor, Replicate
+        from torch.distributed.tensor import DTensor
         mesh, place_in, shape, stride, place = ctx.meta
-        if tuple(g.placements) != place:
-            g = g.redistribute(mesh, place)
-        local = g.to_local()
+        # a partial gradient of a partial input stays partial (as
+        # ``DTensor.redistribute``'s backward keeps it)
+        want = tuple(h if q.is_partial() and h.is_partial() else w
+                     for q, h, w in zip(place_in, g.placements, place))
+        local = _moved(g, want)
         for m in reversed(range(mesh.ndim)):
-            if place_in[m].is_partial() and place[m].is_shard():
+            if place_in[m].is_partial() and want[m].is_shard():
                 local = _collective(
                     torch.ops._c10d_functional.all_gather_into_tensor,
-                    local, place[m].dim, mesh, m)
-        out = tuple(Replicate() if q.is_partial() else q for q in place_in)
+                    local, want[m].dim, mesh, m)
+        out = _back(place_in, want)
         return DTensor.from_local(local.contiguous(), mesh, out,
                                   run_check=False, shape=shape,
                                   stride=stride), None
@@ -566,6 +775,45 @@ def reduce_to(x, place: tuple):
     if have == tuple(place):
         return x
     return _Reduce.apply(x, tuple(place))
+
+
+def reduce_by(x, *axes):
+    """``x`` with its partial sums reduced (:func:`reduce_to`) into the
+    placements the active rules give the logical ``axes`` on the mesh
+    dims that hold them (without ``axes``, whole there); the other mesh
+    dims as they are. An op that meets a partial sum (a nonlinearity, a
+    quotient) would else leave the reduction to DTensor. Any other
+    tensor, or one without partial sums, as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or not any(
+            q.is_partial() for q in x.placements):
+        return x
+    want = layout(tuple(x.shape), *axes) if axes else None
+    return reduce_to(x, tuple(
+        (want[m] if want else Replicate()) if q.is_partial() else q
+        for m, q in enumerate(x.placements)))
+
+
+def mean(x, dims: tuple):
+    """``x.mean(dims)``. For a DTensor, each rank's mean of its piece,
+    weighted by its share of the count, summed across the ranks that
+    split ``dims`` by explicit all-reduces (DTensor's own mean leaves a
+    ``Partial(avg)`` for the next op to reduce as it chooses). The
+    weight is 1 for a dim held whole, so a plain tensor's mean is
+    unchanged."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    if not isinstance(x, DTensor):
+        return x.mean(dim=dims)
+    dims = tuple(sorted(d % x.ndim for d in dims))
+    n = math.prod(x.shape[d] for d in dims)
+    x = reduce_by(x)
+    out = tuple(Partial() if q.is_shard() and q.dim in dims else
+                Shard(q.dim - sum(d < q.dim for d in dims)) if q.is_shard()
+                else q for q in x.placements)
+
+    def share(t):
+        return t.mean(dim=dims) * (math.prod(t.shape[d] for d in dims) / n)
+    return reduce_by(per_rank(share, (x,), (tuple(x.placements),), (out,)))
 
 
 def _held(coord, rows: int, src: list, gathered: list, mesh) -> list:
@@ -679,7 +927,7 @@ class _Regroup(torch.autograd.Function):
         want = tuple(place[m] if m in dst else
                      (Partial() if g.placements[m].is_partial()
                       else place[m]) for m in range(mesh.ndim))
-        local = g.redistribute(mesh, want).to_local()
+        local = _moved(g, want)
         if "pick" in plan:
             held = local.new_zeros((plan["held"], *local.shape[1:]))
             held = held.index_copy(0, torch.tensor(
@@ -730,9 +978,9 @@ def regroup(x, dim: int, part):
         return x
     if any(not x.placements[m].is_shard(0) and
            not isinstance(x.placements[m], Replicate) for m in dst):
-        x = x.redistribute(mesh, [
+        x = move(x, tuple(
             Replicate() if m in dst and not q.is_shard(0) else q
-            for m, q in enumerate(x.placements)])
+            for m, q in enumerate(x.placements)))
     return _Regroup.apply(x, src, dst)
 
 
@@ -768,6 +1016,26 @@ def positions(b: int, s: int, like):
                        device=local.device)[None, :].repeat(rows, 1)
     return DTensor.from_local(pos, mesh, place, run_check=False,
                               shape=(b, s), stride=(s, 1))
+
+
+def arange(n: int, like, dim: int):
+    """``torch.arange(n)`` for a dim ``dim`` of ``n`` of ``like``. For a
+    DTensor, a DTensor split as that dim is, each rank making only its
+    own indices (a mask from it then meets ``like`` with no move)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(like, DTensor):
+        return torch.arange(n, device=like.device)
+    dim %= like.ndim
+    mesh = like.device_mesh
+    cut = [m for m, q in enumerate(like.placements)
+           if q.is_shard(dim) and not _strided(q)]
+    rows = like.to_local().shape[dim]
+    first = shard_start(mesh, cut, rows)
+    local = torch.arange(first, first + rows, device=like.to_local().device)
+    place = tuple(Shard(0) if m in cut else Replicate()
+                  for m in range(mesh.ndim))
+    return DTensor.from_local(local, mesh, place, run_check=False,
+                              shape=(n,), stride=(1,))
 
 
 def first_row(pos):
@@ -862,9 +1130,9 @@ class _LogSumExp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, place):
         mesh = x.device_mesh
-        m = x.amax(-1, keepdim=True).redistribute(mesh, place)
+        m = move(x.amax(-1, keepdim=True), place)
         m = m.masked_fill(m.abs() == math.inf, 0)
-        s = torch.exp(x - m).sum(-1).redistribute(mesh, place)
+        s = move(torch.exp(x - m).sum(-1), place)
         out = s.log() + m[..., 0]
         ctx.save_for_backward(x, out)
         return out
@@ -908,7 +1176,7 @@ def write_slice(dst, dim: int, start: int, value) -> None:
     if not isinstance(value, DTensor):
         value = DTensor.from_local(value, mesh, (Replicate(),) * mesh.ndim,
                                    run_check=False)
-    value = value.redistribute(mesh, place).to_local()
+    value = _moved(value, place)
     local = dst.to_local()
     rows = local.shape[dim]
     first = shard_start(mesh, cut, rows)

@@ -64,23 +64,23 @@ def init_opt_state(params):
 def local(x, like=None):
     """``x`` for a plain tensor; a DTensor's local piece (its storage),
     laid out first as ``like`` is where given, else with its partial
-    sums reduced. The update and the norm run on local pieces, so a
-    train state split out of the mesh's order (``sharding.strided``)
-    never meets DTensor's own ops."""
+    sums reduced (``sharding.move``). The update and the norm run on
+    local pieces, so a train state split out of the mesh's order
+    (``sharding.strided``) never meets DTensor's own ops."""
     from torch.distributed.tensor import DTensor, Replicate
     if not isinstance(x, DTensor):
         return x
     want = tuple(like.placements) if like is not None else tuple(
         Replicate() if q.is_partial() else q for q in x.placements)
-    if tuple(x.placements) != want:
-        x = x.redistribute(x.device_mesh, want)
-    return x.to_local()
+    return sharding.move(x, want).to_local()
 
 
 def _scalar(x):
     """A scalar tensor whole on every rank."""
-    from torch.distributed.tensor import DTensor
-    return x.full_tensor() if isinstance(x, DTensor) else x
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return x
+    return sharding.move(x, (Replicate(),) * x.device_mesh.ndim).to_local()
 
 
 def zeros_f32(x):

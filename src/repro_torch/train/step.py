@@ -44,8 +44,12 @@ def make_train_step(lm: LM, opt_cfg: optim.OptConfig):
             metrics, grads = loss_and_grads(lm, params, batch)
         else:
             def split(x, i):
+                # a DTensor's batch dim gathered explicitly (DTensor's
+                # slice of a split dim gathers it as it chooses), cut,
+                # and split again as it came
                 mb = x.shape[0] // nmb
-                return x[i * mb:(i + 1) * mb]
+                cut = sharding.gather(x, 0)[i * mb:(i + 1) * mb]
+                return sharding.move(cut, getattr(x, "placements", None))
             grads = map_tree(optim.zeros_f32, params)
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=tree_leaves(params)[0][1].device)

@@ -510,6 +510,21 @@ def test_four_rank_mesh_trains_recurrentgemma():
     _hold_train(_four_ranks("recurrentgemma_2b", ""), "recurrentgemma_2b")
 
 
+def test_four_rank_mesh_decodes_mamba2_and_moe():
+    """Prefill and four decode steps of mamba2-1.3b's and
+    granite-moe-1b-a400m's smoke models on the (2, 2) gloo mesh, the
+    cache split as decode_32k splits it, against the plain ones, within
+    5e-4 of the largest logit as the other families' decode: the SSD's
+    decode step runs on each rank's heads (``sharding.per_rank``) with
+    B and C gathered whole, and the MoE layer reduces its partial router
+    logits and expert products explicitly before their nonlinearities,
+    so a wrong piece or a sum reduced twice moves the logits."""
+    decode = "mamba2_1_3b,granite_moe_1b_a400m"
+    out = _four_ranks("", decode)
+    for arch in decode.split(","):
+        assert out["decode " + arch] < 5e-4, (arch, out["decode " + arch])
+
+
 # the reference's pieces of every smoke parameter under rules_for(...,
 # multi_pod=True) on a (2, 2, 1) ("pod", "data", "model") mesh of four
 # forced host devices: path -> "p,d,m" -> [[start, stop], ...]
