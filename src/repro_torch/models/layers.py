@@ -270,12 +270,25 @@ def unembed(p, x, cfg):
 
 # ------------------------------------------------------------------- RoPE
 
+def rope_freqs(half: int, theta: float, device):
+    """The (half,) float32 inverse frequencies theta^(-i / half): the
+    exponent rounded to float32 as the reference rounds it, the power
+    taken in float64 and rounded once, so that they are the same bits
+    on every device and the reference's (XLA's float32 ``pow`` on the
+    CPU). A float32 ``pow`` rounds differently on the card and the CPU
+    (one ulp at 6 of head_dim 128's 64 frequencies, an H100 80GB HBM3
+    at 700 W against the CPU): by position 3,000 an angle moves by 3e-4
+    rad, which at the reference's init moved llava-next-34b's q.k
+    scores by up to 28 (ROADMAP C10)."""
+    e = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return (theta ** e.double()).float()
+
+
 def rope(x, positions, theta: float):
     """x: (..., S, H, hd); positions: (..., S) int. Rotates halves."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
+    freqs = rope_freqs(half, theta, x.device)
     angles = positions[..., None].float() * freqs       # (..., S, half)
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]

@@ -2,8 +2,11 @@
 the reference at float32 compute on the same parameters: query-chunked
 attention, sliding windows, MoE grouping (t >= 2,048) and capacity
 drops, tied expert choices, an SSD length that is not a multiple of the
-chunk, the hybrid tail, tied embeddings, remat and the unrolled layer
-loop.
+chunk, the hybrid tail, tied embeddings, remat, the unrolled layer
+loop, and the two branches the published widths take: a VLM patch
+prefix across query chunks (llava-next-34b's 2,880 patches against
+``attn_chunk`` 1,024) and an encoder whose frame count is not a
+multiple of the chunk (whisper-medium's 1,500).
 """
 import dataclasses
 
@@ -16,11 +19,12 @@ import torch
 from lm_cases import (CPU, batch_np, inputs, leaves, port_forward,
                       ref_forward, ref_init, rel_err, smoke_params, to_torch,
                       with_dtype)
+from repro.configs import ARCHS, get_config as ref_config
 from repro.configs import get_smoke_config as ref_smoke
 from repro.models import moe as ref_moe
 from repro.models import ssm as ref_ssm
 from repro_torch.configs import get_smoke_config
-from repro_torch.models import moe, ssm
+from repro_torch.models import layers, moe, ssm
 from repro_torch.models.transformer import LM, params_from_numpy
 from repro_torch.train import step
 
@@ -40,6 +44,10 @@ CASES = {
     "tied_embeddings": ("stablelm_1_6b", dict(tie_embeddings=True), 2, 16),
     "remat": ("granite_moe_1b_a400m", dict(remat="full"), 2, 16),
     "unroll": ("internlm2_20b", dict(unroll_layers=True), 2, 16),
+    "vlm_chunked": ("llava_next_34b", dict(n_patches=12, attn_chunk=8), 2,
+                    16),
+    "encdec_chunked": ("whisper_medium", dict(n_frames=12, attn_chunk=8), 2,
+                       16),
 }
 # cases whose parameter tree differs from the smoke config's
 NEW_TREE = {"hybrid_tail", "tied_embeddings"}
@@ -76,6 +84,13 @@ def test_branch_matches_reference(name):
         assert s % cfg.ssm_chunk
     if name == "hybrid_tail":
         assert LM(cfg, device=CPU).tail_kinds == ["rec"]
+    if name == "vlm_chunked":      # the patches fill one chunk and cross
+        assert s > cfg.attn_chunk and s % cfg.attn_chunk == 0
+        assert cfg.attn_chunk < cfg.n_patches < s
+        assert extras["patch_embeds"].shape == (b, cfg.n_patches, cfg.d_model)
+    if name == "encdec_chunked":   # as 1,500 frames against 1,024
+        assert s > cfg.attn_chunk and cfg.n_frames % cfg.attn_chunk
+        assert extras["frames"].shape == (b, cfg.n_frames, cfg.d_model)
 
 
 def test_moe_ties_keep_the_lower_expert():
@@ -187,3 +202,24 @@ def test_unroll_matches_scan():
     b, _ = port_forward(dataclasses.replace(cfg, unroll_layers=True), params,
                         tokens, {})
     assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_rope_freqs_are_the_references(arch):
+    """RoPE's inverse frequencies at each published and smoke config's
+    head_dim and theta are the reference's bits (its float32 exponent,
+    XLA's float32 ``pow``), and the float64 power of that exponent
+    rounded once, which every device computes alike: a float32 ``pow``
+    gave other bits on the card than on the CPU, and by position 3,000
+    those moved llava-next-34b's q.k scores by up to 28 at the
+    reference's init (ROADMAP C10)."""
+    for cfg in (ref_config(arch), ref_smoke(arch)):
+        half = cfg.hd // 2
+        want = np.asarray(cfg.rope_theta ** (
+            -jnp.arange(0, half, dtype=jnp.float32) / half))
+        got = layers.rope_freqs(half, cfg.rope_theta, CPU)
+        assert got.dtype == torch.float32
+        assert got.numpy().tobytes() == want.tobytes(), (arch, cfg.hd)
+        e = np.float32(-np.arange(half, dtype=np.float32) / np.float32(half))
+        once = (cfg.rope_theta ** e.astype(np.float64)).astype(np.float32)
+        assert got.numpy().tobytes() == once.tobytes(), (arch, cfg.hd)

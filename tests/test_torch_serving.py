@@ -26,7 +26,7 @@ from repro.configs import ARCHS, get_smoke_config as ref_smoke
 from repro.models import serving as ref_serving
 from repro.models.transformer import LM as RefLM
 from repro_torch.configs import get_smoke_config
-from repro_torch.models import serving
+from repro_torch.models import moe, serving
 from repro_torch.models.transformer import LM, params_from_numpy
 
 #: max |decode - forward| / max |forward logit| (tests/test_models.py:74)
@@ -109,6 +109,12 @@ def test_decode_matches_reference(arch):
     lm.load_param_tree(params_from_numpy(params, CPU))
     got, cache = _port_decode(lm, lm.param_tree(), tokens, extras, 12, 3)
     assert _rel(got, want) < TOL_F32
+    _assert_caches_close(cache, ref_cache)
+
+
+def _assert_caches_close(cache, ref_cache):
+    """The port's cache against the reference's, leaf for leaf, within
+    TOL_F32 of each leaf's largest."""
     want_c = dict(leaves(jax.tree.map(np.asarray, ref_cache)))
     got_c = dict(leaves(cache))
     assert sorted(got_c) == sorted(want_c)
@@ -116,6 +122,56 @@ def test_decode_matches_reference(arch):
         g = got_c[name].float().numpy()
         assert g.shape == w.shape, name
         assert _rel(g, w.astype(np.float32)) < TOL_F32, name
+
+
+#: the branches the published widths take in prefill and decode, at
+#: smoke widths: name -> (arch, config overrides, batch, prompt, steps)
+WIDTH_CASES = {
+    # llava-next-34b: 2,880 patches across 1,024-row query chunks
+    "vlm_chunked": ("llava_next_34b", dict(n_patches=12, attn_chunk=8), 2,
+                    16, 3),
+    # whisper-medium: 1,500 frames, not a multiple of the chunk, into the
+    # cross K/V cache that prefill fills
+    "encdec_chunked": ("whisper_medium", dict(n_frames=12, attn_chunk=8), 2,
+                       16, 3),
+    # granite-moe-1b-a400m: top-8 of 32 experts (its 1/4 ratio) at decode
+    "moe_top8_of_32": ("granite_moe_1b_a400m", dict(n_experts=32, top_k=8),
+                       4, 12, 3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDTH_CASES))
+def test_width_branches_decode_matches_reference(name):
+    """Prefill (with the family's extras) and teacher-forced decode
+    against the reference's on the same parameters at float32 compute:
+    the logits and every cache leaf within TOL_F32. The MoE case keeps
+    its capacity factor: prefill and decode drop (or keep) the same
+    assignments in both packages."""
+    arch, over, b, s, n = WIDTH_CASES[name]
+    ref_cfg = dataclasses.replace(with_dtype(ref_smoke(arch), "float32"),
+                                  **over)
+    cfg = dataclasses.replace(with_dtype(get_smoke_config(arch), "float32"),
+                              **over)
+    params = spec_params(ref_cfg, 5)
+    tokens, extras = inputs(cfg, b, s + n, seed=4)
+    want, ref_cache = _ref_decode(ref_cfg, params, tokens, extras, s, n)
+    lm = LM(cfg, device=CPU)
+    lm.load_param_tree(params_from_numpy(params, CPU))
+    got, cache = _port_decode(lm, lm.param_tree(), tokens, extras, s, n)
+    assert np.isfinite(got).all()
+    assert _rel(got, want) < TOL_F32
+    _assert_caches_close(cache, ref_cache)
+    # the branch is the one the case names
+    if name == "vlm_chunked":
+        assert s > cfg.attn_chunk and s % cfg.attn_chunk == 0
+        assert cfg.attn_chunk < cfg.n_patches < s
+    if name == "encdec_chunked":
+        assert s > cfg.attn_chunk and cfg.n_frames % cfg.attn_chunk
+        assert tuple(cache["xk"].shape) == (cfg.n_layers, b, cfg.n_frames,
+                                            cfg.n_kv_heads, cfg.hd)
+    if name == "moe_top8_of_32":
+        assert cfg.n_experts == 4 * cfg.top_k
+        assert moe.capacity(cfg, b) >= b     # decode drops no assignment
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -140,19 +140,29 @@ def test_wsd_schedule_matches_reference():
         np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=str(s))
 
 
-def test_microbatches_match_one_batch():
-    """``num_microbatches=2`` against one batch in the port, and against
-    the reference's two-microbatch step: its first step's moments are
+#: arch -> (config overrides, microbatches): nemotron's smoke config
+#: has 2; llava-next-34b's published config has 4, and its patch prefix
+#: splits with the tokens
+MICROBATCH_CASES = {"nemotron_4_340b": ({}, 2),
+                    "llava_next_34b": (dict(num_microbatches=4), 4)}
+
+
+@pytest.mark.parametrize("arch", sorted(MICROBATCH_CASES))
+def test_microbatches_match_one_batch(arch):
+    """``num_microbatches`` (2, or llava's 4 over B = 4 with its patch
+    embeddings) against one batch in the port, and against the
+    reference's microbatched step: its first step's moments are
     (1 - b1)·g·scale and (1 - b2)·(g·scale)², so they carry the averaged
     grads. Tolerances as the grads' (float32, another sum order). The
-    labels mask nothing, so the two microbatches' mean losses average to
+    labels mask nothing, so the microbatches' mean losses average to
     the batch's."""
-    arch = "nemotron_4_340b"          # the smoke config with 2 microbatches
-    cfg = f32(get_smoke_config(arch))
-    assert cfg.num_microbatches == 2
-    ref = RefLM(f32(ref_smoke(arch)))
+    over, n_micro = MICROBATCH_CASES[arch]
+    cfg = dataclasses.replace(f32(get_smoke_config(arch)), **over)
+    assert cfg.num_microbatches == n_micro
+    ref = RefLM(dataclasses.replace(f32(ref_smoke(arch)), **over))
     params = spec_params(ref.cfg, 6)
     batch = batch_np(cfg, 4, 16, seed=7)
+    assert (cfg.family == "vlm") == ("patch_embeds" in batch)
     batch["labels"] = np.roll(batch["tokens"], -1, axis=1)
     opt_cfg = optim.OptConfig(warmup_steps=1)
 
@@ -162,23 +172,23 @@ def test_microbatches_match_one_batch():
         state = {"params": lm.param_tree(),
                  **optim.init_opt_state(lm.param_tree())}
         return step.make_train_step(lm, opt_cfg)(state, to_torch(batch))
-    two, m_two = port_step(cfg)
+    micro, m_micro = port_step(cfg)
     one, m_one = port_step(dataclasses.replace(cfg, num_microbatches=1))
-    assert float(m_two["aux"]) == 0.0
-    np.testing.assert_allclose(float(m_two["loss"]), float(m_one["loss"]),
+    assert float(m_micro["aux"]) == 0.0
+    np.testing.assert_allclose(float(m_micro["loss"]), float(m_one["loss"]),
                                rtol=1e-5)
     ref_state = {"params": to_jax(params),
                  **ref_optim.init_opt_state(to_jax(params))}
     args = (ref_state, to_jax(batch))
     r_state, r_m = compiled(ref_step.make_train_step(
         ref, ref_optim.OptConfig(warmup_steps=1)), *args)(*args)
-    np.testing.assert_allclose(float(m_two["loss"]), float(r_m["loss"]),
+    np.testing.assert_allclose(float(m_micro["loss"]), float(r_m["loss"]),
                                rtol=1e-5)
-    np.testing.assert_allclose(float(m_two["grad_norm"]),
+    np.testing.assert_allclose(float(m_micro["grad_norm"]),
                                float(r_m["grad_norm"]), rtol=1e-4)
     r_mu = dict(leaves(jax.tree.map(np.asarray, r_state["mu"])))
     top = max(np.abs(w).max() for w in r_mu.values())
-    for other in (two, one):
+    for other in (micro, one):
         for name, g in leaves(other["mu"]):
             w = r_mu[name]
             err = np.abs(g.numpy() - w).max()
