@@ -289,7 +289,8 @@ class InTransitEngine:
             return False
         self._sweep_ttl()
         t0 = time.perf_counter() if obs_metrics.ENABLED else 0.0
-        with TRACER.span("submit", args={"step": step}) as sp:
+        with TRACER.span("submit", args={"step": step},
+                         mirror=True) as sp:
             if isinstance(payload, AMRTree):
                 payload = payload.to_arrays()
                 kind = "amr"
@@ -323,7 +324,8 @@ class InTransitEngine:
                 f"group(s)")
         self._sweep_ttl()
         t0 = time.perf_counter() if obs_metrics.ENABLED else 0.0
-        with TRACER.span("submit", args={"step": step}) as sp:
+        with TRACER.span("submit", args={"step": step},
+                         mirror=True) as sp:
             parts = [p.to_arrays() if isinstance(p, AMRTree) else p
                      for p in parts]
             staged = self._stage_parts(step, parts, kind, meta,
@@ -359,8 +361,8 @@ class InTransitEngine:
                              f"{self.n_domains} contributor group(s)")
         self._sweep_ttl()
         t0 = time.perf_counter() if obs_metrics.ENABLED else 0.0
-        with TRACER.span("submit",
-                         args={"step": step, "domain": domain}) as sp:
+        with TRACER.span("submit", args={"step": step, "domain": domain},
+                         mirror=True) as sp:
             tctx = sp.context()
             if isinstance(payload, AMRTree):
                 payload = payload.to_arrays()

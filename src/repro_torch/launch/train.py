@@ -69,8 +69,10 @@ def main(argv=None):
                         "(the first N GPUs, or N shards on --device when "
                         "it is given; 0 = off)")
     p.add_argument("--insitu-trace-out", default=None, metavar="PATH",
-                   help="record in-transit spans and write a Chrome-trace "
-                        "JSON (Perfetto) when training finishes")
+                   help="record the training step's spans (with or "
+                        "without an in-transit engine) and the engine's, "
+                        "and write a Chrome-trace JSON (Perfetto) when "
+                        "training finishes")
     p.add_argument("--ledger", action="store_true",
                    help="persist a run ledger (metrics/spans/events/"
                         "attribution/health) into <insitu-dir or "

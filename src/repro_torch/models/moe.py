@@ -21,7 +21,10 @@ same order:
 
 :func:`register_router_hook` lets a caller read each call's router
 probabilities (to tell a near-tie's routing flip between two devices
-from a real difference) without changing the layer.
+from a real difference) without changing the layer. Under a traced
+training step (``probe.ACTIVE``) the dispatch counts its assignments
+and those past capacity, on the device (under ``sharding.use_rules``,
+each rank its own groups').
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import torch.nn.functional as F
 from torch.utils.hooks import RemovableHandle
 
 from .. import sharding
+from . import probe
 from .layers import ParamSpec, dot, gelu, pin_out, silu, wcast
 
 _ROUTER_HOOKS: collections.OrderedDict = collections.OrderedDict()
@@ -169,6 +173,9 @@ def _dispatch(xt, probs, *, cfg):
     seg_end = torch.cat(
         [seg_start[:, 1:], torch.full((g, 1), tl * k, device=dev)], dim=1)
     cap = capacity(cfg, tl)
+    pr = probe.ACTIVE
+    if pr:
+        pr.count_moe(seg_end - seg_start, cap, g * tl * k)
 
     # bucket slot (e, c) <- the c-th sorted assignment of expert e
     pos = seg_start[:, :, None] + torch.arange(cap, device=dev)[None, None, :]

@@ -14,7 +14,11 @@ The layer axis is walked by a Python loop (the reference's ``lax.scan``;
 ``cfg.unroll_layers``, a probe flag for XLA's cost analysis, changes
 nothing here). ``cfg.remat == "full"`` wraps each layer body, as the
 reference wraps its scan body in ``jax.checkpoint``, in
-``torch.utils.checkpoint.checkpoint(use_reentrant=False)``.
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``. Under a
+traced training step (``probe.ACTIVE``) each region of the model is
+marked for its device time: ``block.embed``, ``block.attention``,
+``block.ffn`` (``block.ssm``, ``block.rec`` for those mixers) and
+``block.head``, the head through the loss.
 
 ``sharding.constrain`` pins each layer's output to ("batch", "seq",
 "embed") as the reference does; it does nothing outside
@@ -32,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import sharding
 from ..hercule.checkpoint import state_from_numpy, state_to_numpy
 from ..insitu.device import resolve_device
-from . import attention, layers, moe, rglru, ssm
+from . import attention, layers, moe, probe, rglru, ssm
 from .config import ModelConfig
 from .layers import ParamSpec
 
@@ -236,7 +240,10 @@ class LM(nn.Module):
         or RG-LRU's final conv and state)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        pr = probe.ACTIVE
         if kind in ("attn", "moe", "xattn"):
+            if pr:
+                x = pr.enter("block.attention", x)
             h = layers.apply_norm(p["ln1"], x, cfg)
             y, (k, v) = attention.multihead(p["attn"], h, cfg=cfg,
                                             positions=positions,
@@ -250,22 +257,36 @@ class LM(nn.Module):
                     kv_x=enc_out, kv_positions=enc_pos, causal=False,
                     return_kv=True)
                 x = x + y
+            if pr:
+                x = pr.enter("block.ffn", pr.exit("block.attention", x))
             h = layers.apply_norm(p["ln2"], x, cfg)
             if kind == "moe":
                 y, aux = moe.moe_mlp(p["moe"], h, cfg)
                 x = x + y
             else:
                 x = x + layers.mlp(p["mlp"], h, cfg)
+            if pr:
+                x = pr.exit("block.ffn", x)
         elif kind == "ssm":
+            if pr:
+                x = pr.enter("block.ssm", x)
             h = layers.apply_norm(p["ln1"], x, cfg)
             y, cache = ssm.ssm_block(p["ssm"], h, cfg)
             x = x + y
+            if pr:
+                x = pr.exit("block.ssm", x)
         elif kind == "rec":
+            if pr:
+                x = pr.enter("block.rec", x)
             h = layers.apply_norm(p["ln1"], x, cfg)
             y, cache = rglru.rglru_block(p["rec"], h, cfg)
             x = x + y
+            if pr:
+                x = pr.enter("block.ffn", pr.exit("block.rec", x))
             h = layers.apply_norm(p["ln2"], x, cfg)
             x = x + layers.mlp(p["mlp"], h, cfg)
+            if pr:
+                x = pr.exit("block.ffn", x)
         else:
             raise ValueError(kind)
         x = sharding.constrain(x, "batch", "seq", "embed")
@@ -286,7 +307,15 @@ class LM(nn.Module):
         cfg = self.cfg
         extras = extras or {}
         b, s = tokens.shape
-        x = layers.embed(params["embed"], tokens, cfg)
+        pr = probe.ACTIVE
+        if pr:
+            # the embedding's own path to the table, which a tied head
+            # reaches apart
+            table = pr.enter("block.embed", params["embed"]["tok"])
+            x = pr.exit("block.embed", layers.embed({"tok": table}, tokens,
+                                                    cfg))
+        else:
+            x = layers.embed(params["embed"], tokens, cfg)
         if cfg.family == "vlm" and "patch_embeds" in extras:
             pe = extras["patch_embeds"].to(x.dtype)
             x = torch.cat([pe, x[:, pe.shape[1]:, :]], dim=1)
@@ -310,6 +339,8 @@ class LM(nn.Module):
                         enc_pos=enc_pos)[:2], remat)
                 x, a = body(x)
                 aux_total = aux_total + a
+        if pr:
+            x = pr.enter("block.head", x)
         x = layers.apply_norm(params["final_norm"], x, cfg)
         logits = layers.unembed(params["embed"], x, cfg)
         return logits, aux_total
@@ -321,11 +352,17 @@ class LM(nn.Module):
         pos = sharding.positions(b, f, x)
 
         def body(h, lp):
+            pr = probe.ACTIVE
+            if pr:
+                h = pr.enter("block.attention", h)
             h1 = layers.apply_norm(lp["ln1"], h, cfg)
             h = h + attention.multihead(lp["attn"], h1, cfg=cfg,
                                         positions=pos, causal=False)
+            if pr:
+                h = pr.enter("block.ffn", pr.exit("block.attention", h))
             h2 = layers.apply_norm(lp["ln2"], h, cfg)
-            return h + layers.mlp(lp["mlp"], h2, cfg)
+            h = h + layers.mlp(lp["mlp"], h2, cfg)
+            return pr.exit("block.ffn", h) if pr else h
         for lp in _unstack(params["enc"]):
             x = maybe_checkpoint(lambda h, lp=lp: body(h, lp),
                                  cfg.remat == "full")(x)
@@ -378,4 +415,8 @@ class LM(nn.Module):
             (lse, ll, mask), (rows,) * 3, (total, total))
         nll = sharding.reduce_by(nll_sum) / \
             torch.clamp(sharding.reduce_by(count), min=1.0)
-        return nll + 0.01 * aux, {"loss": nll, "aux": aux}
+        loss = nll + 0.01 * aux
+        pr = probe.ACTIVE
+        if pr:
+            loss = pr.exit("block.head", loss)
+        return loss, {"loss": nll, "aux": aux}

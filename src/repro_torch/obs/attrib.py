@@ -114,7 +114,8 @@ class Attributor:
         completed = []
         for sp in spans:
             step = (sp.get("args") or {}).get("step")
-            if step is None:
+            # the trainer's own step spans are not the pipeline's
+            if step is None or sp.get("cat") == "train":
                 continue
             step = int(step)
             self._spans.setdefault(step, []).append(sp)

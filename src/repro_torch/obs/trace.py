@@ -17,6 +17,13 @@ chrome://tracing or https://ui.perfetto.dev loads it directly.
 Tracing is OFF by default — ``span()`` returns a shared no-op object
 and costs one attribute read; ``launch/insitu.py --trace-out`` enables
 the global ``TRACER`` for a run.
+
+Timestamps are microseconds since the unix epoch, the clock that
+``torch.profiler`` gives its events, so an exported trace lays over the
+profiler's. A span opened with ``mirror=True`` (one where the thread
+waits: the trainer's ``train.sync``, the engine's ``submit``) also opens
+a ``torch.profiler.record_function`` of its name while the profiler
+records, so the profiler names the idle time it holds.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import collections
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 import uuid
@@ -44,10 +52,11 @@ class Span:
     """One timed unit of pipeline work (Chrome-trace complete event)."""
 
     __slots__ = ("name", "cat", "trace_id", "span_id", "parent_id",
-                 "ts", "dur", "args", "_tracer")
+                 "ts", "dur", "args", "_tracer", "_mirror")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
-                 trace_id: str, parent_id: str | None, args=None):
+                 trace_id: str, parent_id: str | None, args=None,
+                 mirror: bool = False):
         self.name = name
         self.cat = cat
         self.trace_id = trace_id
@@ -57,11 +66,16 @@ class Span:
         self.dur = 0.0
         self.args = dict(args) if args else {}
         self._tracer = tracer
+        self._mirror = mirror
 
     def set(self, **kw) -> None:
         self.args.update(kw)
 
     def __enter__(self):
+        if self._mirror:
+            # the span's start stays before the range's: the first
+            # range of a process returns 1 ms after its own start
+            self._mirror = _profiler_range(self.name)
         self._tracer._push(self)
         return self
 
@@ -69,6 +83,8 @@ class Span:
         if exc_type is not None:
             self.args["error"] = exc_type.__name__
         self._tracer._pop(self)
+        if self._mirror:
+            self._mirror.__exit__(None, None, None)
         return False
 
     def context(self) -> dict:
@@ -102,6 +118,17 @@ class _NoopSpan:
 
 
 _NOOP = _NoopSpan()
+
+
+def _profiler_range(name: str):
+    """An entered ``record_function(name)`` while ``torch.profiler``
+    records, else None (and torch is not imported for it)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.autograd.profiler.record_function(name)
+    rf.__enter__()
+    return rf
 
 
 #: default retained-span window; a long ledger-instrumented run keeps
@@ -162,8 +189,9 @@ class Tracer:
 
     # ------------------------------------------------------------- spans
     def span(self, name: str, cat: str = "insitu", parent=None,
-             args=None):
-        """Open a span. ``parent`` may be a wire dict from ``context()``.
+             args=None, mirror: bool = False):
+        """Open a span. ``parent`` may be a wire dict from ``context()``;
+        ``mirror`` opens the profiler's range of the same name with it.
 
         Disabled tracers hand back a shared no-op, so call sites don't
         need their own enabled checks.
@@ -179,7 +207,7 @@ class Tracer:
                 trace_id, parent_id = cur.trace_id, cur.span_id
             else:
                 trace_id, parent_id = _new_id(), None
-        return Span(self, name, cat, trace_id, parent_id, args)
+        return Span(self, name, cat, trace_id, parent_id, args, mirror)
 
     def record(self, name: str, t0_us: float, t1_us: float,
                cat: str = "insitu", parent=None, args=None) -> dict | None:

@@ -8,14 +8,15 @@ then writes the parameters and moments in place under
 ``torch.no_grad()`` (``optim.adamw_step``). With more than one
 microbatch the float32 grads and losses are summed over the splits and
 divided by their count, and ``metrics["aux"]`` is 0, as in the
-reference.
+reference. Under a traced step (``models.probe.ACTIVE``) the update is
+marked as the region ``train.adamw``.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import sharding
-from ..models import layers
+from ..models import layers, probe
 from ..models.transformer import LM, map_paths, map_tree, tree_leaves
 from . import optim
 
@@ -65,9 +66,14 @@ def make_train_step(lm: LM, opt_cfg: optim.OptConfig):
             metrics = {"loss": loss_sum / nmb,
                        "aux": torch.zeros_like(loss_sum)}
 
+        pr = probe.ACTIVE
+        if pr:
+            pr.mark("train.adamw")
         params, opt_state, opt_metrics = optim.adamw_step(
             params, grads, {k: state[k] for k in ("mu", "nu", "step")},
             opt_cfg)
+        if pr:
+            pr.mark(None)
         new_state = {"params": params, **opt_state}
         return new_state, {**metrics, **opt_metrics}
 

@@ -16,6 +16,10 @@ Fault-tolerance surface (DESIGN.md §6):
     and metrics (on a real cluster this feeds the scheduler; here it is
     observable behavior under test).
 
+While ``obs.TRACER`` is enabled each step leaves the spans
+:meth:`Trainer._traced_step` names, with ``args["step"]`` the number
+that ``submit_state`` gives the step.
+
 The trainer runs on ``device`` (the GPU unless the caller passes
 ``device="cpu"``; without a GPU it raises, it never falls back), which
 must be the LM's. Its state's parameters are the LM's own tensors, on
@@ -23,6 +27,7 @@ a fresh start and after a restore.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import signal
@@ -34,8 +39,10 @@ import torch
 from ..data.pipeline import DataConfig, TokenPipeline
 from ..hercule.checkpoint import CheckpointManager
 from ..insitu.device import resolve_device
+from ..models import probe
 from ..models.transformer import LM
-from . import optim, step as step_lib
+from ..obs.trace import TRACER
+from . import optim, step as step_lib, syncs as syncs_lib
 
 
 class StragglerMonitor:
@@ -133,15 +140,15 @@ class Trainer:
                 device=self.device if insitu_device_reduce and not mesh
                 else None,
                 mesh_devices=mesh or None)
+        # the step's spans and the engine's, written at the end
         self.insitu_trace_out = insitu_trace_out
-        if insitu_trace_out and self.insitu is not None:
-            from ..obs import TRACER
+        if insitu_trace_out:
             TRACER.enable()
         self.ledger = None
         if ledger:
             # the run ledger lives with the run's analysis output when
             # there is one, else beside the checkpoints
-            from ..obs import RunLedger, TRACER
+            from ..obs import RunLedger
             TRACER.enable()
             self.ledger = RunLedger(
                 insitu_dir if self.insitu is not None else ckpt_dir,
@@ -160,6 +167,8 @@ class Trainer:
         self.seed = seed
         self._stop = False
         self.metrics_log: list[dict] = []
+        self._probe = probe.StepProbe(self.device)
+        self._syncs = syncs_lib.SyncCounter()
 
     def _install_signals(self) -> dict:
         """Set the stop handler; returns the handlers it replaced."""
@@ -192,6 +201,42 @@ class Trainer:
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in self.pipeline.batch(s).items()}
 
+    def _traced_step(self, train_step, state, s: int):
+        """Step ``s`` under ``TRACER``: ``train.step`` from the batch's
+        build to the return of the last ``float()`` of its metrics, with
+        two children, ``train.dispatch`` (the host builds the batch and
+        queues the forward, backward and AdamW) and ``train.sync`` (the
+        ``float()``s: the host waits for the card; mirrored into the
+        profiler). ``train.step`` carries ``host_syncs`` (the card only:
+        the step's synchronizing CUDA calls, ``train.syncs``) and, where
+        the model routes tokens, ``moe_assigned`` and ``moe_dropped``,
+        read at its end. After it, one span per marked region
+        (``models.probe``), with ``args`` ``device_ms`` (the stream's
+        time in the region, idle included, summed over its layers) and
+        ``calls``. A region span starts at the host time of the region's
+        first stamp; its length is that sum, not an interval."""
+        n = s + 1
+        pr = self._probe
+        syncs = self._syncs.counting() if pr.cuda else \
+            contextlib.nullcontext(None)
+        with TRACER.span("train.step", cat="train", args={"step": n}) as sp:
+            with syncs as counter, pr.active():
+                with TRACER.span("train.dispatch", cat="train",
+                                 args={"step": n}):
+                    state, metrics = train_step(state, self._batch(s))
+                with TRACER.span("train.sync", cat="train",
+                                 args={"step": n}, mirror=True):
+                    metrics = {k: float(v) for k, v in metrics.items()}
+            if counter is not None:
+                sp.set(host_syncs=counter.count)
+            sp.set(**pr.moe_counts())
+        for region, (ms, calls, t0) in pr.device_times().items():
+            TRACER.record(region, t0, t0 + ms * 1e3, cat="train",
+                          parent=sp.context(),
+                          args={"step": n, "device_ms": ms,
+                                "calls": calls})
+        return state, metrics
+
     def run(self, num_steps: int, *, crash_at: int | None = None):
         old_handlers = self._install_signals()
         crash_at = crash_at if crash_at is not None else \
@@ -202,8 +247,11 @@ class Trainer:
             train_step = step_lib.make_train_step(self.lm, self.opt_cfg)
             for s in range(start, num_steps):
                 t0 = time.perf_counter()
-                state, metrics = train_step(state, self._batch(s))
-                metrics = {k: float(v) for k, v in metrics.items()}
+                if TRACER.enabled:
+                    state, metrics = self._traced_step(train_step, state, s)
+                else:
+                    state, metrics = train_step(state, self._batch(s))
+                    metrics = {k: float(v) for k, v in metrics.items()}
                 dt = time.perf_counter() - t0
                 slow = self.monitor.observe(s, dt)
                 metrics.update(step=s + 1, dt=dt, straggler=bool(slow))
@@ -240,6 +288,7 @@ class Trainer:
         finally:
             for sig, h in old_handlers.items():
                 signal.signal(sig, h)
+            self._syncs.uninstall()
             self._close()
         return state
 
@@ -249,11 +298,10 @@ class Trainer:
             self.hdep.close()
         if self.insitu is not None:
             self.insitu.close()
-            if self.insitu_trace_out:
-                from ..obs import TRACER
-                n = TRACER.write_chrome_trace(self.insitu_trace_out)
-                print(f"in-transit trace: {n} spans -> "
-                      f"{self.insitu_trace_out}", flush=True)
+        if self.insitu_trace_out:
+            n = TRACER.write_chrome_trace(self.insitu_trace_out)
+            print(f"trace: {n} spans -> {self.insitu_trace_out}",
+                  flush=True)
         if self.ledger is not None:
             verdict = self.ledger.verdict()
             self.ledger.close()
