@@ -148,19 +148,24 @@ no argument, every phase:
      device time against its bound are printed beside the card's name
      and power limit;
   9. the LM stack (``repro_torch.models``, ``configs``, ``train``; it
-     reaches none of B1-B9), with TF32 off for float32 matmuls and the
-     matmul flags printed: (a) each of the ten smoke configs, its
-     parameters drawn on the CPU from a seeded generator, forward on the
-     card against the port's CPU path at float32 (max rel err 5e-4) and
-     bf16 compute (2e-2) - for MoE, a token whose top-k experts differ
-     between the runs at a router near-tie (gap below 1e-4) and every
-     token after it are left out, and any other difference in routing
-     fails - then the grads of one batch twice on the card, bitwise
-     equal, and one AdamW step (finite loss and grad norm, ``step ==
-     1``, every parameter moved); (b) six published configs at their
-     widths, vocabularies and extras (bf16 compute, float32 params,
-     remat), cut only in depth (LM_DEPTH): ``stablelm-1.6b``,
-     ``granite-moe-1b-a400m`` (top-8 of 32), ``mamba2-1.3b``,
+     reaches none of B1-B9, and A1, the fused attention kernel, in every
+     bf16 attention call), first A1 timed at the two cells' shapes
+     (:func:`attention_a1`: forward and backward times against the plain
+     version's, SDPA's as a yardstick, the bound; out, dq, dk and dv held
+     to float64 as closely as the plain version comes), then, with TF32
+     off for float32 matmuls and the matmul flags printed: (a) each of
+     the ten smoke configs, its parameters drawn on the CPU from a
+     seeded generator, forward on the card against the port's CPU path
+     at float32 (max rel err 5e-4) and bf16 compute (2e-2) - for MoE,
+     a token whose top-k experts differ between the runs at a router
+     near-tie (gap below 1e-4) and every token after it are left out,
+     and any other difference in routing fails - then the grads of one
+     batch twice on the card, bitwise equal, and one AdamW step (finite
+     loss and grad norm, ``step == 1``, every parameter moved); (b) six
+     published configs at their widths, vocabularies and extras (bf16
+     compute, float32 params, remat), cut only in depth (LM_DEPTH):
+     ``stablelm-1.6b``, ``granite-moe-1b-a400m`` (top-8 of 32),
+     ``mamba2-1.3b``,
      ``whisper-medium`` (24 + 24 layers, 1,500 frames, cross-attention),
      ``recurrentgemma-2b`` (RG-LRU width 2,560, window 2,048, vocab
      256,000; 26 -> 14 layers, whole macro blocks) and
@@ -3196,6 +3201,8 @@ def lm_full_width(arch: str, device, card: str, seed: int,
     batch = lm_batch(cfg, b, LM_SEQ, device, seed + 1)
     train_step = step.make_train_step(lm, optim.OptConfig(warmup_steps=1))
     losses, grad_norms, step_ms = [], [], []
+    from repro_torch.kernels import attention as fa
+    a1_before = dict(fa.LAUNCHES)
     for i in range(LM_STEPS):
         torch.cuda.synchronize(device)
         if i == 1:              # the timed steps with the host idle
@@ -3208,6 +3215,8 @@ def lm_full_width(arch: str, device, card: str, seed: int,
         step_ms.append(1e3 * (time.perf_counter() - t1))
         grad_norms.append(float(m["grad_norm"]))
     cpu_side.resume()
+    a1_calls = {k: (fa.LAUNCHES[k] - a1_before[k]) / LM_STEPS
+                for k in a1_before}
     peak = torch.cuda.max_memory_allocated(device)
     if not all(math.isfinite(x) for x in losses + grad_norms):
         raise AssertionError(f"lm {cfg.name}: losses {losses}, grad norms "
@@ -3234,6 +3243,7 @@ def lm_full_width(arch: str, device, card: str, seed: int,
            "prompt_f32": f32, "losses": losses, "grad_norms": grad_norms,
            "loss_fell": fell, "step_ms": step_ms, "step_ms_median_2_3": ms,
            "tokens_per_s": tokens / (ms / 1e3), "peak_bytes": peak,
+           "a1_calls_per_step": a1_calls,
            "model_flops_per_step": flops,
            "bf16_peak_share": flops / (ms / 1e3) / BF16_FLOPS_PER_S}
     out["seconds"] = time.perf_counter() - t0
@@ -3255,7 +3265,7 @@ def lm_full_width(arch: str, device, card: str, seed: int,
           f"from them on, {parked_s:.1f} s after step 1 ended; all "
           f"{step_ms!r}), "
           f"{out['tokens_per_s']!r} tokens/s, peak memory of the steps {peak} "
-          f"bytes, "
+          f"bytes, A1 C calls a step {a1_calls!r}, "
           f"model FLOPs {flops!r} a step (lm_model_flops) = "
           f"{out['bf16_peak_share']!r} of 989 TFLOP/s bf16; float32 "
           f"(1, {f32['prompt']}) prompt, card against CPU (tol "
@@ -3270,6 +3280,163 @@ def lm_full_width(arch: str, device, card: str, seed: int,
           f"for {f32['cpu_waited_s']:.1f} s), "
           f"{out['seconds']:.1f} s in all; [{card}]")
     return out
+
+
+#: A1's timed shapes, causal, at the cells' widths: (label, phase 9(b)'s
+#: arch, B, S, H, Hkv, hd)
+A1_SHAPES = (("stablelm-1.6b", "stablelm_1_6b", 2, 4096, 32, 32, 64),
+             ("granite-moe-1b-a400m", "granite_moe_1b_a400m", 2, 4096, 16,
+              8, 64))
+A1_REPS = 10
+#: A1's tensor-core products per (query, key) pair a direction needs: QK^T
+#: and PV forward; S, dP, dV and dS's hi + lo split into dQ and into dK
+#: backward
+A1_PRODUCTS = {"fwd": 2, "bwd": 7}
+A1_PARTS = ("out", "dq", "dk", "dv")
+
+
+def a1_exact(q, k, v, dout) -> tuple:
+    """float64 causal (out, dq, dk, dv) of the bf16 inputs (B, S, H, hd)
+    and (B, S, Hkv, hd), a (batch, head) at a time; query head h reads kv
+    head h // (H // Hkv)."""
+    import torch
+    b, s, h, hd = q.shape
+    rep = h // k.shape[2]
+    ok = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    dq = torch.empty_like(out)
+    dk = torch.zeros(k.shape, dtype=torch.float64, device=q.device)
+    dv = torch.zeros_like(dk)
+    for bi in range(b):
+        for hi in range(h):
+            gi = hi // rep
+            qh, kh, vh = (t[bi, :, x].double().requires_grad_()
+                          for t, x in ((q, hi), (k, gi), (v, gi)))
+            sc = ((qh @ kh.T) * hd ** -0.5).masked_fill(~ok, -math.inf)
+            o = torch.softmax(sc, -1) @ vh
+            o.backward(dout[bi, :, hi].double())
+            out[bi, :, hi] = o.detach()
+            dq[bi, :, hi] = qh.grad
+            dk[bi, :, gi] += kh.grad
+            dv[bi, :, gi] += vh.grad
+    return out, dq, dk, dv
+
+
+def attention_a1(device, card: str) -> dict:
+    """A1 (``kernels/attention.py``) at the cells' shapes: its forward
+    and backward ms (CUDA events) against the plain version's
+    (``models.attention``'s query-block loop), with
+    ``F.scaled_dot_product_attention``'s as a yardstick only
+    (``library_ms``; the port never calls it), and the bound: the larger
+    of the tensor-core FLOPs the work needs with causal skipping
+    (:data:`A1_PRODUCTS`, 2 x hd a pair each) at 989 TFLOP/s and the
+    bytes of q, k, v, o, lse (forward) and of those, dO, dq, dk and dv
+    (backward) at 3.35 TB/s. The kernel's out, dq, dk and dv (one dout)
+    are held to float64 attention of the same bf16 inputs as the gpu
+    test holds them: each one's norm-wise error at most 1.25x the plain
+    version's plus 1e-4 (raises past it); the errors and out's max abs
+    difference from the plain version are kept."""
+    import types
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import attention as fa
+    from repro_torch.models import attention as mattn
+    out = {}
+    for label, _, b, s, h, hkv, hd in A1_SHAPES:
+        g = torch.Generator(device=device).manual_seed(s + h)
+        mk = lambda n: torch.randn((b, s, n, hd), generator=g,
+                                   device=device).to(torch.bfloat16)
+        q, k, v, dout = mk(h), mk(hkv), mk(hkv), mk(h)
+        cfg = types.SimpleNamespace(n_heads=h, n_kv_heads=hkv,
+                                    attn_chunk=1024, window=None)
+        pos = torch.arange(s, device=device)
+        fns = {
+            "kernel": lambda q, k, v: fa.attention(q, k, v, causal=True),
+            "plain": lambda q, k, v: mattn._plain(
+                q, k, v, cfg=cfg, positions=pos, kpos=pos, causal=True),
+            "library": lambda q, k, v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=h != hkv).transpose(1, 2)}
+        ms, got = {}, {}
+        for name, fn in fns.items():
+            with torch.no_grad():
+                fwd = time_ms(lambda: fn(q, k, v), A1_REPS)
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+            o = fn(qq, kk, vv)
+            bwd = time_ms(lambda: torch.autograd.grad(
+                o, (qq, kk, vv), dout, retain_graph=True), A1_REPS)
+            ms[name] = {"fwd": fwd, "bwd": bwd}
+            if name != "library":
+                got[name] = (o.detach(), *torch.autograd.grad(
+                    o, (qq, kk, vv), dout))
+            del o, qq, kk, vv
+            torch.cuda.empty_cache()
+        want = a1_exact(q, k, v, dout)
+        rel = {n: {part: float((x.double() - ref).norm() / ref.norm())
+                   for part, x, ref in zip(A1_PARTS, got[n], want)}
+               for n in got}
+        del want
+        torch.cuda.empty_cache()
+        for part in A1_PARTS:
+            e_kernel, e_plain = rel["kernel"][part], rel["plain"][part]
+            if not e_kernel <= 1.25 * e_plain + 1e-4:
+                raise AssertionError(
+                    f"A1 {label}: {part}'s error against float64 "
+                    f"{e_kernel!r}, past 1.25 x the plain version's "
+                    f"{e_plain!r} + 1e-4")
+        err = float((got["kernel"][0].float() - got["plain"][0].float())
+                    .abs().max())
+        del got
+        pairs = s * (s + 1) // 2
+        nq, nk = b * s * h * hd, b * s * hkv * hd
+        lse = 4 * b * h * s
+        nbytes = {"fwd": 2 * (2 * nq + 2 * nk) + lse,
+                  "bwd": 2 * (3 * nq + 2 * nk) + lse + 2 * (nq + 2 * nk)}
+        bound = {}
+        for d in ("fwd", "bwd"):
+            flops = A1_PRODUCTS[d] * 2 * b * h * pairs * hd
+            tf, tb = flops / BF16_FLOPS_PER_S, nbytes[d] / MEM_BYTES_PER_S
+            bound[d] = {"bound_ms": 1e3 * max(tf, tb),
+                        "bound_by": "flops" if tf >= tb else "bytes",
+                        "flops": flops, "bytes": nbytes[d],
+                        "roofline_share": 1e3 * max(tf, tb) /
+                        ms["kernel"][d]}
+        out[label] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                      "library_ms": ms["library"], "bound": bound,
+                      "max_abs_err_vs_plain": err,
+                      "rel_err_vs_float64": rel}
+        print(f"time A1 attention {label} (B={b} S={s} H={h}/{hkv} hd={hd} "
+              f"causal): kernel fwd {ms['kernel']['fwd']!r} ms, bwd "
+              f"{ms['kernel']['bwd']!r} ms; plain fwd {ms['plain']['fwd']!r}"
+              f" ms, bwd {ms['plain']['bwd']!r} ms; library (SDPA, a "
+              f"yardstick) fwd {ms['library']['fwd']!r} ms, bwd "
+              f"{ms['library']['bwd']!r} ms; bound fwd "
+              f"{bound['fwd']['bound_ms']!r} ms by {bound['fwd']['bound_by']}"
+              f" ({bound['fwd']['roofline_share']!r} of it), bwd "
+              f"{bound['bwd']['bound_ms']!r} ms by {bound['bwd']['bound_by']}"
+              f" ({bound['bwd']['roofline_share']!r}); norm-wise error "
+              f"against float64, kernel {rel['kernel']!r}, plain "
+              f"{rel['plain']!r} (limit 1.25 x plain + 1e-4); out against "
+              f"plain max abs {err!r}; [{card}]")
+    return out
+
+
+def a1_records(wall: dict) -> list:
+    """The ``kernels`` records of A1, one per timed shape: the main
+    path's C calls a step (phase 9(b)'s training step of the shape's
+    arch) and the errors beside the times and the bound."""
+    return [{"name": f"attention {label}", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/attention.cu",
+             "replaces": None,
+             "launches": wall["lm"][arch]["a1_calls_per_step"],
+             "max_abs_err": a["max_abs_err_vs_plain"],
+             "rel_err_vs_float64": a["rel_err_vs_float64"],
+             "ms": a["ms"], "plain_ms": a["plain_ms"],
+             "bound_ms": {d: a["bound"][d]["bound_ms"] for d in a["bound"]},
+             "bound_by": {d: a["bound"][d]["bound_by"] for d in a["bound"]},
+             "library_ms": a["library_ms"]}
+            for label, arch, *_ in A1_SHAPES
+            for a in (wall["a1"][label],)]
 
 
 def lm_phase(device, card: str) -> dict:
@@ -4256,6 +4423,7 @@ def mesh_step(device, card: str) -> dict:
     from repro_torch import sharding
     from repro_torch.configs import get_config
     from repro_torch.launch.rules import rules_for
+    from repro_torch.models import attention
     from repro_torch.models.transformer import LM, tree_leaves
     from repro_torch.train import optim, step
     cfg = get_config(MESH_ARCH)
@@ -4284,8 +4452,15 @@ def mesh_step(device, card: str) -> dict:
     lm, state = fresh()
     batch = lm_batch(cfg, LM_BATCH, LM_SEQ, device, seed + 1)
     opt = optim.OptConfig(warmup_steps=1)
-    state, want, plain_ms = run(state, batch,
-                                step.make_train_step(lm, opt))
+    # a sharded step keeps the plain attention loop (A1 takes plain
+    # tensors only), so the plain step it is held to takes that loop too
+    fused = attention._fused
+    attention._fused = lambda q: False
+    try:
+        state, want, plain_ms = run(state, batch,
+                                    step.make_train_step(lm, opt))
+    finally:
+        attention._fused = fused
     params = state["params"]
     del lm, state
     torch.cuda.empty_cache()
@@ -5665,8 +5840,9 @@ def later_phases(phases, device, card: str, tree=None) -> dict:
             wall["hprot"] = hprot_phase(
                 orion_tree() if tree is None else tree, Path(d), device,
                 card)
-    # -- 9. the LM stack (no kernel of B1-B9 on its path)
+    # -- 9. the LM stack (A1, its attention kernel, on its path)
     if "9" in phases:
+        wall["a1"] = attention_a1(device, card)
         wall["lm"] = lm_phase(device, card)
     # -- 10. the trainer on the card; 11. LM serving (no kernel of B1-B9)
     if "10" in phases:
@@ -5927,6 +6103,7 @@ def main(argv=None) -> int:
     wall.update(later_phases(phases or PHASES, device, card, tree))
     print(json.dumps({"main_path": wall, "card": card}))
     if records is not None:
+        records += a1_records(wall)
         print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, **({"phases": list(phases)} if phases
                                      else {}), "device": {

@@ -40,6 +40,9 @@ _p, _i32, _i64, _f32, _f64 = (ctypes.c_void_p, ctypes.c_int32,
 #: with the device index and the stream and returns the launch's
 #: cudaError_t as an int
 SIGNATURES = {
+    # csrc/attention.cu
+    "attn_fwd": [_p, _p, _p, _p, _p, *[_i32] * 8, _f32, _i32, _p],
+    "attn_bwd": [*[_p] * 10, *[_i32] * 8, _f32, _i32, _p],
     # csrc/raster.cu
     "raster_slice_f64": [_p, _p, _i64, _p, _p, _p, _i64, _i32, _i32, _f64,
                          _p, _p, _i32, _p],

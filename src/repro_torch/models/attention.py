@@ -8,6 +8,16 @@ The mask is additive (-1e30 in float32, added before a float32
 softmax), and the probabilities are cast to the compute dtype before
 the PV product, as in the reference.
 
+On the card, :func:`multihead` hands plain CUDA bf16 tensors to the
+fused kernel (``kernels.attention``, A1): scores stay on chip, the mask
+is by index, GQA by index. The kernel reads no positions, so causal
+attention goes to it only where the caller states ``index_positions``:
+its positions (and ``kv_positions``) are 0 … S-1 on every row, as
+``sharding.positions`` makes them. The loop above stays the plain
+version: the CPU, float32 compute (the kernel's products are bf16),
+sharded DTensor steps and causal calls without that fact take it, and
+``cfg.attn_chunk`` governs it alone.
+
 Single-token decode (:func:`decode_kv`) writes the new K/V into the
 cache in place at one slot (``pos``, or ``pos % capacity`` for a
 window's ring) and attends over the cache with the GQA groups kept
@@ -19,7 +29,8 @@ from __future__ import annotations
 import torch
 
 from .. import sharding
-from . import layers
+from ..kernels import attention as kernel
+from . import layers, probe
 from .layers import ParamSpec, dot, wcast
 
 
@@ -59,13 +70,48 @@ def _sdpa(q, k, v, bias):
     return dot("bhqk,bkhd->bqhd", probs, v, f32=False)
 
 
+def _fused(q) -> bool:
+    """Whether the fused kernel can take this attention: a plain (not
+    DTensor) CUDA tensor in bf16. Sharded steps keep the plain loop,
+    whose collectives the dry-run plans count."""
+    return type(q) is torch.Tensor and q.is_cuda and \
+        q.dtype == torch.bfloat16
+
+
+def _plain(q, k, v, *, cfg, positions, kpos, causal):
+    """The plain version: GQA by repeat, then the query-block loop
+    (``cfg.attn_chunk`` rows a block, every key per block)."""
+    s = q.shape[1]
+    k = _repeat_kv(k, cfg.n_heads // cfg.n_kv_heads)
+    v = _repeat_kv(v, cfg.n_heads // cfg.n_kv_heads)
+    pos1 = sharding.first_row(positions) if positions.ndim > 1 else positions
+    kpos1 = sharding.first_row(kpos) if kpos.ndim > 1 else kpos
+    if not causal:
+        return _sdpa(q, k, v, None)
+    if s <= cfg.attn_chunk:
+        return _sdpa(q, k, v, _mask_bias(pos1, kpos1, cfg.window))
+    # flash-style: loop over query blocks, full KV per block
+    c = cfg.attn_chunk
+    if s % c:
+        raise ValueError(f"sequence {s} is not a multiple of "
+                         f"attn_chunk {c}")
+    return torch.cat([
+        _sdpa(q[:, i:i + c], k, v,
+              _mask_bias(pos1[i:i + c], kpos1, cfg.window))
+        for i in range(0, s, c)], dim=1)
+
+
 def multihead(p, x, *, cfg, positions, kv_x=None, kv_positions=None,
-              causal=True, return_kv=False):
+              causal=True, return_kv=False, index_positions=False):
     """Full attention over a sequence (training / prefill / cross).
 
     x: (B, S, D). kv_x (cross-attention source) defaults to x.
     With ``return_kv`` also returns the (pre-GQA-repeat, post-RoPE)
     (B, S, nkv, hd) K/V for cache seeding at prefill.
+    ``index_positions`` states that ``positions`` (and ``kv_positions``)
+    are 0 … S-1 on every row, so that the fused kernel's mask by index
+    is the mask they give; without it causal attention takes the plain
+    version (a check of the values would wait for the device).
     """
     b, s, _ = x.shape
     dt = x.dtype
@@ -94,26 +140,15 @@ def multihead(p, x, *, cfg, positions, kv_x=None, kv_positions=None,
     k = sharding.constrain(k, "batch", "seq", "kv_heads", "head_dim")
     v = sharding.constrain(v, "batch", "seq", "kv_heads", "head_dim")
     kv_raw = (k, v)
-    k = _repeat_kv(k, cfg.n_heads // cfg.n_kv_heads)
-    v = _repeat_kv(v, cfg.n_heads // cfg.n_kv_heads)
-
-    pos1 = sharding.first_row(positions) if positions.ndim > 1 else positions
-    kpos1 = sharding.first_row(kpos) if kpos.ndim > 1 else kpos
-    if not causal:
-        out = _sdpa(q, k, v, None)
-    elif s <= cfg.attn_chunk:
-        out = _sdpa(q, k, v, _mask_bias(pos1, kpos1, cfg.window))
+    fused = _fused(q) and (index_positions or not causal)
+    if probe.ACTIVE is not None:
+        probe.ACTIVE.count_attention(fused)
+    if fused:
+        out = kernel.attention(q, k, v, causal=causal,
+                               window=cfg.window if causal else None)
     else:
-        # flash-style: loop over query blocks, full KV per block
-        c = cfg.attn_chunk
-        if s % c:
-            raise ValueError(f"sequence {s} is not a multiple of "
-                             f"attn_chunk {c}")
-        out = torch.cat([
-            _sdpa(q[:, i:i + c], k, v,
-                  _mask_bias(pos1[i:i + c], kpos1, cfg.window))
-            for i in range(0, s, c)], dim=1)
-
+        out = _plain(q, k, v, cfg=cfg, positions=positions, kpos=kpos,
+                     causal=causal)
     out = sharding.constrain(out, "batch", "seq", "heads", "head_dim")
     # compute-dtype output: the TP partial sums cross ranks in bf16
     out = layers.pin_out(dot("bshk,hkd->bsd", out, wcast(

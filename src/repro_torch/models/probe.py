@@ -22,6 +22,9 @@ probe while ``obs.TRACER`` is enabled; otherwise :data:`ACTIVE` is
   time it worked (the profiler's trace tells them apart).
   :meth:`StepProbe.device_times` reads the stamps after the step's own
   sync and adds no sync.
+- **Attention route.** ``attention.multihead`` counts its calls and
+  those the fused kernel took (:meth:`StepProbe.count_attention`), once
+  per forward (not in remat's recompute), on the host.
 - **MoE routing.** ``moe._dispatch`` counts the step's routed
   assignments and those past an expert's capacity in their group
   (:meth:`StepProbe.count_moe`), on the device, once per forward (not
@@ -92,6 +95,7 @@ class StepProbe:
         self.calls: collections.Counter = collections.Counter()
         self.moe_assigned = 0
         self._moe_dropped = None
+        self.attn_calls = self.attn_kernel = 0
 
     @contextlib.contextmanager
     def active(self):
@@ -166,3 +170,19 @@ class StepProbe:
         return {"moe_assigned": self.moe_assigned,
                 "moe_dropped": int(self._moe_dropped)}
 
+    # ------------------------------------------------ attention counters
+    def count_attention(self, kernel: bool) -> None:
+        """Add one attention call of the step's forward, taken by the
+        fused kernel or not."""
+        if in_backward():
+            return
+        self.attn_calls += 1
+        self.attn_kernel += int(kernel)
+
+    def attn_counts(self) -> dict:
+        """{"attn_calls", "attn_kernel"} where the step attended, else
+        {}."""
+        if not self.attn_calls:
+            return {}
+        return {"attn_calls": self.attn_calls,
+                "attn_kernel": self.attn_kernel}

@@ -237,7 +237,9 @@ class LM(nn.Module):
         """One layer over the full sequence -> (x, aux, the layer's cache
         as prefill seeds it: attention's K/V over every position ("k",
         "v"; an enc-dec block also its cross K/V "xk", "xv"), or the SSM's
-        or RG-LRU's final conv and state)."""
+        or RG-LRU's final conv and state). ``positions`` are
+        ``sharding.positions``' 0 … S-1, as every caller builds them,
+        which attention states as ``index_positions``."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         pr = probe.ACTIVE
@@ -247,7 +249,8 @@ class LM(nn.Module):
             h = layers.apply_norm(p["ln1"], x, cfg)
             y, (k, v) = attention.multihead(p["attn"], h, cfg=cfg,
                                             positions=positions,
-                                            return_kv=True)
+                                            return_kv=True,
+                                            index_positions=True)
             x = x + y
             cache = {"k": k, "v": v}
             if kind == "xattn":

@@ -393,7 +393,7 @@ def test_library_named_by_every_source(tmp_path, monkeypatch):
     """One library over all of ``csrc/*.cu``; editing any source renames
     it, so a stale build is never loaded."""
     names = [p.name for p in cudalib.sources()]
-    assert names == ["codec.cu", "raster.cu"]
+    assert names == ["attention.cu", "codec.cu", "raster.cu"]
     for p in cudalib.sources():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(cudalib, "CSRC", tmp_path)
@@ -427,7 +427,8 @@ def c_prototypes(src) -> dict:
     return out
 
 
-@pytest.mark.parametrize("source", ["codec.cu", "raster.cu"])
+@pytest.mark.parametrize("source", ["attention.cu", "codec.cu",
+                                    "raster.cu"])
 def test_c_prototypes_match_signatures(source):
     """Every entry of the source has ``cudalib.SIGNATURES``' argument
     count and, per argument, its pointer or integer width; each ends with
@@ -452,6 +453,11 @@ def test_c_prototypes_match_signatures(source):
         b1 = protos["raster_slice_f64"]
         assert b1[2] == ctypes.c_int64 and b1[9] == ctypes.c_double
         assert b1[:10] == protos["raster_slice_carry_f64"][:10]
+    elif source == "attention.cu":
+        # A1: the tensors, eight int32 sizes and flags, the scale a float
+        assert protos["attn_fwd"][5:14] == [ctypes.c_int32] * 8 + \
+            [ctypes.c_float]
+        assert protos["attn_bwd"][10:19] == protos["attn_fwd"][5:14]
     else:
         # B6 writes one buffer: four word inputs, four ints, one output
         assert protos["codec_encode_groups"][:9] == \

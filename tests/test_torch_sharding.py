@@ -28,7 +28,7 @@ from repro_torch import sharding
 from repro_torch.configs import ARCHS, SHAPES, get_config, get_smoke_config
 from repro_torch.launch import dryrun, rules
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models import layers
+from repro_torch.models import attention, layers
 from repro_torch.models.transformer import LM, tree_leaves
 
 from lm_cases import inputs
@@ -242,9 +242,16 @@ def _mesh_step_against_plain(arch: str, device, backend: str):
     lm, state = fresh()
     train = step.make_train_step(lm, optim.OptConfig(warmup_steps=1))
     want = []
-    for _ in range(3):
-        state, m = train(state, batch)
-        want.append(m["loss"].clone())
+    # a sharded step keeps the plain attention loop (the fused kernel
+    # takes plain CUDA tensors only), so the plain step takes it too
+    fused = attention._fused
+    attention._fused = lambda q: False
+    try:
+        for _ in range(3):
+            state, m = train(state, batch)
+            want.append(m["loss"].clone())
+    finally:
+        attention._fused = fused
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]

@@ -219,6 +219,20 @@ def test_moe_counters_are_the_routings_plain_count(tmp_path, tracer, nmb):
     assert got["none"] == got["full"]
 
 
+@pytest.mark.parametrize("remat,nmb", [("full", 1), ("none", 2)])
+def test_attention_counters_count_each_forward_call(tmp_path, tracer, remat,
+                                                    nmb):
+    """``attn_calls`` is every attention call of the step's forward (a
+    layer a microbatch; remat's recompute is not counted again), and on
+    the CPU ``attn_kernel`` is 0: the plain loop takes them all."""
+    tr = _trainer(tmp_path, DENSE, remat=remat, num_microbatches=nmb)
+    tr.run(2)
+    for n in (1, 2):
+        (step,) = _named(tracer.spans(), "train.step", n)
+        assert step["args"]["attn_calls"] == tr.cfg.n_layers * nmb
+        assert step["args"]["attn_kernel"] == 0
+
+
 def test_sync_span_is_mirrored_on_the_profilers_clock(tmp_path, tracer):
     from torch.profiler import ProfilerActivity, profile
     tr = _trainer(tmp_path, DENSE)
@@ -293,6 +307,7 @@ READERS = {
     "block.embed_ms": 1.5, "block.attention_ms": 3.0, "block.ffn_ms": 4.5,
     "block.head_ms": 6.0, "train.adamw_ms": 7.5, "train.host_syncs": 9.0,
     "moe.drop_share": 100.0 * 30 / 400,
+    "attn.kernel_share": 100.0 * 36 / 48,
 }
 
 
@@ -302,7 +317,9 @@ def _ctx():
         spans += [
             {"name": "train.step", "args": {"step": n, "host_syncs": 6 * f,
                                             "moe_assigned": 200,
-                                            "moe_dropped": 10 * f},
+                                            "moe_dropped": 10 * f,
+                                            "attn_calls": 24,
+                                            "attn_kernel": 12 * f},
              "dur": 50e3 * f},
             {"name": "train.dispatch", "args": {"step": n}, "dur": 10e3 * f},
             {"name": "train.sync", "args": {"step": n}, "dur": 20e3 * f},
