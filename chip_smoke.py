@@ -149,7 +149,8 @@ no argument, every phase:
      and power limit;
   9. the LM stack (``repro_torch.models``, ``configs``, ``train``; it
      reaches none of B1-B9, and A1, the fused attention kernel, in every
-     bf16 attention call), first A1 timed at the two cells' shapes
+     bf16 attention call), first A1 timed at the three cells' shapes,
+     each at its config's softmax scale
      (:func:`attention_a1`: forward and backward times against the plain
      version's, SDPA's as a yardstick, the bound; out, dq, dk and dv held
      to float64 as closely as the plain version comes), then, with TF32
@@ -161,16 +162,20 @@ no argument, every phase:
      near-tie (gap below 1e-4) and every token after it are left out,
      and any other difference in routing fails - then the grads of one
      batch twice on the card, bitwise equal, and one AdamW step (finite
-     loss and grad norm, ``step == 1``, every parameter moved); (b) six
+     loss and grad norm, ``step == 1``, every parameter moved); (b) seven
      published configs at their widths, vocabularies and extras (bf16
-     compute, float32 params, remat), cut only in depth (LM_DEPTH):
+     compute, float32 params, remat), cut only in depth (LM_DEPTH) and
+     in the experts held (LM_HELD):
      ``stablelm-1.6b``, ``granite-moe-1b-a400m`` (top-8 of 32),
      ``mamba2-1.3b``,
      ``whisper-medium`` (24 + 24 layers, 1,500 frames, cross-attention),
      ``recurrentgemma-2b`` (RG-LRU width 2,560, window 2,048, vocab
-     256,000; 26 -> 14 layers, whole macro blocks) and
+     256,000; 26 -> 14 layers, whole macro blocks),
      ``llava-next-34b`` (2,880 patch embeddings before the text,
-     ``num_microbatches`` 4; 60 -> 2 layers), initialized on the card
+     ``num_microbatches`` 4; 60 -> 2 layers) and ``granite-4.0-h-small``
+     (Mamba-2 and NoPE attention, each followed by top-10 of 72 experts
+     and a shared expert; 40 -> 10 layers, one period, 9 of 72 experts
+     held: portbench's cell), initialized on the card
      from a seeded generator by the reference's rule (a cut stack at the
      published stack's scale, :func:`lm_init`): three AdamW steps
      (``warmup_steps=1``) on one seeded batch of B = 2 (llava 4, the
@@ -186,8 +191,9 @@ no argument, every phase:
      backward under a seeded cotangent (5e-4); ``LM.forward`` bitwise
      the stage walk on the card, and free-running on the card against
      the CPU within 5e-4 for stablelm and llava, printed by stage for
-     granite, mamba2, whisper and recurrentgemma, whose dynamics at this
-     init grow float32 rounding (until granite's routing differs). The
+     granite, mamba2, whisper, recurrentgemma and granite-4.0-h-small,
+     whose dynamics at this init grow float32 rounding (until an MoE's
+     routing differs). The
      CPU sides (each config's parameters drawn on the card and copied
      to the CPU) run in one thread beside the card's work, at most two
      configs ahead of it (in LM_ORDER), parked at a stage's end through
@@ -2515,9 +2521,10 @@ def hprot_phase(tree, tmp: Path, device, card: str) -> dict:
 # ---------------------------------------------------- 9. the LM stack
 
 #: phase 9(b)'s full-width configs (``configs/<arch>.py`` ``CONFIG``);
-#: only LM_DEPTH cuts any of them
+#: only LM_DEPTH and LM_HELD cut any of them
 LM_FULL = ("stablelm_1_6b", "granite_moe_1b_a400m", "mamba2_1_3b",
-           "whisper_medium", "recurrentgemma_2b", "llava_next_34b")
+           "whisper_medium", "recurrentgemma_2b", "llava_next_34b",
+           "granite_4_0_h_small")
 #: depth cuts, the only cut (every width, head count, head_dim,
 #: vocabulary, n_patches, n_frames, window, expert count and
 #: num_microbatches stays the published config's): llava-next-34b's 60
@@ -2527,8 +2534,14 @@ LM_FULL = ("stablelm_1_6b", "granite_moe_1b_a400m", "mamba2_1_3b",
 #: backward of its 2 x 4,096 x 256,000 logits (77.26 GiB held, 7.81 more
 #: asked), 20 and 17 layers too (71.41 and 68.56; one H100 80GB HBM3 at
 #: 700 W); whole (rec, rec, attn) macro blocks go, 8 -> 4, and the two
-#: rec tail layers stay
-LM_DEPTH = {"llava_next_34b": 2, "recurrentgemma_2b": 14}
+#: rec tail layers stay. granite-4.0-h-small keeps one period of its
+#: layer pattern, the layers of its portbench cell
+LM_DEPTH = {"llava_next_34b": 2, "recurrentgemma_2b": 14,
+            "granite_4_0_h_small": 10}
+#: experts held, the cut of an expert-parallel share (the router keeps
+#: every expert): granite-4.0-h-small's 9 of 72, one of 8 devices, as its
+#: portbench cell (``configs/granite_4_0_h_small.py`` ``SHARE``)
+LM_HELD = {"granite_4_0_h_small": 9}
 #: full-width configs whose float32 prompt is held only layer by layer
 #: (each stage on the CPU run's own input), not free-running: at the
 #: reference's init their dynamics grow float32 rounding layer by layer,
@@ -2537,7 +2550,7 @@ LM_DEPTH = {"llava_next_34b": 2, "recurrentgemma_2b": 14}
 #: norm and 0.70 at the logits, recurrentgemma's from 7.6e-6 to 0.0028
 #: (one H100 80GB HBM3 at 700 W against the CPU)
 LM_PER_LAYER = ("granite_moe_1b_a400m", "mamba2_1_3b", "whisper_medium",
-                "recurrentgemma_2b")
+                "recurrentgemma_2b", "granite_4_0_h_small")
 LM_BATCH, LM_SEQ = 2, 4096     # B = 2 at train_4k's sequence length
 #: llava's B = 4: the least batch that its num_microbatches = 4 divides
 LM_BATCH_OF = {"llava_next_34b": 4}
@@ -2548,7 +2561,8 @@ LM_AHEAD = 2
 #: the card's host, 14 s or less for the others) start early and apart,
 #: so that the thread they share is seldom idle
 LM_ORDER = ("llava_next_34b", "stablelm_1_6b", "mamba2_1_3b",
-            "recurrentgemma_2b", "whisper_medium", "granite_moe_1b_a400m")
+            "recurrentgemma_2b", "whisper_medium", "granite_moe_1b_a400m",
+            "granite_4_0_h_small")
 LM_PROMPT = 16                 # the float32 card-against-CPU prompt
 #: a VLM prompt must cover its patches (on a shorter one ``x[:, P:]`` is
 #: empty and the sequence becomes P long, in both packages), and past
@@ -3091,17 +3105,22 @@ def lm_widths(cfg) -> str:
     keys = {"encdec": ("n_enc_layers", "n_frames"), "vlm": ("n_patches",),
             "moe": ("n_experts", "top_k"), "hybrid": ("lru_width",
                                                       "window")}
+    if cfg.family == "hybrid" and cfg.n_experts:
+        keys["hybrid"] = ("block_pattern", "n_experts", "top_k",
+                          "shared_ff", "ssm_state", "attention_multiplier")
     return "".join(f", {k} {getattr(cfg, k)}"
                    for k in keys.get(cfg.family, ()))
 
 
 def lm_full_config(arch: str):
-    """(the published config, phase 9(b)'s: that cut to LM_DEPTH)."""
+    """(the published config, phase 9(b)'s: that cut to LM_DEPTH and
+    LM_HELD)."""
     import dataclasses
     from repro_torch.configs import get_config
     full = get_config(arch)
-    return full, dataclasses.replace(full, n_layers=LM_DEPTH.get(
-        arch, full.n_layers))
+    return full, dataclasses.replace(
+        full, n_layers=LM_DEPTH.get(arch, full.n_layers),
+        experts_held=LM_HELD.get(arch, full.experts_held))
 
 
 def lm_init(lm, full, generator) -> dict:
@@ -3172,7 +3191,8 @@ def lm_same_params(label: str, host, params) -> None:
 
 def lm_full_width(arch: str, device, card: str, seed: int,
                   cpu_side: LmCpuSide) -> dict:
-    """Phase 9(b) for one config (cut only to LM_DEPTH): init on the card
+    """Phase 9(b) for one config (cut only to LM_DEPTH and LM_HELD):
+    init on the card
     from a seeded generator (bitwise the CPU side's copy, at the edges of
     every leaf), LM_STEPS AdamW steps on one (B, LM_SEQ) batch (B from
     LM_BATCH_OF, else LM_BATCH) at the config's compute dtype, timed
@@ -3251,8 +3271,11 @@ def lm_full_width(arch: str, device, card: str, seed: int,
             f"{[float('%.2g' % x) for x in f32['free']]}; "
             + ("printed only: " + arch + "'s dynamics grow it)"
                if arch in LM_PER_LAYER else f"tol {LM_TOL['float32']})"))
-    cut = "uncut" if cfg.n_layers == full.n_layers else \
-        f"depth cut {full.n_layers} -> {cfg.n_layers} (LM_DEPTH)"
+    cuts = ([f"depth cut {full.n_layers} -> {cfg.n_layers} (LM_DEPTH)"]
+            if cfg.n_layers != full.n_layers else []) + \
+        ([f"{cfg.n_held} of {cfg.n_experts} experts held (LM_HELD)"]
+         if cfg.n_held != full.n_held else [])
+    cut = ", ".join(cuts) or "uncut"
     extras = lm_widths(cfg)
     print(f"lm {cfg.name} ({cut}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, vocab {cfg.vocab_size}{extras}, "
@@ -3283,10 +3306,13 @@ def lm_full_width(arch: str, device, card: str, seed: int,
 
 
 #: A1's timed shapes, causal, at the cells' widths: (label, phase 9(b)'s
-#: arch, B, S, H, Hkv, hd)
-A1_SHAPES = (("stablelm-1.6b", "stablelm_1_6b", 2, 4096, 32, 32, 64),
+#: arch, B, S, H, Hkv, hd, the softmax scale: the config's
+#: ``attention_multiplier``, None for hd^-0.5)
+A1_SHAPES = (("stablelm-1.6b", "stablelm_1_6b", 2, 4096, 32, 32, 64, None),
              ("granite-moe-1b-a400m", "granite_moe_1b_a400m", 2, 4096, 16,
-              8, 64))
+              8, 64, None),
+             ("granite-4.0-h-small", "granite_4_0_h_small", 2, 4096, 32, 8,
+              128, 0.0078125))
 A1_REPS = 10
 #: A1's tensor-core products per (query, key) pair a direction needs: QK^T
 #: and PV forward; S, dP, dV and dS's hi + lo split into dQ and into dK
@@ -3295,12 +3321,14 @@ A1_PRODUCTS = {"fwd": 2, "bwd": 7}
 A1_PARTS = ("out", "dq", "dk", "dv")
 
 
-def a1_exact(q, k, v, dout) -> tuple:
+def a1_exact(q, k, v, dout, scale=None) -> tuple:
     """float64 causal (out, dq, dk, dv) of the bf16 inputs (B, S, H, hd)
-    and (B, S, Hkv, hd), a (batch, head) at a time; query head h reads kv
-    head h // (H // Hkv)."""
+    and (B, S, Hkv, hd) at softmax scale ``scale`` (None: hd^-0.5), a
+    (batch, head) at a time; query head h reads kv head h // (H //
+    Hkv)."""
     import torch
     b, s, h, hd = q.shape
+    scale = hd ** -0.5 if scale is None else scale
     rep = h // k.shape[2]
     ok = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
     out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
@@ -3312,7 +3340,7 @@ def a1_exact(q, k, v, dout) -> tuple:
             gi = hi // rep
             qh, kh, vh = (t[bi, :, x].double().requires_grad_()
                           for t, x in ((q, hi), (k, gi), (v, gi)))
-            sc = ((qh @ kh.T) * hd ** -0.5).masked_fill(~ok, -math.inf)
+            sc = ((qh @ kh.T) * scale).masked_fill(~ok, -math.inf)
             o = torch.softmax(sc, -1) @ vh
             o.backward(dout[bi, :, hi].double())
             out[bi, :, hi] = o.detach()
@@ -3325,7 +3353,8 @@ def a1_exact(q, k, v, dout) -> tuple:
 def attention_a1(device, card: str) -> dict:
     """A1 (``kernels/attention.py``) at the cells' shapes: its forward
     and backward ms (CUDA events) against the plain version's
-    (``models.attention``'s query-block loop), with
+    (``models.attention``'s query-block loop), each at the shape's
+    softmax scale, with
     ``F.scaled_dot_product_attention``'s as a yardstick only
     (``library_ms``; the port never calls it), and the bound: the larger
     of the tensor-core FLOPs the work needs with causal skipping
@@ -3342,7 +3371,7 @@ def attention_a1(device, card: str) -> dict:
     from repro_torch.kernels import attention as fa
     from repro_torch.models import attention as mattn
     out = {}
-    for label, _, b, s, h, hkv, hd in A1_SHAPES:
+    for label, _, b, s, h, hkv, hd, scale in A1_SHAPES:
         g = torch.Generator(device=device).manual_seed(s + h)
         mk = lambda n: torch.randn((b, s, n, hd), generator=g,
                                    device=device).to(torch.bfloat16)
@@ -3351,12 +3380,15 @@ def attention_a1(device, card: str) -> dict:
                                     attn_chunk=1024, window=None)
         pos = torch.arange(s, device=device)
         fns = {
-            "kernel": lambda q, k, v: fa.attention(q, k, v, causal=True),
+            "kernel": lambda q, k, v: fa.attention(q, k, v, causal=True,
+                                                   scale=scale),
             "plain": lambda q, k, v: mattn._plain(
-                q, k, v, cfg=cfg, positions=pos, kpos=pos, causal=True),
+                q, k, v, cfg=cfg, positions=pos, kpos=pos, causal=True,
+                scale=scale),
             "library": lambda q, k, v: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                is_causal=True, enable_gqa=h != hkv).transpose(1, 2)}
+                is_causal=True, enable_gqa=h != hkv,
+                scale=scale).transpose(1, 2)}
         ms, got = {}, {}
         for name, fn in fns.items():
             with torch.no_grad():
@@ -3371,7 +3403,7 @@ def attention_a1(device, card: str) -> dict:
                     o, (qq, kk, vv), dout))
             del o, qq, kk, vv
             torch.cuda.empty_cache()
-        want = a1_exact(q, k, v, dout)
+        want = a1_exact(q, k, v, dout, scale)
         rel = {n: {part: float((x.double() - ref).norm() / ref.norm())
                    for part, x, ref in zip(A1_PARTS, got[n], want)}
                for n in got}
@@ -3405,8 +3437,9 @@ def attention_a1(device, card: str) -> dict:
                       "library_ms": ms["library"], "bound": bound,
                       "max_abs_err_vs_plain": err,
                       "rel_err_vs_float64": rel}
+        said = "hd^-0.5" if scale is None else repr(scale)
         print(f"time A1 attention {label} (B={b} S={s} H={h}/{hkv} hd={hd} "
-              f"causal): kernel fwd {ms['kernel']['fwd']!r} ms, bwd "
+              f"causal, scale {said}): kernel fwd {ms['kernel']['fwd']!r} ms, bwd "
               f"{ms['kernel']['bwd']!r} ms; plain fwd {ms['plain']['fwd']!r}"
               f" ms, bwd {ms['plain']['bwd']!r} ms; library (SDPA, a "
               f"yardstick) fwd {ms['library']['fwd']!r} ms, bwd "

@@ -1,2 +1,3 @@
 """Assigned architecture configs + registry (``--arch <id>``)."""
-from .registry import ARCHS, get_config, get_smoke_config, SHAPES  # noqa: F401
+from .registry import (ARCHS, PORT_ARCHS, SHAPES, get_config,  # noqa: F401
+                       get_smoke_config)

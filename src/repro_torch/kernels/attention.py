@@ -16,7 +16,7 @@ and, with ``window``, i - j < window; without it every key is seen.
 The kernels take head dims 64, 128 and 256 (:data:`HEAD_DIMS`); any other
 is zero-padded to the next of them here (zero columns of q and k leave
 QK^T unchanged, and the zero columns of v's output are sliced off), with
-the scale still that of the caller's head dim.
+the default scale still that of the caller's head dim.
 
 The plain version of the same function is ``models.attention``'s
 query-block loop around ``_sdpa``; ``multihead`` routes CPU, float32 and
@@ -88,7 +88,7 @@ def _padded(t, kd: int):
 
 class _Attention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
+    def forward(ctx, q, k, v, causal, window, scale):
         hd = q.shape[-1]
         kd = kernel_head_dim(hd)
         q, k, v = (_padded(t, kd) for t in (q, k, v))
@@ -99,17 +99,16 @@ class _Attention(torch.autograd.Function):
         lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
         cudalib.launch("attn_fwd", dev, q.data_ptr(), k.data_ptr(),
                        v.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h,
-                       hkv, sq, sk, kd, int(causal), window or 0,
-                       hd ** -0.5)
+                       hkv, sq, sk, kd, int(causal), window or 0, scale)
         LAUNCHES["attn_fwd"] += 1
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.attrs = (causal, window, hd)
+        ctx.attrs = (causal, window, hd, scale)
         return out if kd == hd else out[..., :hd].contiguous()
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, window, hd = ctx.attrs
+        causal, window, hd, scale = ctx.attrs
         kd = q.shape[-1]
         dout = _padded(dout, kd)
         b, sq, h, _ = q.shape
@@ -121,19 +120,21 @@ class _Attention(torch.autograd.Function):
                        v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                        dk.data_ptr(), dv.data_ptr(), b, h, hkv, sq, sk, kd,
-                       int(causal), window or 0, hd ** -0.5)
+                       int(causal), window or 0, scale)
         LAUNCHES["attn_bwd"] += 1
         if kd != hd:
             dq, dk, dv = (t[..., :hd] for t in (dq, dk, dv))
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
-def attention(q, k, v, *, causal: bool, window=None):
+def attention(q, k, v, *, causal: bool, window=None, scale=None):
     """out (B, Sq, H, hd) bf16 of q (B, Sq, H, hd) against k, v (B, Sk,
-    Hkv, hd) on one CUDA device (see the module); raises on CPU tensors
-    and on whatever :func:`check` refuses."""
+    Hkv, hd) on one CUDA device (see the module), the scores scaled by
+    ``scale`` (None: hd^-0.5 of the caller's head dim); raises on CPU
+    tensors and on whatever :func:`check` refuses."""
     if not cudalib.on_cuda(q, k, v):
         raise ValueError("attention kernel: CPU tensors take the plain "
                          "version (models.attention)")
     check(q, k, v, causal, window)
-    return _Attention.apply(q, k, v, bool(causal), window)
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    return _Attention.apply(q, k, v, bool(causal), window, scale)

@@ -10,7 +10,7 @@ import argparse
 import os
 import tempfile
 
-from ..configs import ARCHS, get_config, get_smoke_config
+from ..configs import ARCHS, PORT_ARCHS, get_config, get_smoke_config
 from ..data.pipeline import DataConfig
 from ..models.transformer import LM
 from ..train import optim
@@ -19,7 +19,7 @@ from ..train.trainer import Trainer
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", choices=ARCHS, required=True)
+    p.add_argument("--arch", choices=ARCHS + PORT_ARCHS, required=True)
     p.add_argument("--smoke", action="store_true",
                    help="reduced config (CPU-runnable)")
     p.add_argument("--steps", type=int, default=100)

@@ -1,4 +1,5 @@
-"""Attention: GQA/MQA, RoPE, sliding window, query-chunked scan and
+"""Attention: GQA/MQA, RoPE or none (NoPE), sliding window, a softmax
+scale from the config or hd^-0.5, query-chunked scan and
 cross-attention, over full sequences (training and prefill).
 
 Long sequences never materialize the full S x S score matrix: queries
@@ -60,9 +61,10 @@ def _mask_bias(q_pos, k_pos, window):
     return torch.where(ok, zero, -1e30)
 
 
-def _sdpa(q, k, v, bias):
-    """q: (B,Sq,H,hd) k/v: (B,Sk,H,hd); bias: (Sq,Sk) or None."""
-    scale = q.shape[-1] ** -0.5
+def _sdpa(q, k, v, bias, scale=None):
+    """q: (B,Sq,H,hd) k/v: (B,Sk,H,hd); bias: (Sq,Sk) or None; ``scale``
+    of the scores (None: hd^-0.5)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     scores = dot("bqhd,bkhd->bhqk", q, k, f32=True) * scale
     if bias is not None:
         scores = scores + bias
@@ -78,18 +80,19 @@ def _fused(q) -> bool:
         q.dtype == torch.bfloat16
 
 
-def _plain(q, k, v, *, cfg, positions, kpos, causal):
+def _plain(q, k, v, *, cfg, positions, kpos, causal, scale=None):
     """The plain version: GQA by repeat, then the query-block loop
-    (``cfg.attn_chunk`` rows a block, every key per block)."""
+    (``cfg.attn_chunk`` rows a block, every key per block); ``scale`` of
+    the scores (None: hd^-0.5)."""
     s = q.shape[1]
     k = _repeat_kv(k, cfg.n_heads // cfg.n_kv_heads)
     v = _repeat_kv(v, cfg.n_heads // cfg.n_kv_heads)
     pos1 = sharding.first_row(positions) if positions.ndim > 1 else positions
     kpos1 = sharding.first_row(kpos) if kpos.ndim > 1 else kpos
     if not causal:
-        return _sdpa(q, k, v, None)
+        return _sdpa(q, k, v, None, scale)
     if s <= cfg.attn_chunk:
-        return _sdpa(q, k, v, _mask_bias(pos1, kpos1, cfg.window))
+        return _sdpa(q, k, v, _mask_bias(pos1, kpos1, cfg.window), scale)
     # flash-style: loop over query blocks, full KV per block
     c = cfg.attn_chunk
     if s % c:
@@ -97,7 +100,7 @@ def _plain(q, k, v, *, cfg, positions, kpos, causal):
                          f"attn_chunk {c}")
     return torch.cat([
         _sdpa(q[:, i:i + c], k, v,
-              _mask_bias(pos1[i:i + c], kpos1, cfg.window))
+              _mask_bias(pos1[i:i + c], kpos1, cfg.window), scale)
         for i in range(0, s, c)], dim=1)
 
 
@@ -133,7 +136,8 @@ def multihead(p, x, *, cfg, positions, kv_x=None, kv_positions=None,
     v = dot("bsd,dhk->bshk", src, wcast(p["wv"], dt, "fsdp", "kv_heads",
                                         "head_dim"), f32=False)
     kpos = positions if kv_positions is None else kv_positions
-    if causal:  # cross-attention skips RoPE on purpose (whisper-style)
+    # cross-attention skips RoPE on purpose (whisper-style); NoPE has none
+    if causal and cfg.position_embedding == "rope":
         q = layers.rope(q, positions, cfg.rope_theta)
         k = layers.rope(k, kpos, cfg.rope_theta)
     q = sharding.constrain(q, "batch", "seq", "heads", "head_dim")
@@ -145,10 +149,11 @@ def multihead(p, x, *, cfg, positions, kv_x=None, kv_positions=None,
         probe.ACTIVE.count_attention(fused)
     if fused:
         out = kernel.attention(q, k, v, causal=causal,
-                               window=cfg.window if causal else None)
+                               window=cfg.window if causal else None,
+                               scale=cfg.attention_multiplier)
     else:
         out = _plain(q, k, v, cfg=cfg, positions=positions, kpos=kpos,
-                     causal=causal)
+                     causal=causal, scale=cfg.attention_multiplier)
     out = sharding.constrain(out, "batch", "seq", "heads", "head_dim")
     # compute-dtype output: the TP partial sums cross ranks in bf16
     out = layers.pin_out(dot("bshk,hkd->bsd", out, wcast(
@@ -172,9 +177,10 @@ def decode_kv(p, x, *, cfg, cache_k, cache_v, pos: int):
     q = dot("bsd,dhk->bshk", x, p["wq"], f32=False)
     k_new = dot("bsd,dhk->bshk", x, p["wk"], f32=False)
     v_new = dot("bsd,dhk->bshk", x, p["wv"], f32=False)
-    posv = sharding.positions(b, 1, x) + pos
-    q = layers.rope(q, posv, cfg.rope_theta)
-    k_new = layers.rope(k_new, posv, cfg.rope_theta)
+    if cfg.position_embedding == "rope":
+        posv = sharding.positions(b, 1, x) + pos
+        q = layers.rope(q, posv, cfg.rope_theta)
+        k_new = layers.rope(k_new, posv, cfg.rope_theta)
     slot = pos % s_cache if cfg.window is not None else pos
     if not 0 <= slot < s_cache:
         raise IndexError(f"decode position {pos} past a cache of "
@@ -195,7 +201,7 @@ def decode_kv(p, x, *, cfg, cache_k, cache_v, pos: int):
     q = sharding.constrain(q, "batch", "seq", "kv_heads" if sharding.splits(
         cfg.n_kv_heads, "kv_heads") else None, "head_dim")
     qg = q.reshape(b, 1, cfg.n_kv_heads, n_rep, q.shape[-1])
-    scale = q.shape[-1] ** -0.5
+    scale = cfg.attention_multiplier or q.shape[-1] ** -0.5
     scores = dot("bqhrd,bkhd->bhrqk", qg, cache_k, f32=True) * scale
     kidx = sharding.arange(s_cache, scores, -1)
     if cfg.window is not None:

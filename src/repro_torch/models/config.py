@@ -22,12 +22,19 @@ class ModelConfig:
     # attention
     rope_theta: float = 10_000.0
     window: int | None = None    # sliding-window size (SWA / local attn)
+    position_embedding: str = "rope"   # rope | nope (no positions: NoPE)
+    attention_multiplier: float | None = None  # softmax scale (None: hd^-0.5)
 
     # MoE
     n_experts: int = 0
     top_k: int = 0
     capacity_factor: float = 1.25
     moe_groups: int = 1          # dispatch groups (ride the data axis)
+    # experts computed here, the first ones of n_experts (0: all): one
+    # device's share under expert parallelism; routing and capacity stay
+    # over all n_experts
+    experts_held: int = 0
+    shared_ff: int = 0           # a shared SwiGLU expert's width (0: none)
 
     # SSM (mamba2 SSD)
     ssm_state: int = 0
@@ -35,8 +42,12 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_chunk: int = 256
     ssm_conv: int = 4
+    # Mamba-2's conv1d: over x, B and C, with a bias (False: over x alone,
+    # no bias)
+    ssm_conv_xbc: bool = False
 
-    # hybrid (recurrentgemma): repeating layer pattern
+    # hybrid: repeating layer pattern of kinds attn | moe (attention, then
+    # MoE) | ssm | ssm_moe (Mamba-2, then MoE) | rec (RG-LRU, then MLP)
     block_pattern: tuple = ()    # e.g. ("rec", "rec", "attn")
     lru_width: int | None = None
 
@@ -48,6 +59,12 @@ class ModelConfig:
     n_patches: int = 0
 
     norm: str = "rmsnorm"        # rmsnorm | layernorm
+    norm_eps: float | None = None  # None: 1e-6 RMSNorm, 1e-5 LayerNorm
+    # Granite's multipliers: the embedding's output is scaled by the first,
+    # every residual branch by the second, the logits divided by the third
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
     tie_embeddings: bool = False
     # unroll the layer loop (cost-analysis probes: XLA counts scan bodies
     # once, so dryrun probes compile unrolled shallow variants)
@@ -57,8 +74,14 @@ class ModelConfig:
 
     # training-step behaviour
     num_microbatches: int = 1
-    remat: str = "full"          # none | full
+    # none | full (each layer body, a hybrid's whole pattern as one) |
+    # layer (each layer, in a hybrid's pattern too)
+    remat: str = "full"
     attn_chunk: int = 1024       # flash-style query block for long sequences
+
+    def __post_init__(self):
+        # a pattern read from JSON is a list
+        object.__setattr__(self, "block_pattern", tuple(self.block_pattern))
 
     def kv_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
@@ -74,6 +97,11 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    @property
+    def n_held(self) -> int:
+        """Experts computed here (:attr:`experts_held`, or all)."""
+        return self.experts_held or self.n_experts
 
     def layer_kinds(self) -> list[str]:
         """Per-layer kind sequence for hybrid models."""
@@ -92,14 +120,17 @@ class ModelConfig:
             mlp = 3 * d * f
         else:
             mlp = 2 * d * f
+        # the experts held here, the router over all, a shared expert
+        moe = mlp * self.n_held + d * self.n_experts + \
+            3 * d * self.shared_ff if self.n_experts else mlp
         if self.family == "moe":
-            mlp = mlp * self.n_experts + d * self.n_experts
-        ssm = 0
+            mlp = moe
+        di, n = self.d_inner, self.ssm_state
+        ssm = d * (2 * di + 2 * n) + di * d + self.ssm_heads * 2
         if self.family == "ssm":
-            di, n = self.d_inner, self.ssm_state
-            ssm = d * (2 * di + 2 * n) + di * d + self.ssm_heads * 2
             attn = mlp = 0
-        per_kind = {"attn": attn + mlp, "moe": attn + mlp, "ssm": ssm,
+        per_kind = {"attn": attn + mlp, "moe": attn + moe, "ssm": ssm,
+                    "ssm_moe": ssm + moe,
                     "rec": (self.lru_width or d) * d * 3 + mlp}
         total = 0
         for kind in self.layer_kinds():
@@ -112,10 +143,14 @@ class ModelConfig:
         return int(total)
 
     def active_param_count(self) -> int:
-        """Active params per token (MoE: top_k of n_experts)."""
-        if self.family != "moe" or not self.n_experts:
+        """Active params per token (MoE: top_k of n_experts; of a share
+        of them, the top_k x held / n_experts a token is routed to here
+        on average)."""
+        if not self.n_experts:
             return self.param_count()
         d, f = self.d_model, self.d_ff
         mlp_one = (3 if self.mlp_act in ("swiglu", "geglu") else 2) * d * f
-        dense = self.param_count() - self.n_layers * self.n_experts * mlp_one
-        return int(dense + self.n_layers * self.top_k * mlp_one)
+        n_moe = sum(k in ("moe", "ssm_moe") for k in self.layer_kinds())
+        dense = self.param_count() - n_moe * self.n_held * mlp_one
+        return int(dense + n_moe * mlp_one * self.top_k * self.n_held
+                   / self.n_experts)

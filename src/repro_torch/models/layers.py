@@ -178,16 +178,24 @@ def norm_spec(cfg) -> dict:
 def apply_norm(p, x, cfg):
     # the branch's gradient reduced before it meets the skip's
     x = sharding.grad_at(x)
+    eps = {} if cfg.norm_eps is None else {"eps": cfg.norm_eps}
     if cfg.norm == "layernorm":
-        return layernorm(x, p["scale"], p["bias"])
-    return rmsnorm(x, p["scale"])
+        return layernorm(x, p["scale"], p["bias"], **eps)
+    return rmsnorm(x, p["scale"], **eps)
+
+
+def residual(x, y, cfg):
+    """The residual stream ``x`` plus a branch's output ``y``, scaled by
+    ``cfg.residual_multiplier`` where that is set (Granite)."""
+    m = cfg.residual_multiplier
+    return x + y if m == 1.0 else x + y * m
 
 
 # ------------------------------------------------------------------- MLPs
 
-def mlp_spec(cfg, d_in=None) -> dict:
+def mlp_spec(cfg, d_in=None, d_ff=None) -> dict:
     d = d_in or cfg.d_model
-    f = cfg.d_ff
+    f = d_ff or cfg.d_ff
     gated = cfg.mlp_act in ("swiglu", "geglu")
     spec = {"wi": ParamSpec((d, f), ("fsdp", "mlp")),
             "wo": ParamSpec((f, d), ("mlp", "fsdp"))}
@@ -258,12 +266,16 @@ def embed(p, tokens, cfg):
     # F.embedding's backward on the card sums each row's duplicates in a
     # fixed order (no float atomics)
     x = _lookup(tokens.long(), p["tok"].to(dtype_of(cfg.compute_dtype)))
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     return sharding.constrain(x, "batch", "seq", "embed")
 
 
 def unembed(p, x, cfg):
     w = p["tok"].T if cfg.tie_embeddings else p["unembed"]
     logits = dot("...d,dv->...v", x, w, f32=True)
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
     return sharding.constrain(
         logits, *("batch",) + (None,) * (x.ndim - 2) + ("vocab",))
 

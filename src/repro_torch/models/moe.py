@@ -39,7 +39,7 @@ from torch.utils.hooks import RemovableHandle
 
 from .. import sharding
 from . import probe
-from .layers import ParamSpec, dot, gelu, pin_out, silu, wcast
+from .layers import ParamSpec, dot, gelu, mlp, mlp_spec, pin_out, silu, wcast
 
 _ROUTER_HOOKS: collections.OrderedDict = collections.OrderedDict()
 
@@ -54,15 +54,17 @@ def register_router_hook(fn) -> RemovableHandle:
 
 
 def moe_spec(cfg) -> dict:
-    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_held
     gated = cfg.mlp_act in ("swiglu", "geglu")
     spec = {
-        "router": ParamSpec((d, e), ("fsdp", None)),
+        "router": ParamSpec((d, cfg.n_experts), ("fsdp", None)),
         "wi": ParamSpec((e, d, f), ("experts", "expert_in", "expert_mlp")),
         "wo": ParamSpec((e, f, d), ("experts", "expert_mlp", "expert_in")),
     }
     if gated:
         spec["wg"] = ParamSpec((e, d, f), ("experts", "expert_in", "expert_mlp"))
+    if cfg.shared_ff:
+        spec["shared"] = mlp_spec(cfg, d_ff=cfg.shared_ff)
     return spec
 
 
@@ -142,9 +144,10 @@ def _per_group(fn, args: tuple, n_out: int, n_partial: int = 0):
 
 def _dispatch(xt, probs, *, cfg):
     """Top-k routing and the grouped sort-based dispatch, gather-only:
-    (buckets (g, E, cap, D), the groups' assignment counts per expert,
-    and what the combine needs: sort order, sorted experts and gates,
-    segment starts)."""
+    (buckets (g, E held, cap, D), the groups' assignment counts per
+    expert, and what the combine needs: sort order, sorted experts and
+    gates, segment starts). The held experts are the first ones, so
+    their assignments lead each group's sorted order."""
     g, tl, d = xt.shape
     e, k = cfg.n_experts, cfg.top_k
     dt = xt.dtype
@@ -173,32 +176,39 @@ def _dispatch(xt, probs, *, cfg):
     seg_end = torch.cat(
         [seg_start[:, 1:], torch.full((g, 1), tl * k, device=dev)], dim=1)
     cap = capacity(cfg, tl)
+    held = cfg.n_held
+    starts, ends = seg_start[:, :held], seg_end[:, :held]
     pr = probe.ACTIVE
     if pr:
-        pr.count_moe(seg_end - seg_start, cap, g * tl * k)
+        pr.count_moe(ends - starts, cap, g * tl * k, held < e)
 
-    # bucket slot (e, c) <- the c-th sorted assignment of expert e
-    pos = seg_start[:, :, None] + torch.arange(cap, device=dev)[None, None, :]
-    valid = pos < seg_end[:, :, None]
-    pos_c = torch.clamp(pos, 0, tl * k - 1).reshape(g, e * cap)
+    # bucket slot (e, c) <- the c-th sorted assignment of held expert e
+    pos = starts[:, :, None] + torch.arange(cap, device=dev)[None, None, :]
+    valid = pos < ends[:, :, None]
+    pos_c = torch.clamp(pos, 0, tl * k - 1).reshape(g, held * cap)
     tok_for_slot = torch.gather(sorted_token, 1, pos_c)
     vals = _take(xt, tok_for_slot)
-    be = (vals * valid.reshape(g, e * cap, 1).to(dt)).reshape(g, e, cap, d)
+    be = (vals * valid.reshape(g, held * cap, 1).to(dt)).reshape(
+        g, held, cap, d)
     return be, order, sorted_expert, sorted_gate, seg_start, counts
 
 
 def _combine(out_flat, order, sorted_expert, sorted_gate, seg_start, *,
              cfg):
     """Gather each assignment's slot output, un-sort via the inverse
-    permutation, then sum the k contributions per token."""
+    permutation, then sum the k contributions per token. An assignment
+    to an expert held elsewhere adds nothing here."""
     g, n = sorted_expert.shape
-    k = cfg.top_k
-    cap = out_flat.shape[1] // cfg.n_experts
+    k, held = cfg.top_k, cfg.n_held
+    cap = out_flat.shape[1] // held
     dt = out_flat.dtype
     pos_in_expert = (torch.arange(n, device=out_flat.device)[None, :]
                      - torch.gather(seg_start, 1, sorted_expert))
     keep = pos_in_expert < cap
     slot = sorted_expert * cap + torch.clamp(pos_in_expert, max=cap - 1)
+    if held < cfg.n_experts:
+        keep = keep & (sorted_expert < held)
+        slot = torch.clamp(slot, max=held * cap - 1)
     contrib = _take(out_flat, slot) * (sorted_gate * keep).to(dt)[..., None]
     inv = torch.argsort(order, dim=1)
     unsorted = _take(contrib, inv)
@@ -206,9 +216,18 @@ def _combine(out_flat, order, sorted_expert, sorted_gate, seg_start, *,
 
 
 def moe_mlp(p, x, cfg):
-    """x: (B, S, D) -> (B, S, D), plus aux load-balancing loss (scalar)."""
+    """x: (B, S, D) -> (B, S, D), plus aux load-balancing loss (scalar).
+
+    The router scores all ``cfg.n_experts``, and the aux loss and each
+    group's capacity are theirs; the experts run are the
+    ``cfg.n_held`` held here, the first ones (one device's share under
+    expert parallelism: the others' part of the result is not computed
+    here). With ``cfg.shared_ff`` a shared SwiGLU expert on every token
+    is added to the routed experts' sum."""
+    x_in = x
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    eh = cfg.n_held
     t = b * s
     g = groups(cfg, t)
     tl = t // g                                   # tokens per group
@@ -258,7 +277,7 @@ def moe_mlp(p, x, cfg):
         be = sharding.constrain_spec(be, tuple(spec))
 
     # ---- expert FFN: (e, g*cap, .) products, group merged into capacity
-    bem = be.permute(1, 0, 2, 3).reshape(e, g * cap, d)
+    bem = be.permute(1, 0, 2, 3).reshape(eh, g * cap, d)
     w_axes = ("experts", "expert_in", "expert_mlp")
     h_axes = ("experts", "expert_cap", "expert_mlp")
     h = sharding.reduce_by(dot("ecd,edf->ecf", bem, wcast(
@@ -273,7 +292,7 @@ def moe_mlp(p, x, cfg):
     h = sharding.constrain(h.to(dt), *h_axes)
     out_m = dot("ecf,efd->ecd", h, wcast(
         p["wo"], dt, "experts", "expert_mlp", "expert_in"), f32=False)
-    out_e = out_m.reshape(e, g, cap, d).permute(1, 0, 2, 3)
+    out_e = out_m.reshape(eh, g, cap, d).permute(1, 0, 2, 3)
     if ctx is not None:
         out_e = _constrain(out_e, grules, "batch", "experts", "expert_cap",
                            "expert_in")
@@ -285,7 +304,7 @@ def moe_mlp(p, x, cfg):
     # a site of the port only)
     for dim in (1, 2, 3):
         out_e = sharding.gather(out_e, dim)
-    out_flat = out_e.reshape(g, e * cap, d)
+    out_flat = out_e.reshape(g, eh * cap, d)
 
     # ---- combine
     yt = _per_group(functools.partial(_combine, cfg=cfg),
@@ -293,4 +312,7 @@ def moe_mlp(p, x, cfg):
     y = yt.reshape(b, s, d)
     if ctx is not None:
         y = sharding.regroup(y, 0, x_part)     # the tokens' split again
-    return pin_out(y), aux
+    y = pin_out(y)
+    if cfg.shared_ff:
+        y = y + mlp(p["shared"], x_in, cfg)
+    return y, aux

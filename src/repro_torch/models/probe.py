@@ -26,9 +26,10 @@ probe while ``obs.TRACER`` is enabled; otherwise :data:`ACTIVE` is
   those the fused kernel took (:meth:`StepProbe.count_attention`), once
   per forward (not in remat's recompute), on the host.
 - **MoE routing.** ``moe._dispatch`` counts the step's routed
-  assignments and those past an expert's capacity in their group
-  (:meth:`StepProbe.count_moe`), on the device, once per forward (not
-  in remat's recompute), summed over microbatches.
+  assignments, those to the experts held here and those of them past
+  an expert's capacity in their group (:meth:`StepProbe.count_moe`),
+  on the device, once per forward (not in remat's recompute), summed
+  over microbatches.
 """
 from __future__ import annotations
 
@@ -93,8 +94,8 @@ class StepProbe:
         #                                   host us on TRACER's clock)
         self._bwd_kind = None
         self.calls: collections.Counter = collections.Counter()
-        self.moe_assigned = 0
-        self._moe_dropped = None
+        self.moe_routed = 0
+        self._moe_held = self._moe_dropped = None
         self.attn_calls = self.attn_kernel = 0
 
     @contextlib.contextmanager
@@ -150,25 +151,36 @@ class StepProbe:
         return {k: (v, self.calls[k], first[k]) for k, v in ms.items()}
 
     # ------------------------------------------------------ MoE counters
-    def count_moe(self, per_expert, cap: int, assigned: int) -> None:
-        """Add one dispatch's routing: ``assigned`` assignments (groups x
+    def count_moe(self, per_expert, cap: int, routed: int,
+                  share: bool = False) -> None:
+        """Add one dispatch's routing: ``routed`` assignments (groups x
         tokens x k, a host number), ``per_expert`` of them per (group,
-        expert) on the device, of which those past ``cap`` are
-        dropped."""
+        held expert) on the device, of which those past ``cap`` are
+        dropped. With ``share`` the layer holds only some of the experts
+        and the held ones' assignments are counted on the device; else
+        every routed assignment is held."""
         if in_backward():
             return
-        self.moe_assigned += assigned
+        self.moe_routed += routed
+        held = per_expert.sum() if share else routed
         dropped = torch.clamp(per_expert - cap, min=0).sum()
-        self._moe_dropped = dropped if self._moe_dropped is None else \
-            self._moe_dropped + dropped
+        if self._moe_dropped is None:
+            self._moe_held, self._moe_dropped = held, dropped
+        else:
+            self._moe_held = self._moe_held + held
+            self._moe_dropped = self._moe_dropped + dropped
 
     def moe_counts(self) -> dict:
-        """{"moe_assigned", "moe_dropped"} where the step routed any
-        token, else {}; reads the device after the step's sync."""
+        """{"moe_routed", "moe_held", "moe_assigned", "moe_dropped"}
+        where the step routed any token, else {}: every routed
+        assignment, those to held experts (the ones dispatched here,
+        also under their older name ``moe_assigned``) and those of them
+        dropped; reads the device after the step's sync."""
         if self._moe_dropped is None:
             return {}
-        return {"moe_assigned": self.moe_assigned,
-                "moe_dropped": int(self._moe_dropped)}
+        held = int(self._moe_held)
+        return {"moe_routed": self.moe_routed, "moe_held": held,
+                "moe_assigned": held, "moe_dropped": int(self._moe_dropped)}
 
     # ------------------------------------------------ attention counters
     def count_attention(self, kernel: bool) -> None:

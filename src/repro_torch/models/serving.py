@@ -112,6 +112,9 @@ def cache_specs(lm: LM, batch: int, max_seq: int) -> dict:
     rank allocating only its own piece (the whole cache's shapes come
     from a fake mode, which allocates nothing)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
+    if "ssm_moe" in lm.kinds:
+        raise NotImplementedError(f"{lm.cfg.name}: serving has no cache "
+                                  f"for a Mamba-2 + MoE pattern")
     ctx = sharding.active()
     if ctx is None:
         return _allocate(lm, batch, max_seq, lm.device)
@@ -192,17 +195,17 @@ def decode_block(lm: LM, kind: str, p, x, lc: dict, pos: int):
         new = {}
     for k, v in new.items():
         lc[k].copy_(v)
-    x = x + y
+    x = layers.residual(x, y, cfg)
     if kind == "ssm":
         return x
     if kind == "xattn":
         hx = layers.apply_norm(p["lnx"], x, cfg)
-        x = x + attention.decode_cross(p["xattn"], hx, cfg=cfg,
-                                       enc_k=lc["xk"], enc_v=lc["xv"])
+        x = layers.residual(x, attention.decode_cross(
+            p["xattn"], hx, cfg=cfg, enc_k=lc["xk"], enc_v=lc["xv"]), cfg)
     h2 = layers.apply_norm(p["ln2"], x, cfg)
     if kind == "moe":
-        return x + moe.moe_mlp(p["moe"], h2, cfg)[0]
-    return x + layers.mlp(p["mlp"], h2, cfg)
+        return layers.residual(x, moe.moe_mlp(p["moe"], h2, cfg)[0], cfg)
+    return layers.residual(x, layers.mlp(p["mlp"], h2, cfg), cfg)
 
 
 # --------------------------------------------------------------- prefill

@@ -35,7 +35,7 @@ from .layers import ParamSpec, dot, dtype_of, pin_out, silu, softplus
 
 def ssm_spec(cfg) -> dict:
     d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    return {
+    spec = {
         "in_x": ParamSpec((d, di), ("fsdp", "mlp")),
         "in_z": ParamSpec((d, di), ("fsdp", "mlp")),
         "in_b": ParamSpec((d, n), ("fsdp", "state")),
@@ -48,6 +48,14 @@ def ssm_spec(cfg) -> dict:
         "norm_scale": ParamSpec((di,), ("mlp",), "zeros"),
         "out": ParamSpec((di, d), ("mlp", "fsdp")),
     }
+    if cfg.ssm_conv_xbc:
+        # the conv's bias over x, and its weight and bias over B and C
+        spec.update(
+            conv_bias=ParamSpec((di,), ("mlp",), "zeros"),
+            conv_bc_w=ParamSpec((cfg.ssm_conv, 2 * n), (None, None),
+                                scale=0.5),
+            conv_bc_bias=ParamSpec((2 * n,), (None,), "zeros"))
+    return spec
 
 
 def _proj(x, w):
@@ -55,8 +63,22 @@ def _proj(x, w):
 
 
 def _causal_conv(x, w, conv_state=None):
-    """Depthwise causal conv over seq. x: (B,S,DI), w: (K,DI); the
-    K-1 inputs before x are zeros, or ``conv_state`` (decode)."""
+    """Depthwise causal conv over seq, then silu. x: (B,S,DI), w: (K,DI);
+    the K-1 inputs before x are zeros, or ``conv_state`` (decode)."""
+    out, new_state = _conv(x, w, conv_state)
+    return silu(out), new_state
+
+
+def _causal_conv_bias(x, w, bias):
+    """:func:`_causal_conv` with a bias added before the silu (Mamba-2's
+    ``conv1d``), over the full sequence."""
+    out, new_state = _conv(x, w)
+    return silu(out + bias.to(out.dtype)), new_state
+
+
+def _conv(x, w, conv_state=None):
+    """The depthwise causal conv of :func:`_causal_conv`, no activation:
+    (out, the last K-1 inputs)."""
     k = w.shape[0]
     if conv_state is None:
         pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
@@ -67,7 +89,7 @@ def _causal_conv(x, w, conv_state=None):
     out = sum(xp[:, i:i + x.shape[1], :] * w[i].to(x.dtype)
               for i in range(k))
     new_state = xp[:, -(k - 1):, :] if k > 1 else pad
-    return silu(out), new_state
+    return out, new_state
 
 
 def _gate(x, z, *, width: int):
@@ -79,13 +101,13 @@ def _gate(x, z, *, width: int):
     return x, torch.mean(xf * xf, -1, keepdim=True) * (x.shape[-1] / width)
 
 
-def _normed(x, ms, scale):
+def _normed(x, ms, scale, *, eps: float):
     xf = x.float()
-    xf = xf * torch.rsqrt(ms + 1e-6)
+    xf = xf * torch.rsqrt(ms + eps)
     return (xf * (1 + scale.float())).to(x.dtype)
 
 
-def _rmsnorm_gated(x, z, scale):
+def _rmsnorm_gated(x, z, scale, eps: float):
     """The gated RMS norm over the last dim (B, S, DI), its mean summed
     across the ranks that split DI."""
     act = sharding.layout(tuple(x.shape), "batch", None, "mlp")
@@ -94,7 +116,8 @@ def _rmsnorm_gated(x, z, scale):
     g, ms = sharding.per_rank(functools.partial(_gate, width=x.shape[-1]),
                               (x, z), (act, act), (act, share))
     ms = sharding.reduce_to(ms, row)
-    return sharding.per_rank(_normed, (g, ms, scale), (
+    return sharding.per_rank(functools.partial(_normed, eps=eps),
+                             (g, ms, scale), (
         act, row, sharding.layout(tuple(scale.shape), "mlp")), (act,))
 
 
@@ -192,8 +215,15 @@ def ssm_block(p, x, cfg, cache=None, pos=None):
     """Full-sequence (cache=None) or one-step decode (cache set).
 
     cache: {"conv": (B, K-1, DI), "state": (B, H, P, N)}.
-    Returns (y, new cache); the input cache is not written.
+    Returns (y, new cache); the input cache is not written. With
+    ``cfg.ssm_conv_xbc`` the conv, with a bias, runs over B and C too,
+    over full sequences only (its conv state would have to hold B and C
+    too): a cache raises.
     """
+    if cache is not None and cfg.ssm_conv_xbc:
+        raise NotImplementedError(
+            f"{cfg.name}: the conv over x, B and C runs over full "
+            f"sequences only; there is no decode step for it")
     bsz, s = x.shape[:2]
     h, pdim, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     k, di = p["conv_w"].shape
@@ -205,15 +235,26 @@ def ssm_block(p, x, cfg, cache=None, pos=None):
     state = sharding.layout((bsz, h, pdim, n), "batch", "heads", None, None)
     args, place = (_proj(x, p["in_x"]), p["conv_w"]), \
         (act, sharding.layout((k, di), None, "mlp"))
-    if cache is not None:
-        args, place = args + (cache["conv"],), place + (conv,)
-    xin, conv_state = sharding.per_rank(_causal_conv, args, place,
-                                        (act, conv))
+    if cfg.ssm_conv_xbc:
+        xin, conv_state = sharding.per_rank(
+            _causal_conv_bias, args + (p["conv_bias"],),
+            place + (sharding.layout((di,), "mlp"),), (act, conv))
+    else:
+        if cache is not None:
+            args, place = args + (cache["conv"],), place + (conv,)
+        xin, conv_state = sharding.per_rank(_causal_conv, args, place,
+                                            (act, conv))
     z = _proj(x, p["in_z"])
+    dt_raw = _proj(x, p["in_dt"])
     # B and C are shared by every head: whole on every rank
-    args = (xin, _proj(x, p["in_dt"]), p["dt_bias"], p["a_log"],
-            *(sharding.gather(_proj(x, p[w]), 2) for w in ("in_b", "in_c")),
-            p["d_skip"])
+    bmat, cmat = (sharding.gather(_proj(x, p[w]), 2)
+                  for w in ("in_b", "in_c"))
+    if cfg.ssm_conv_xbc:
+        # the conv over B and C: per channel, so apart from x's
+        conved, _ = _causal_conv_bias(torch.cat([bmat, cmat], dim=-1),
+                                      p["conv_bc_w"], p["conv_bc_bias"])
+        bmat, cmat = conved[..., :n], conved[..., n:]
+    args = (xin, dt_raw, p["dt_bias"], p["a_log"], bmat, cmat, p["d_skip"])
     place = (act, heads, per_head, per_head, bc, bc, per_head)
     if cache is None:
         y, new = sharding.per_rank(
@@ -223,7 +264,9 @@ def ssm_block(p, x, cfg, cache=None, pos=None):
         y, new = sharding.per_rank(
             functools.partial(_step, pdim=pdim, dtype=x.dtype),
             args + (cache["state"],), place + (state,), (act, state))
-    out = pin_out(_proj(_rmsnorm_gated(y, z, p["norm_scale"]), p["out"]))
+    eps = 1e-6 if cfg.norm_eps is None else cfg.norm_eps
+    out = pin_out(_proj(_rmsnorm_gated(y, z, p["norm_scale"], eps),
+                        p["out"]))
     return out, {"conv": conv_state, "state": new}
 
 

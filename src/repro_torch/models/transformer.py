@@ -12,13 +12,16 @@ module by module, as the reference does; :meth:`LM.apply_params` takes
 any tree of the same shapes (the train step passes detached leaves).
 The layer axis is walked by a Python loop (the reference's ``lax.scan``;
 ``cfg.unroll_layers``, a probe flag for XLA's cost analysis, changes
-nothing here). ``cfg.remat == "full"`` wraps each layer body, as the
-reference wraps its scan body in ``jax.checkpoint``, in
-``torch.utils.checkpoint.checkpoint(use_reentrant=False)``. Under a
+nothing here). ``cfg.remat == "full"`` wraps each layer body (a
+hybrid's whole pattern), as the reference wraps its scan body in
+``jax.checkpoint``, in
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``;
+``"layer"`` wraps each layer, in a hybrid's pattern too. Under a
 traced training step (``probe.ACTIVE``) each region of the model is
 marked for its device time: ``block.embed``, ``block.attention``,
-``block.ffn`` (``block.ssm``, ``block.rec`` for those mixers) and
-``block.head``, the head through the loss.
+``block.ffn`` (``block.ssm``, ``block.rec`` for those mixers; the MoE
+after a Mamba-2 mixer is ``block.ffn``) and ``block.head``, the head
+through the loss.
 
 ``sharding.constrain`` pins each layer's output to ("batch", "seq",
 "embed") as the reference does; it does nothing outside
@@ -156,6 +159,10 @@ class LM(nn.Module):
                     "moe": moe.moe_spec(cfg)}
         if kind == "ssm":
             return {"ln1": layers.norm_spec(cfg), "ssm": ssm.ssm_spec(cfg)}
+        if kind == "ssm_moe":
+            return {"ln1": layers.norm_spec(cfg), "ssm": ssm.ssm_spec(cfg),
+                    "ln2": layers.norm_spec(cfg),
+                    "moe": moe.moe_spec(cfg)}
         if kind == "rec":
             return {"ln1": layers.norm_spec(cfg),
                     "rec": rglru.rglru_spec(cfg),
@@ -251,7 +258,7 @@ class LM(nn.Module):
                                             positions=positions,
                                             return_kv=True,
                                             index_positions=True)
-            x = x + y
+            x = layers.residual(x, y, cfg)
             cache = {"k": k, "v": v}
             if kind == "xattn":
                 h = layers.apply_norm(p["lnx"], x, cfg)
@@ -259,35 +266,43 @@ class LM(nn.Module):
                     p["xattn"], h, cfg=cfg, positions=positions,
                     kv_x=enc_out, kv_positions=enc_pos, causal=False,
                     return_kv=True)
-                x = x + y
+                x = layers.residual(x, y, cfg)
             if pr:
                 x = pr.enter("block.ffn", pr.exit("block.attention", x))
             h = layers.apply_norm(p["ln2"], x, cfg)
             if kind == "moe":
                 y, aux = moe.moe_mlp(p["moe"], h, cfg)
-                x = x + y
+                x = layers.residual(x, y, cfg)
             else:
-                x = x + layers.mlp(p["mlp"], h, cfg)
+                x = layers.residual(x, layers.mlp(p["mlp"], h, cfg), cfg)
             if pr:
                 x = pr.exit("block.ffn", x)
-        elif kind == "ssm":
+        elif kind in ("ssm", "ssm_moe"):
             if pr:
                 x = pr.enter("block.ssm", x)
             h = layers.apply_norm(p["ln1"], x, cfg)
             y, cache = ssm.ssm_block(p["ssm"], h, cfg)
-            x = x + y
-            if pr:
+            x = layers.residual(x, y, cfg)
+            if kind == "ssm_moe":
+                if pr:
+                    x = pr.enter("block.ffn", pr.exit("block.ssm", x))
+                h = layers.apply_norm(p["ln2"], x, cfg)
+                y, aux = moe.moe_mlp(p["moe"], h, cfg)
+                x = layers.residual(x, y, cfg)
+                if pr:
+                    x = pr.exit("block.ffn", x)
+            elif pr:
                 x = pr.exit("block.ssm", x)
         elif kind == "rec":
             if pr:
                 x = pr.enter("block.rec", x)
             h = layers.apply_norm(p["ln1"], x, cfg)
             y, cache = rglru.rglru_block(p["rec"], h, cfg)
-            x = x + y
+            x = layers.residual(x, y, cfg)
             if pr:
                 x = pr.enter("block.ffn", pr.exit("block.rec", x))
             h = layers.apply_norm(p["ln2"], x, cfg)
-            x = x + layers.mlp(p["mlp"], h, cfg)
+            x = layers.residual(x, layers.mlp(p["mlp"], h, cfg), cfg)
             if pr:
                 x = pr.exit("block.ffn", x)
         else:
@@ -324,7 +339,7 @@ class LM(nn.Module):
             x = torch.cat([pe, x[:, pe.shape[1]:, :]], dim=1)
         # split like the tokens: each rank's RoPE tables cover its rows
         positions = sharding.positions(b, s, tokens)
-        remat = cfg.remat == "full"
+        remat = cfg.remat != "none"
 
         enc_out = enc_pos = None
         if cfg.family == "encdec":
@@ -368,26 +383,34 @@ class LM(nn.Module):
             return pr.exit("block.ffn", h) if pr else h
         for lp in _unstack(params["enc"]):
             x = maybe_checkpoint(lambda h, lp=lp: body(h, lp),
-                                 cfg.remat == "full")(x)
+                                 cfg.remat != "none")(x)
         x = layers.apply_norm(params["enc_norm"], x, cfg)
         return x, pos
 
     def _hybrid_forward(self, params, x, positions):
+        """The pattern's layers, under ``remat: full`` recomputed a
+        pattern at a time, under ``remat: layer`` a layer at a time (the
+        same values; one layer's recompute is live in the backward, not
+        the pattern's)."""
         cfg = self.cfg
-        pat = cfg.block_pattern
+        slots = list(enumerate(cfg.block_pattern))
+        units = [[slot] for slot in slots] if cfg.remat == "layer" \
+            else [slots]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-        def body(h, lp):
+        def body(h, lp, unit):
             a = torch.zeros((), dtype=torch.float32, device=h.device)
-            for i, k in enumerate(pat):
+            for i, k in unit:
                 h, ai, _ = self._apply_block(k, lp[f"sub{i}_{k}"], h,
                                              positions)
                 a = a + ai
             return h, a
         for lp in _unstack(params["blocks"]):
-            x, a = maybe_checkpoint(lambda h, lp=lp: body(h, lp),
-                                    cfg.remat == "full")(x)
-            aux = aux + a
+            for unit in units:
+                x, a = maybe_checkpoint(
+                    lambda h, lp=lp, unit=unit: body(h, lp, unit),
+                    cfg.remat != "none")(x)
+                aux = aux + a
         for i, k in enumerate(self.tail_kinds):
             x, ai, _ = self._apply_block(k, params[f"tail{i}"], x,
                                          positions)

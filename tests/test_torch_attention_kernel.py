@@ -169,7 +169,9 @@ def test_multihead_takes_the_kernel_on_the_card():
         pytest.skip("needs a CUDA device")
     pr = probe.StepProbe("cuda")
     cfg = types.SimpleNamespace(d_model=64, hd=16, n_heads=4, n_kv_heads=2,
-                                rope_theta=1e4, attn_chunk=64, window=None)
+                                rope_theta=1e4, attn_chunk=64, window=None,
+                                position_embedding="rope",
+                                attention_multiplier=None)
     p = {n: 0.1 * torch.randn(s.shape, device="cuda")
          for n, s in mattn.attn_spec(cfg).items()}
     pos = torch.arange(32, device="cuda")
@@ -271,7 +273,9 @@ def test_multihead_on_the_cpu_takes_the_plain_path_and_counts():
     ``attn_kernel`` 0 of ``attn_calls`` N, the backward's calls (remat's
     recompute) are not counted, and nothing launches."""
     cfg = types.SimpleNamespace(d_model=32, hd=8, n_heads=4, n_kv_heads=2,
-                                rope_theta=1e4, attn_chunk=16, window=None)
+                                rope_theta=1e4, attn_chunk=16, window=None,
+                                position_embedding="rope",
+                                attention_multiplier=None)
     g = torch.Generator().manual_seed(0)
     p = {n: 0.1 * torch.randn(s.shape, generator=g)
          for n, s in mattn.attn_spec(cfg).items()}
@@ -327,7 +331,9 @@ def test_multihead_routes_causal_attention_by_the_callers_positions(
     (offset positions here) takes the plain loop, whose mask reads them.
     The kernel is stood in for by the plain version on the CPU."""
     cfg = types.SimpleNamespace(d_model=32, hd=8, n_heads=4, n_kv_heads=2,
-                                rope_theta=1e4, attn_chunk=16, window=None)
+                                rope_theta=1e4, attn_chunk=16, window=None,
+                                position_embedding="rope",
+                                attention_multiplier=None)
     g = torch.Generator().manual_seed(1)
     p = {n: 0.1 * torch.randn(s.shape, generator=g)
          for n, s in mattn.attn_spec(cfg).items()}
@@ -335,12 +341,12 @@ def test_multihead_routes_causal_attention_by_the_callers_positions(
     pos = torch.arange(32) + offset
     taken = []
 
-    def stand_in(q, k, v, *, causal, window=None):
+    def stand_in(q, k, v, *, causal, window=None, scale=None):
         fa.check(q, k, v, causal, window)
         taken.append(q.shape)
         i = torch.arange(q.shape[1])
         return mattn._plain(q, k, v, cfg=cfg, positions=i, kpos=i,
-                            causal=causal)
+                            causal=causal, scale=scale)
     monkeypatch.setattr(mattn, "_fused", lambda q: True)
     monkeypatch.setattr(fa, "attention", stand_in)
     pr = probe.StepProbe("cpu")

@@ -9,7 +9,9 @@ itself, so its errors are 0 and what is held is the walk's structure).
   walk's outputs and the grads of a pass that walks on its own, all
   finite;
 - ``lm_init`` is ``LM.init`` for an uncut config and keeps the
-  published stack's scale for a cut one;
+  published stack's scale for a cut one; phase 9(b) cuts
+  granite-4.0-h-small to its portbench share, and A1's timed shape of it
+  takes the config's softmax scale;
 - ``teacher_forced`` runs an MoE model's prefill on the forward's own
   layer inputs too, so that the capacity the prompt alone would give
   does not change the next layer's cache: granite at its published 1/4
@@ -28,7 +30,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
-from repro_torch.configs import ARCHS, get_smoke_config  # noqa: E402
+from repro_torch.configs import (ARCHS, PORT_ARCHS, get_config,  # noqa: E402
+                                 get_smoke_config)
 from repro_torch.models.transformer import LM  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -51,7 +54,7 @@ def test_phase_selector_refuses_other_names(argv):
     assert chip_smoke.main(argv) == 1     # before it looks for a card
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + PORT_ARCHS)
 def test_stage_walk_is_the_forward(arch):
     cfg = dataclasses.replace(get_smoke_config(arch),
                               compute_dtype="float32")
@@ -106,7 +109,7 @@ def test_teacher_forced_moe_at_published_capacity():
     assert 0 < got["dropped"] < got["dropped_of"] == 4 * 6 * cfg.n_layers
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + PORT_ARCHS)
 def test_lm_init_uncut_is_the_references_rule(arch):
     """``chip_smoke.lm_init`` of an uncut config is ``LM.init`` bit for
     bit (the reference's rule, one generator, sorted paths)."""
@@ -249,3 +252,36 @@ def test_phase_9_runs_every_config_once():
     """Phase 9(b)'s run order is its configs, each once."""
     assert sorted(chip_smoke.LM_ORDER) == sorted(chip_smoke.LM_FULL)
     assert len(set(chip_smoke.LM_ORDER)) == len(chip_smoke.LM_FULL)
+
+
+def test_phase_9_cuts_granite_hybrid_to_its_share():
+    """Phase 9(b) trains granite-4.0-h-small as its portbench cell does:
+    the preset's one-device share (one period, 9 of 72 experts held),
+    and its A1 shape is the config's attention at its softmax scale."""
+    from repro_torch.configs.granite_4_0_h_small import SHARE
+    full, cfg = chip_smoke.lm_full_config("granite_4_0_h_small")
+    assert full == get_config("granite_4_0_h_small")
+    assert cfg == dataclasses.replace(SHARE, name=full.name)
+    assert chip_smoke.lm_full_config("stablelm_1_6b")[1] == \
+        get_config("stablelm_1_6b")
+    (row,) = [r for r in chip_smoke.A1_SHAPES if r[1] == "granite_4_0_h_small"]
+    assert row[2:] == (2, 4096, full.n_heads, full.n_kv_heads, full.hd,
+                       full.attention_multiplier)
+    for _, arch, *_, scale in chip_smoke.A1_SHAPES:
+        assert scale == get_config(arch).attention_multiplier
+
+
+def test_a1_exact_takes_the_scale():
+    """``a1_exact`` at a given scale is float64 causal softmax attention
+    at that scale; None is hd^-0.5."""
+    g = torch.Generator().manual_seed(8)
+    q, k, v, dout = (torch.randn((1, 6, n, 4), generator=g).to(
+        torch.bfloat16) for n in (2, 1, 1, 2))
+    for scale, want_scale in ((None, 0.5), (1 / 128, 1 / 128)):
+        out = chip_smoke.a1_exact(q, k, v, dout, scale)[0]
+        kk, vv = (t.double().repeat_interleave(2, dim=2) for t in (k, v))
+        sc = torch.einsum("bqhd,bkhd->bhqk", q.double(), kk) * want_scale
+        sc = sc.masked_fill(~torch.ones((6, 6), dtype=torch.bool).tril(),
+                            float("-inf"))
+        want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), vv)
+        torch.testing.assert_close(out, want, rtol=1e-12, atol=1e-12)
