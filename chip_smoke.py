@@ -148,8 +148,14 @@ no argument, every phase:
      device time against its bound are printed beside the card's name
      and power limit;
   9. the LM stack (``repro_torch.models``, ``configs``, ``train``; it
-     reaches none of B1-B9, and A1, the fused attention kernel, in every
-     bf16 attention call), first A1 timed at the three cells' shapes,
+     reaches none of B1-B9, A1, the fused attention kernel, in every
+     bf16 attention call, and G1, the split of a float32-result product's
+     cotangent, in every such product's backward), first G1 and that
+     product at stablelm-1.6b's MLP and head shapes (:func:`dot_g1`:
+     G1's pieces bitwise its plain version's and exact, its times
+     against the plain version's and its byte bound; the product's
+     forward and backward times against the float32 copies', each held
+     to float64), then A1 timed at the three cells' shapes,
      each at its config's softmax scale
      (:func:`attention_a1`: forward and backward times against the plain
      version's, SDPA's as a yardstick, the bound; out, dq, dk and dv held
@@ -337,6 +343,7 @@ The line before the last is the per-kernel JSON record, the last line
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -3222,7 +3229,9 @@ def lm_full_width(arch: str, device, card: str, seed: int,
     train_step = step.make_train_step(lm, optim.OptConfig(warmup_steps=1))
     losses, grad_norms, step_ms = [], [], []
     from repro_torch.kernels import attention as fa
+    from repro_torch.kernels import bf16split
     a1_before = dict(fa.LAUNCHES)
+    g1_before = bf16split.LAUNCHES["bf16x3_split"]
     for i in range(LM_STEPS):
         torch.cuda.synchronize(device)
         if i == 1:              # the timed steps with the host idle
@@ -3237,6 +3246,7 @@ def lm_full_width(arch: str, device, card: str, seed: int,
     cpu_side.resume()
     a1_calls = {k: (fa.LAUNCHES[k] - a1_before[k]) / LM_STEPS
                 for k in a1_before}
+    g1_calls = (bf16split.LAUNCHES["bf16x3_split"] - g1_before) / LM_STEPS
     peak = torch.cuda.max_memory_allocated(device)
     if not all(math.isfinite(x) for x in losses + grad_norms):
         raise AssertionError(f"lm {cfg.name}: losses {losses}, grad norms "
@@ -3263,7 +3273,7 @@ def lm_full_width(arch: str, device, card: str, seed: int,
            "prompt_f32": f32, "losses": losses, "grad_norms": grad_norms,
            "loss_fell": fell, "step_ms": step_ms, "step_ms_median_2_3": ms,
            "tokens_per_s": tokens / (ms / 1e3), "peak_bytes": peak,
-           "a1_calls_per_step": a1_calls,
+           "a1_calls_per_step": a1_calls, "g1_calls_per_step": g1_calls,
            "model_flops_per_step": flops,
            "bf16_peak_share": flops / (ms / 1e3) / BF16_FLOPS_PER_S}
     out["seconds"] = time.perf_counter() - t0
@@ -3288,7 +3298,7 @@ def lm_full_width(arch: str, device, card: str, seed: int,
           f"from them on, {parked_s:.1f} s after step 1 ended; all "
           f"{step_ms!r}), "
           f"{out['tokens_per_s']!r} tokens/s, peak memory of the steps {peak} "
-          f"bytes, A1 C calls a step {a1_calls!r}, "
+          f"bytes, A1 C calls a step {a1_calls!r}, G1 {g1_calls!r}, "
           f"model FLOPs {flops!r} a step (lm_model_flops) = "
           f"{out['bf16_peak_share']!r} of 989 TFLOP/s bf16; float32 "
           f"(1, {f32['prompt']}) prompt, card against CPU (tol "
@@ -3350,11 +3360,30 @@ def a1_exact(q, k, v, dout, scale=None) -> tuple:
     return out, dq, dk, dv
 
 
+def float32_copies(fn):
+    """``fn`` with its float32-result products (``layers.dot(f32=True)``)
+    on float32 copies of their operands, the route the port took before
+    the tensor cores (G1's), so that a plain version held to a kernel
+    runs none of the port's own kernels."""
+    from repro_torch.models import layers
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        tensor_cores = layers._tensor_cores
+        layers._tensor_cores = lambda a, b: False
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            layers._tensor_cores = tensor_cores
+    return run
+
+
 def attention_a1(device, card: str) -> dict:
     """A1 (``kernels/attention.py``) at the cells' shapes: its forward
     and backward ms (CUDA events) against the plain version's
-    (``models.attention``'s query-block loop), each at the shape's
-    softmax scale, with
+    (``models.attention``'s query-block loop, its float32-result
+    products on float32 copies: :func:`float32_copies`), each at the
+    shape's softmax scale, with
     ``F.scaled_dot_product_attention``'s as a yardstick only
     (``library_ms``; the port never calls it), and the bound: the larger
     of the tensor-core FLOPs the work needs with causal skipping
@@ -3382,7 +3411,7 @@ def attention_a1(device, card: str) -> dict:
         fns = {
             "kernel": lambda q, k, v: fa.attention(q, k, v, causal=True,
                                                    scale=scale),
-            "plain": lambda q, k, v: mattn._plain(
+            "plain": lambda q, k, v: float32_copies(mattn._plain)(
                 q, k, v, cfg=cfg, positions=pos, kpos=pos, causal=True,
                 scale=scale),
             "library": lambda q, k, v: F.scaled_dot_product_attention(
@@ -3452,6 +3481,160 @@ def attention_a1(device, card: str) -> dict:
               f"{rel['plain']!r} (limit 1.25 x plain + 1e-4); out against "
               f"plain max abs {err!r}; [{card}]")
     return out
+
+
+#: G1's and the product's timed shapes at stablelm-1.6b's widths: the
+#: MLP's wi/wg and the untied head, (label, rows M = B x S, K, N)
+G1_SHAPES = (("stablelm-1.6b mlp", 8192, 2048, 5632),
+             ("stablelm-1.6b head", 8192, 2048, 100352))
+G1_REPS = 10
+G1_PARTS = ("out", "da", "db")
+
+
+def dot_g1(device, card: str) -> dict:
+    """G1 (``kernels/bf16split.py``) and the float32-result product it
+    serves (``layers._BF16F32Dot``) at stablelm-1.6b's MLP and head
+    shapes (:data:`G1_SHAPES`). G1 on a random float32 cotangent (M, N)
+    and, where the product cuts the head into column blocks
+    (``layers.SPLIT_BLOCK_BYTES``), on the first block as the backward
+    reads it: its pieces bitwise its plain version's (``split_ref`` on
+    the card) and summing to the cotangent in float64; its ms (CUDA
+    events) against the plain version's and its bound (4 bytes read and
+    6 written a value at 3.35 TB/s). The product forward and backward
+    (``layers.dot(f32=True)`` on bf16 CUDA tensors) against the float32
+    copies the port ran before (``torch.einsum`` of ``.float()``
+    copies), in ms, and both held to float64 on the first 512 rows (dA,
+    out) and whole (dB): the new route's norm-wise error at most 1.25x
+    the copies' plus 1e-4, and each route's dA and dB elementwise within
+    half a bf16 ulp of float64's plus 2^-10 of its rms (raises past
+    either)."""
+    import torch
+    from repro_torch.kernels import bf16split
+    from repro_torch.models import layers
+    out = {}
+    for label, m, k, n in G1_SHAPES:
+        g = torch.Generator(device=device).manual_seed(m + n)
+        cot = torch.randn((m, n), generator=g, device=device) * \
+            torch.exp2(torch.randint(-20, 20, (m, n), generator=g,
+                                     device=device).float())
+        width = n if 6 * m * n <= layers.SPLIT_BLOCK_BYTES else \
+            max(64, layers.SPLIT_BLOCK_BYTES // (6 * m) // 64 * 64)
+        g1 = {}
+        for part, x in (("whole", cot), ("block", cot[:, :width])):
+            if part == "block" and width == n:
+                continue
+            got = bf16split.split(x)
+            if not torch.equal(got.view(torch.int16),
+                               bf16split.split_ref(x).view(torch.int16)):
+                raise AssertionError(f"G1 {label} {part}: pieces differ "
+                                     f"from the plain version's")
+            if not torch.equal(got.double().sum(1), x.double()):
+                raise AssertionError(f"G1 {label} {part}: pieces do not "
+                                     f"sum to the cotangent")
+            del got
+            nbytes = 10 * x.shape[0] * x.shape[1]
+            g1[part] = {
+                "shape": list(x.shape),
+                "ms": time_ms(lambda: bf16split.split(x), G1_REPS),
+                "plain_ms": time_ms(lambda: bf16split.split_ref(x), 3),
+                "bytes": nbytes,
+                "bound_ms": 1e3 * nbytes / MEM_BYTES_PER_S}
+            torch.cuda.empty_cache()
+        del cot
+        x = torch.randn((2, m // 2, k), generator=g,
+                        device=device).to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=g, device=device) *
+             k ** -0.5).to(torch.bfloat16)
+        dout = torch.randn((2, m // 2, n), generator=g, device=device)
+        eq = "...d,dv->...v"
+        fns = {"tensor_cores": lambda a, b: layers.dot(eq, a, b, f32=True),
+               "float32_copies": lambda a, b: torch.einsum(
+                   eq, a.float(), b.float())}
+        ms, got = {}, {}
+        for name, fn in fns.items():
+            with torch.no_grad():
+                fwd = time_ms(lambda: fn(x, w), G1_REPS)
+            xx, ww = x.clone().requires_grad_(), w.clone().requires_grad_()
+            o = fn(xx, ww)
+            bwd = time_ms(lambda: torch.autograd.grad(
+                o, (xx, ww), dout, retain_graph=True), G1_REPS)
+            ms[name] = {"fwd": fwd, "bwd": bwd}
+            da, db = torch.autograd.grad(o, (xx, ww), dout)
+            got[name] = (o.detach()[0, :512], da[0, :512], db)
+            del o, xx, ww, da, db
+            torch.cuda.empty_cache()
+        x64, w64 = x[0, :512].double(), w.double()
+        want = (x64 @ w64, dout[0, :512].double() @ w64.T,
+                x.flatten(0, 1).double().T @ dout.flatten(0, 1).double())
+        rel = {name: {part: float((t.double() - ref).norm() / ref.norm())
+                      for part, t, ref in zip(G1_PARTS, got[name], want)}
+               for name in got}
+        # each gradient is a float32 sum rounded once to bf16: within half
+        # a bf16 ulp of the exact value, plus 2^-10 of its rms for the
+        # float32 sum's own error (tensor-core sums over the head's
+        # pieces reach about 2^-11 of it on an H100); a cotangent rounded
+        # to bf16 before its product lands 5-7 times past that
+        ulp = {name: {part: float(((t.double() - ref).abs() / (
+                   2.0 ** -8 * ref.abs() +
+                   2.0 ** -10 * ref.norm() / ref.numel() ** 0.5)).max())
+                      for part, t, ref in zip(G1_PARTS[1:], got[name][1:],
+                                              want[1:])}
+               for name in got}
+        del want, got, x64, w64
+        torch.cuda.empty_cache()
+        for part in G1_PARTS:
+            e_new = rel["tensor_cores"][part]
+            e_old = rel["float32_copies"][part]
+            if not e_new <= 1.25 * e_old + 1e-4:
+                raise AssertionError(
+                    f"product {label}: {part}'s error against float64 "
+                    f"{e_new!r}, past 1.25 x the float32 copies' "
+                    f"{e_old!r} + 1e-4")
+        for name, worst in ulp.items():
+            if not all(r <= 1.0 for r in worst.values()):
+                raise AssertionError(
+                    f"product {label} ({name}): a gradient past half a "
+                    f"bf16 ulp of float64's + 2^-10 of its rms, by "
+                    f"{worst!r}")
+        out[label] = {"g1": g1, "ms": ms, "rel_err_vs_float64": rel,
+                      "worst_vs_bf16_rounding": ulp}
+        print(f"time G1 bf16x3 split {label}: "
+              + "; ".join(f"{part} {v['shape']}: kernel {v['ms']!r} ms, "
+                          f"plain {v['plain_ms']!r} ms, bound "
+                          f"{v['bound_ms']!r} ms by bytes ({v['bytes']} "
+                          f"bytes, {v['bound_ms'] / v['ms']!r} of it)"
+                          for part, v in g1.items())
+              + f"; product (M={m} K={k} N={n}) tensor cores fwd "
+              f"{ms['tensor_cores']['fwd']!r} ms, bwd "
+              f"{ms['tensor_cores']['bwd']!r} ms; float32 copies fwd "
+              f"{ms['float32_copies']['fwd']!r} ms, bwd "
+              f"{ms['float32_copies']['bwd']!r} ms; norm-wise error "
+              f"against float64 {rel!r}; elementwise, the worst share of "
+              f"half a bf16 ulp + 2^-10 of the rms {ulp!r}; [{card}]")
+        del x, w, dout
+        torch.cuda.empty_cache()
+    return out
+
+
+def g1_records(wall: dict) -> list:
+    """The ``kernels`` record of G1: its times at each timed shape, the
+    main path's C calls a step (phase 9(b)'s stablelm-1.6b step)."""
+    return [{"name": "bf16x3_split", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/bf16split.cu",
+             "replaces": None,
+             "launches": wall["lm"]["stablelm_1_6b"]["g1_calls_per_step"]
+             if "stablelm_1_6b" in wall.get("lm", {}) else None,
+             "max_abs_err": 0.0,
+             "ms": {f"{label} {part}": v["ms"]
+                    for label, d in wall["g1"].items()
+                    for part, v in d["g1"].items()},
+             "plain_ms": {f"{label} {part}": v["plain_ms"]
+                          for label, d in wall["g1"].items()
+                          for part, v in d["g1"].items()},
+             "bound_ms": {f"{label} {part}": v["bound_ms"]
+                          for label, d in wall["g1"].items()
+                          for part, v in d["g1"].items()},
+             "bound_by": "bytes", "library_ms": None}]
 
 
 def a1_records(wall: dict) -> list:
@@ -4456,7 +4639,7 @@ def mesh_step(device, card: str) -> dict:
     from repro_torch import sharding
     from repro_torch.configs import get_config
     from repro_torch.launch.rules import rules_for
-    from repro_torch.models import attention
+    from repro_torch.models import attention, layers
     from repro_torch.models.transformer import LM, tree_leaves
     from repro_torch.train import optim, step
     cfg = get_config(MESH_ARCH)
@@ -4486,14 +4669,18 @@ def mesh_step(device, card: str) -> dict:
     batch = lm_batch(cfg, LM_BATCH, LM_SEQ, device, seed + 1)
     opt = optim.OptConfig(warmup_steps=1)
     # a sharded step keeps the plain attention loop (A1 takes plain
-    # tensors only), so the plain step it is held to takes that loop too
-    fused = attention._fused
+    # tensors only) and the float32 copies of its float32-result products
+    # (the tensor-core route takes plain tensors only), so the plain step
+    # it is held to takes them too
+    fused, tensor_cores = attention._fused, layers._tensor_cores
     attention._fused = lambda q: False
+    layers._tensor_cores = lambda a, b: False
     try:
         state, want, plain_ms = run(state, batch,
                                     step.make_train_step(lm, opt))
     finally:
         attention._fused = fused
+        layers._tensor_cores = tensor_cores
     params = state["params"]
     del lm, state
     torch.cuda.empty_cache()
@@ -5875,6 +6062,7 @@ def later_phases(phases, device, card: str, tree=None) -> dict:
                 card)
     # -- 9. the LM stack (A1, its attention kernel, on its path)
     if "9" in phases:
+        wall["g1"] = dot_g1(device, card)
         wall["a1"] = attention_a1(device, card)
         wall["lm"] = lm_phase(device, card)
     # -- 10. the trainer on the card; 11. LM serving (no kernel of B1-B9)
@@ -6136,7 +6324,7 @@ def main(argv=None) -> int:
     wall.update(later_phases(phases or PHASES, device, card, tree))
     print(json.dumps({"main_path": wall, "card": card}))
     if records is not None:
-        records += a1_records(wall)
+        records += a1_records(wall) + g1_records(wall)
         print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, **({"phases": list(phases)} if phases
                                      else {}), "device": {

@@ -43,6 +43,8 @@ SIGNATURES = {
     # csrc/attention.cu
     "attn_fwd": [_p, _p, _p, _p, _p, *[_i32] * 8, _f32, _i32, _p],
     "attn_bwd": [*[_p] * 10, *[_i32] * 8, _f32, _i32, _p],
+    # csrc/bf16split.cu
+    "bf16x3_split": [_p, _p, _i64, _i64, _i64, _i32, _p],
     # csrc/raster.cu
     "raster_slice_f64": [_p, _p, _i64, _p, _p, _p, _i64, _i32, _i32, _f64,
                          _p, _p, _i32, _p],

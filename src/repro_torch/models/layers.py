@@ -11,11 +11,26 @@ Init is the reference's: a default-scaled leaf is drawn at
 
 Numerics follow the reference einsum by einsum. Where it asks for a
 float32 result of compute-dtype inputs (``preferred_element_type=f32``
-and no cast after), :func:`dot` multiplies float32 copies of the
-operands: bf16 products are exact in float32, so the result is the
-reference's up to the order of the sums. Where the reference casts the
-float32 result back to the compute dtype, the product runs in that
-dtype, whose kernels also accumulate in float32.
+and no cast after), :func:`dot` gives the float32 sum of exact
+products: a bf16 x bf16 product is exact in float32. On the card
+(plain CUDA tensors in bf16) that is one bf16 tensor-core GEMM with a
+float32 result on the operands as they are (``torch.mm``/``bmm`` with
+``out_dtype``; :class:`_BF16F32Dot`), which saves the bf16 operands for
+the backward. The backward follows the reference's transpose rule
+(``jax/_src/lax/lax.py`` ``_dot_general_transpose_lhs``/``_rhs``):
+the float32 cotangent times the operand, rounded to the operand's dtype
+once. Rounding the cotangent to bf16 before the product would lose
+precision, so it is split exactly into three bf16 pieces, hi + mid + lo
+(``kernels.bf16split``, G1), and each gradient is one bf16 GEMM of the
+pieces against the saved operand, accumulated in float32 over all three
+pieces and the whole contraction. On the CPU, and for DTensors, the
+product multiplies float32 copies of the operands. Both routes sum the
+same exact products in float32; they differ in the order and the
+accumulation of the sums, and the tensor cores' land further from the
+exact sum than the copies' FMA chains (norm-wise, against float64,
+about 2e-6 against 4e-7 in stablelm-1.6b's MLP and head). Where the
+reference casts the float32 result back to the compute dtype, the
+product runs in that dtype, whose kernels also accumulate in float32.
 
 :func:`wcast` and the ``sharding.constrain`` calls stand where the
 reference's stand: inside ``sharding.use_rules`` they pin a DTensor's
@@ -27,12 +42,15 @@ axes and its ``meta`` tensors (the reference's ``ShapeDtypeStruct``s).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from .. import sharding
+from ..kernels import bf16split
+from . import probe
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -105,11 +123,216 @@ def pin_out(y):
 def dot(eq: str, a, b, *, f32: bool):
     """``einsum(eq, a, b)`` with ``b`` cast to ``a``'s dtype; with ``f32``
     a float32 result, else one in ``a``'s dtype (see the module
-    docstring)."""
+    docstring). Under a traced step each ``f32`` product of the forward
+    is counted, and whether it took the tensor cores
+    (``StepProbe.count_dot``)."""
     b = sharding.cast(b, a.dtype)
-    if f32:
-        return sharding.einsum(eq, a.float(), b.float())
-    return sharding.einsum(eq, a, b)
+    if not f32:
+        return sharding.einsum(eq, a, b)
+    plan = _bmm_plan(eq, tuple(a.shape), tuple(b.shape)) \
+        if _tensor_cores(a, b) else None
+    if probe.ACTIVE is not None:
+        probe.ACTIVE.count_dot(plan is not None)
+    if plan is not None:
+        return _BF16F32Dot.apply(a, b, plan)
+    return sharding.einsum(eq, a.float(), b.float())
+
+
+_PLAIN = (torch.Tensor, torch.nn.Parameter)
+#: the cotangent's pieces a backward product takes at once, in bytes;
+#: past it the products run over column blocks of the cotangent (each
+#: block costs four launches; stablelm-1.6b's head takes three). Whole
+#: pieces leave the benchmark cells' peaks as they are, but put
+#: recurrentgemma-2b's 256,000-word head (12.6 GB of pieces) out of an
+#: 80 GB card
+SPLIT_BLOCK_BYTES = 2 * 2 ** 30
+
+
+def _tensor_cores(a, b) -> bool:
+    """Whether a float32-result :func:`dot` takes :class:`_BF16F32Dot`:
+    plain (not DTensor) CUDA tensors in bf16. A float32 operand keeps the
+    float32 product, the CPU keeps it to stay the reference's bit for
+    bit, and a sharded step keeps it too (the dry-run plans count its
+    collectives)."""
+    return type(a) in _PLAIN and type(b) in _PLAIN and a.is_cuda and \
+        a.dtype == torch.bfloat16 and b.dtype == torch.bfloat16
+
+
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """``einsum(eq, a, b)`` as one product ``A (G, M, K) @ B (G, K, N)``
+    (no G where no label is shared by both operands and the output):
+    each operand permuted (None: as it is) and reshaped, the (G, M, N)
+    result reshaped to (batch, a's free, b's free) and permuted to the
+    output's labels."""
+    perm_a: tuple | None
+    perm_b: tuple | None
+    shape_a: tuple        # a permuted, then A
+    shape_b: tuple
+    canon_a: tuple
+    canon_b: tuple
+    canon_c: tuple        # (G, M, N) or (M, N)
+    shape_c: tuple        # the result before its permutation
+    perm_c: tuple | None
+
+    def operands(self, a, b) -> tuple:
+        a = a if self.perm_a is None else a.permute(self.perm_a)
+        b = b if self.perm_b is None else b.permute(self.perm_b)
+        return a.reshape(self.canon_a), b.reshape(self.canon_b)
+
+    def result(self, c):
+        c = c.reshape(self.shape_c)
+        return c if self.perm_c is None else c.permute(self.perm_c)
+
+    def cotangent(self, g):
+        if self.perm_c is not None:
+            g = g.permute(_inverse(self.perm_c))
+        return g.reshape(self.canon_c)
+
+    def grads(self, da, db) -> tuple:
+        if da is not None:
+            da = da.reshape(self.shape_a)
+            if self.perm_a is not None:
+                da = da.permute(_inverse(self.perm_a))
+        if db is not None:
+            db = db.reshape(self.shape_b)
+            if self.perm_b is not None:
+                db = db.permute(_inverse(self.perm_b))
+        return da, db
+
+
+def _inverse(perm: tuple) -> tuple:
+    return tuple(sorted(range(len(perm)), key=perm.__getitem__))
+
+
+@functools.lru_cache(maxsize=512)
+def _bmm_plan(eq: str, sa: tuple, sb: tuple) -> _Plan | None:
+    """The :class:`_Plan` of ``einsum(eq)`` on operands of shapes ``sa``
+    and ``sb``; None where it is no single product: a label repeated in
+    a term, summed in one operand alone, or of two sizes."""
+    lhs, out = eq.replace(" ", "").split("->")
+    ta, tb = lhs.split(",")
+    n_ell = max(len(sa) - len(ta.replace("...", "")),
+                len(sb) - len(tb.replace("...", "")), 0)
+    la = sharding._labels(ta, len(sa), n_ell)
+    lb = sharding._labels(tb, len(sb), n_ell)
+    lo = sharding._labels(out, len(out.replace("...", "")) + n_ell, n_ell)
+    if any(len(set(t)) != len(t) for t in (la, lb, lo)):
+        return None
+    size: dict = {}
+    for label, n in zip(la + lb, sa + sb):
+        if size.setdefault(label, n) != n:
+            return None
+    batch = [x for x in lo if x in la and x in lb]
+    free_a = [x for x in la if x in lo and x not in lb]
+    free_b = [x for x in lb if x in lo and x not in la]
+    con = [x for x in la if x in lb and x not in lo]
+    if sorted(la) != sorted(batch + free_a + con) or \
+            sorted(lb) != sorted(batch + con + free_b) or \
+            sorted(lo) != sorted(batch + free_a + free_b):
+        return None
+
+    def perm(order, labels):
+        p = tuple(labels.index(x) for x in order)
+        return None if p == tuple(range(len(p))) else p
+
+    def n_of(labels):
+        return math.prod(size[x] for x in labels)
+
+    g = (n_of(batch),) if batch else ()
+    m, k, n = n_of(free_a), n_of(con), n_of(free_b)
+    canon = batch + free_a + free_b
+    return _Plan(
+        perm_a=perm(batch + free_a + con, la),
+        perm_b=perm(batch + con + free_b, lb),
+        shape_a=tuple(size[x] for x in batch + free_a + con),
+        shape_b=tuple(size[x] for x in batch + con + free_b),
+        canon_a=(*g, m, k), canon_b=(*g, k, n), canon_c=(*g, m, n),
+        shape_c=tuple(size[x] for x in canon), perm_c=perm(lo, canon))
+
+
+def _gemm(x, y, acc=None, out=None):
+    """``acc + x @ y`` (``acc`` None: 0) in float32 of bf16 ``x``, ``y``,
+    into ``out`` if given: on the card one tensor-core GEMM with a
+    float32 result (float32 accumulation, ``acc`` added in its
+    epilogue); on the CPU, the plain version, a float32 product of
+    float32 copies."""
+    if not x.is_cuda:
+        r = torch.matmul(x.float(), y.float())
+        r = r if acc is None else acc + r
+        return r if out is None else out.copy_(r)
+    f32 = torch.float32
+    if acc is not None:
+        return (torch.baddbmm if x.ndim == 3 else torch.addmm)(
+            acc, x, y, out_dtype=f32)
+    mm = torch.bmm if x.ndim == 3 else torch.mm
+    if out is None:
+        return mm(x, y, out_dtype=f32)
+    if out.is_contiguous():
+        return mm(x, y, out_dtype=f32, out=out)
+    return out.copy_(mm(x, y, out_dtype=f32))
+
+
+def _backward_products(g, a, b, need_a: bool, need_b: bool) -> tuple:
+    """(dA, dB) = (g Bᵀ, Aᵀ g), each rounded once to its operand's dtype
+    (None where not needed), of the float32 cotangent g (…, M, N) and
+    the bf16 operands a (…, M, K) and b (…, K, N): g's exact pieces
+    (``bf16split``, (rows, 3, w)) against the operand, one product over
+    all three pieces, in column blocks of g whose pieces take at most
+    :data:`SPLIT_BLOCK_BYTES` (multiples of 64 columns). dA multiplies
+    the pieces side by side, (…, M, 3w), by bᵀ's block stacked thrice,
+    (…, 3w, K), adding block to block in the GEMM's float32 epilogue;
+    dBᵀ's rows of the block are the pieces row by row, (…, 3M, w)ᵀ,
+    times a with each row thrice, (…, 3M, K)."""
+    lead, (m, n) = g.shape[:-2], g.shape[-2:]
+    k = a.shape[-1]
+    rows = g.numel() // max(n, 1)
+    width = n if 6 * rows * n <= SPLIT_BLOCK_BYTES else \
+        max(64, SPLIT_BLOCK_BYTES // (6 * rows) // 64 * 64)
+    da = dbt = None
+    if need_b:
+        a3 = a.unsqueeze(-2).expand(*a.shape[:-1], 3, k).reshape(
+            *lead, 3 * m, k)
+        dbt = torch.empty((*lead, n, k), dtype=torch.float32,
+                          device=g.device)
+    for n0 in range(0, n, width):
+        w = min(width, n - n0)
+        gc, bc, dc = (g, b, dbt) if w == n else (
+            g[..., n0:n0 + w], b[..., n0:n0 + w],
+            dbt[..., n0:n0 + w, :] if need_b else None)
+        p = bf16split.split(gc.reshape(rows, w))
+        if need_a:
+            bt = bc.mT
+            da = _gemm(p.view(*lead, m, 3 * w),
+                       torch.cat((bt, bt, bt), dim=-2), da)
+        if need_b:
+            _gemm(p.view(*lead, 3 * m, w).mT, a3, out=dc)
+    return (da.to(a.dtype) if need_a else None,
+            dbt.mT.to(b.dtype) if need_b else None)
+
+
+class _BF16F32Dot(torch.autograd.Function):
+    """A float32-result product of bf16 operands on the tensor cores
+    (the module docstring): forward one GEMM with a float32 result,
+    backward the exact three-piece split of the cotangent and one GEMM
+    per gradient, each gradient rounded to bf16 once. Saves the bf16
+    operands. On CPU tensors the GEMMs run on float32 copies (the plain
+    version, for the tests)."""
+
+    @staticmethod
+    def forward(ctx, a, b, plan):
+        x, y = plan.operands(a, b)
+        ctx.save_for_backward(x, y)
+        ctx.plan = plan
+        return plan.result(_gemm(x, y))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        plan = ctx.plan
+        da, db = _backward_products(plan.cotangent(g), x, y,
+                                    *ctx.needs_input_grad[:2])
+        return (*plan.grads(da, db), None)
 
 
 def gelu(x):

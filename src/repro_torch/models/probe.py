@@ -25,6 +25,10 @@ probe while ``obs.TRACER`` is enabled; otherwise :data:`ACTIVE` is
 - **Attention route.** ``attention.multihead`` counts its calls and
   those the fused kernel took (:meth:`StepProbe.count_attention`), once
   per forward (not in remat's recompute), on the host.
+- **Float32-result products.** ``layers.dot`` counts its products with
+  a float32 result and those that took the tensor cores
+  (:meth:`StepProbe.count_dot`), once per forward (not in remat's
+  recompute), on the host.
 - **MoE routing.** ``moe._dispatch`` counts the step's routed
   assignments, those to the experts held here and those of them past
   an expert's capacity in their group (:meth:`StepProbe.count_moe`),
@@ -97,6 +101,7 @@ class StepProbe:
         self.moe_routed = 0
         self._moe_held = self._moe_dropped = None
         self.attn_calls = self.attn_kernel = 0
+        self.dot_f32 = self.dot_tc = 0
 
     @contextlib.contextmanager
     def active(self):
@@ -198,3 +203,19 @@ class StepProbe:
             return {}
         return {"attn_calls": self.attn_calls,
                 "attn_kernel": self.attn_kernel}
+
+    # ---------------------------------------------------- product counters
+    def count_dot(self, tensor_cores: bool) -> None:
+        """Add one float32-result product of the step's forward, taken by
+        the tensor cores (``layers._BF16F32Dot``) or not."""
+        if in_backward():
+            return
+        self.dot_f32 += 1
+        self.dot_tc += int(tensor_cores)
+
+    def dot_counts(self) -> dict:
+        """{"dot_f32", "dot_tc"} where the step made a float32-result
+        product, else {}."""
+        if not self.dot_f32:
+            return {}
+        return {"dot_f32": self.dot_f32, "dot_tc": self.dot_tc}

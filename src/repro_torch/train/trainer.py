@@ -210,9 +210,11 @@ class Trainer:
         profiler). ``train.step`` carries ``host_syncs`` (the card only:
         the step's synchronizing CUDA calls, ``train.syncs``) and, where
         the model routes tokens, ``moe_assigned`` and ``moe_dropped``,
-        read at its end, and where it attends, ``attn_calls`` and
+        read at its end, where it attends, ``attn_calls`` and
         ``attn_kernel`` (the forward's attention calls and those the
-        fused kernel took). After it, one span per marked region
+        fused kernel took), and where it makes float32-result products,
+        ``dot_f32`` and ``dot_tc`` (the forward's, and those that took
+        the tensor cores). After it, one span per marked region
         (``models.probe``), with ``args`` ``device_ms`` (the stream's
         time in the region, idle included, summed over its layers) and
         ``calls``. A region span starts at the host time of the region's
@@ -231,7 +233,8 @@ class Trainer:
                     metrics = {k: float(v) for k, v in metrics.items()}
             if counter is not None:
                 sp.set(host_syncs=counter.count)
-            sp.set(**pr.moe_counts(), **pr.attn_counts())
+            sp.set(**pr.moe_counts(), **pr.attn_counts(),
+                   **pr.dot_counts())
         for region, (ms, calls, t0) in pr.device_times().items():
             TRACER.record(region, t0, t0 + ms * 1e3, cat="train",
                           parent=sp.context(),

@@ -24,12 +24,14 @@ import importlib.util
 import math
 import types
 from pathlib import Path
+from unittest import mock
 
 import pytest
 import torch
 
 from repro_torch.kernels import attention as fa
 from repro_torch.models import attention as mattn
+from repro_torch.models import layers
 from repro_torch.models import probe
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,11 +51,16 @@ def _cfg(h, hkv, s, window):
 
 
 def _plain(q, k, v, causal, window):
+    """The plain version, its float32-result products on float32 copies
+    of their operands (on the card ``layers.dot`` would take the tensor
+    cores and their split kernel, G1, which the kernel is not held
+    to)."""
     pos = torch.arange(q.shape[1], device=q.device)
     kpos = torch.arange(k.shape[1], device=q.device)
-    return mattn._plain(q, k, v, cfg=_cfg(q.shape[2], k.shape[2],
-                                          q.shape[1], window),
-                        positions=pos, kpos=kpos, causal=causal)
+    with mock.patch.object(layers, "_tensor_cores", lambda a, b: False):
+        return mattn._plain(q, k, v, cfg=_cfg(q.shape[2], k.shape[2],
+                                              q.shape[1], window),
+                            positions=pos, kpos=kpos, causal=causal)
 
 
 def _visible(sq, sk, causal, window, device):

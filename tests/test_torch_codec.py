@@ -393,7 +393,8 @@ def test_library_named_by_every_source(tmp_path, monkeypatch):
     """One library over all of ``csrc/*.cu``; editing any source renames
     it, so a stale build is never loaded."""
     names = [p.name for p in cudalib.sources()]
-    assert names == ["attention.cu", "codec.cu", "raster.cu"]
+    assert names == ["attention.cu", "bf16split.cu", "codec.cu",
+                     "raster.cu"]
     for p in cudalib.sources():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(cudalib, "CSRC", tmp_path)
@@ -427,8 +428,8 @@ def c_prototypes(src) -> dict:
     return out
 
 
-@pytest.mark.parametrize("source", ["attention.cu", "codec.cu",
-                                    "raster.cu"])
+@pytest.mark.parametrize("source", ["attention.cu", "bf16split.cu",
+                                    "codec.cu", "raster.cu"])
 def test_c_prototypes_match_signatures(source):
     """Every entry of the source has ``cudalib.SIGNATURES``' argument
     count and, per argument, its pointer or integer width; each ends with
@@ -458,6 +459,10 @@ def test_c_prototypes_match_signatures(source):
         assert protos["attn_fwd"][5:14] == [ctypes.c_int32] * 8 + \
             [ctypes.c_float]
         assert protos["attn_bwd"][10:19] == protos["attn_fwd"][5:14]
+    elif source == "bf16split.cu":
+        # G1: g and the pieces, then rows, n and g's row stride in int64
+        assert protos["bf16x3_split"][:5] == [ctypes.c_void_p] * 2 + \
+            [ctypes.c_int64] * 3
     else:
         # B6 writes one buffer: four word inputs, four ints, one output
         assert protos["codec_encode_groups"][:9] == \

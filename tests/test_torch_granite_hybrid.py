@@ -11,6 +11,7 @@ import dataclasses
 import importlib.util
 import math
 from pathlib import Path
+from unittest import mock
 
 import pytest
 import torch
@@ -314,7 +315,8 @@ def test_kernel_takes_the_configs_scale_on_the_card():
     1/128: out, dq, dk and dv as close to float64 attention of the same
     bf16 inputs as the plain version at that scale (norm-wise error at
     most 1.25x the plain version's + 1e-4, the rule of
-    ``test_torch_attention_kernel.py``)."""
+    ``test_torch_attention_kernel.py``; the plain version's float32-result
+    products on float32 copies, as there)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import attention as fa
@@ -333,7 +335,8 @@ def test_kernel_takes_the_configs_scale_on_the_card():
                          *t, cfg=cfg, positions=pos, kpos=pos, causal=True,
                          scale=scale))):
         qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
-        out = fn(qq, kk, vv)
+        with mock.patch.object(layers, "_tensor_cores", lambda a, b: False):
+            out = fn(qq, kk, vv)
         out.backward(dout)
         errs[name] = [float((x.detach().double() - ref).norm() / ref.norm())
                       for x, ref in zip((out, qq.grad, kk.grad, vv.grad),

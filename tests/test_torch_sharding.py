@@ -243,15 +243,19 @@ def _mesh_step_against_plain(arch: str, device, backend: str):
     train = step.make_train_step(lm, optim.OptConfig(warmup_steps=1))
     want = []
     # a sharded step keeps the plain attention loop (the fused kernel
-    # takes plain CUDA tensors only), so the plain step takes it too
-    fused = attention._fused
+    # takes plain CUDA tensors only) and the float32 copies of its
+    # float32-result products (so does the tensor-core route), so the
+    # plain step takes them too
+    fused, tensor_cores = attention._fused, layers._tensor_cores
     attention._fused = lambda q: False
+    layers._tensor_cores = lambda a, b: False
     try:
         for _ in range(3):
             state, m = train(state, batch)
             want.append(m["loss"].clone())
     finally:
         attention._fused = fused
+        layers._tensor_cores = tensor_cores
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
